@@ -1,0 +1,29 @@
+"""Command-line entry point:
+
+    python -m pyratbay_tpu_torch -c config.cfg --device cuda
+"""
+import argparse
+import sys
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog='python -m pyratbay_tpu_torch',
+        description='Transit retrieval on PyTorch (CPU or CUDA)',
+    )
+    parser.add_argument('-c', '--cfile', metavar='CONFIG', required=True,
+                        help='configuration file to run')
+    parser.add_argument('--device', default='cpu',
+                        help="torch device, e.g. 'cpu' or 'cuda'")
+    parser.add_argument('--root', default=None,
+                        help="path substituted for '{ROOT}' in config paths")
+    parser.add_argument('--seed', type=int, default=0,
+                        help='random seed of the sampler')
+    args = parser.parse_args(argv)
+    from .driver import run
+    run(args.cfile, device=args.device, root=args.root, seed=args.seed)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,414 @@
+"""Forward-model setup: configuration -> static tables on a device.
+
+Port of pyratbay_tpu/model.py for the options the flagship transit
+retrieval uses: transit geometry, Guillot or isothermal T(p), free
+VMR models with bulk balancing, hydro_m/hydro_g radii, and the opacity
+types line_sample, cia, alkali and cloud (deck, lecavelier).  Other
+options raise NotImplementedError naming their ROADMAP.md item.
+
+Setup is host-side numpy, as in the JAX package; `to(device)` turns
+the static tables into tensors (float64 on the CPU, float32 on CUDA).
+The evaluation itself lives in retrieval/forward.py and
+retrieval/batched.py.
+"""
+import os
+
+import numpy as np
+import torch
+
+from . import constants as pc
+from .config import parser as cfg_parser
+from .device import resolve
+from .io import io as pio
+from .ops.grids import wavenumber_grid, WavenumberGrid
+from .atmosphere import geometry, hydro, profiles, vmr as vmr_models
+from .opacity.alkali import get_alkali_model
+from .opacity.cia import CIA
+from .opacity.clouds import Deck, Lecavelier
+from .opacity.line_sample import LineSample, wn_mask_tol
+from .spectrum.transit_kernel import transit_spectrum_ensemble
+
+__all__ = ['Model']
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f'{what} is not ported to pyratbay_tpu_torch yet '
+        f'(ROADMAP.md {item})'
+    )
+
+
+class Model:
+    """Forward spectroscopic model assembled from a configuration."""
+
+    def __init__(self, cfg, device=None, root=None, log=None):
+        if isinstance(cfg, str):
+            cfg = cfg_parser.parse(cfg, root=root)
+        self.cfg = cfg
+        self.rt_path = cfg.rt_path
+        self.maxdepth = cfg.maxdepth
+        if self.rt_path not in pc.TRANSMISSION_RT:
+            raise _not_ported(
+                f'rt_path = {self.rt_path}', 'A8 (emission/eclipse slice)')
+        if log is None:
+            from .logger import Log
+            log = Log(verb=cfg.verb if cfg.verb is not None else 1)
+        self.log = log
+        self._setup_spectrum()
+        self._setup_atmosphere()
+        self._setup_opacity()
+        self.to(device)
+
+    # ------------------------------------------------------------------
+    # Setup (host-side numpy, as pyratbay_tpu/model.py)
+
+    def _setup_spectrum(self):
+        cfg = self.cfg
+        wnlow = cfg.wnlow
+        wnhigh = cfg.wnhigh
+        if wnlow is None and cfg.wl_high is not None:
+            wnlow = 1.0 / cfg.wl_high
+        if wnhigh is None and cfg.wl_low is not None:
+            wnhigh = 1.0 / cfg.wl_low
+        if cfg.sampled_cs is not None:
+            _, _, _, wn = pio.read_opacity(cfg.sampled_cs[0], 'arrays')
+            mask = wn_mask_tol(wn, wnlow, wnhigh)
+            wn = wn[mask][::cfg.wl_thinning]
+            self.grid = WavenumberGrid(wn=wn, wnlow=wnlow, wnhigh=wnhigh)
+        else:
+            self.grid = wavenumber_grid(
+                wnlow=wnlow, wnhigh=wnhigh,
+                wnstep=cfg.wnstep, wlstep=cfg.wlstep,
+                resolution=cfg.resolution, wnosamp=cfg.wnosamp,
+            )
+        self.wn = self.grid.wn
+        self.nwave = len(self.wn)
+
+    def _setup_atmosphere(self):
+        cfg = self.cfg
+        in_press = in_temp = in_vmr = in_radius = None
+        in_species = None
+        source = None
+        if cfg.ptfile is not None and os.path.isfile(cfg.ptfile):
+            source = cfg.ptfile
+        elif cfg.atmfile is not None:
+            source = cfg.atmfile
+        if source is not None:
+            units, in_species, in_press, in_temp, in_vmr, in_radius = \
+                pio.read_atm(source)
+            punits, _, _, runits = units
+            in_press = in_press * pc.u(punits) / pc.bar
+            if in_radius is not None and runits is not None:
+                in_radius = in_radius * pc.u(runits)
+            if source == cfg.ptfile:
+                in_species = in_vmr = in_radius = None
+
+        calc_press = (
+            cfg.nlayers is not None and cfg.ptop is not None
+            and cfg.pbottom is not None
+        )
+        if calc_press:
+            press = np.asarray(
+                profiles.pressure(cfg.ptop, cfg.pbottom, cfg.nlayers))
+        elif in_press is not None:
+            press = np.asarray(in_press)
+        else:
+            raise ValueError(
+                'Cannot compute pressure profile, either set {ptop, '
+                'pbottom, nlayers} parameters, or provide an input PT '
+                'profile (ptfile) or atmospheric file (atmfile)'
+            )
+        nlayers = len(press)
+        if calc_press and in_press is not None and (
+                len(in_press) != nlayers or not np.allclose(in_press, press)):
+            raise _not_ported(
+                'Interpolating an input atmosphere onto a calculated '
+                'pressure grid', 'A2')
+
+        species = in_species
+        vmr = in_vmr
+        if cfg.chemistry is not None:
+            if cfg.chemistry != 'free':
+                raise _not_ported(
+                    f'chemistry = {cfg.chemistry}', 'A10 (atmosphere/chem.py)')
+            if cfg.species is not None:
+                species = list(cfg.species)
+            if species is None or cfg.uniform_vmr is None \
+                    or len(cfg.uniform_vmr) != len(species):
+                raise ValueError(
+                    'Free chemistry needs species and one uniform_vmr '
+                    'value per species'
+                )
+            vmr = vmr_models.uniform_vmr(
+                np.array(cfg.uniform_vmr, float), nlayers)
+            in_radius = None
+
+        self.press = press
+        self.nlayers = nlayers
+        self.species = None if species is None else list(species)
+        self.base_temp = in_temp
+        self.base_vmr = None if vmr is None else np.asarray(vmr)
+        self.input_radius = in_radius
+        if self.species is not None:
+            self.mol_mass, self.mol_radius = pio.species_properties(
+                self.species, cfg.molfile)
+        else:
+            self.mol_mass = self.mol_radius = None
+
+        self.temp_model = None
+        self.tpars = None if cfg.tpars is None else np.asarray(cfg.tpars)
+        if cfg.tmodelname is not None:
+            self.temp_model = profiles.get_tmodel(cfg.tmodelname, self.press)
+            if self.tpars is None and cfg.retrieval_params is None:
+                raise ValueError(
+                    'Not all temperature parameters were defined (tpars)'
+                )
+
+        self.rplanet = cfg.rplanet
+        mplanet, gplanet = cfg.mplanet, cfg.gplanet
+        if self.rplanet is not None:
+            if gplanet is not None and mplanet is None:
+                mplanet = gplanet * self.rplanet**2 / pc.G
+            if mplanet is not None:
+                gplanet = pc.G * mplanet / self.rplanet**2
+        self.mplanet = mplanet
+        self.gplanet = gplanet
+        self.refpressure = cfg.refpressure
+        self.rmodelname = cfg.rmodelname
+        self.rstar = cfg.rstar
+        self.rhill = hydro.hill_radius(cfg.smaxis, self.mplanet, cfg.mstar)
+        # Static radius scale for float32-safe transit geometry
+        # (pyratbay_tpu/model.py:355-363):
+        if self.rplanet is not None:
+            self._radius_scale = float(self.rplanet)
+        elif self.input_radius is not None:
+            self._radius_scale = float(np.mean(self.input_radius))
+        else:
+            self._radius_scale = 1.0
+        self._setup_vmr_models()
+
+    def _setup_vmr_models(self):
+        cfg = self.cfg
+        lines = [ln for ln in (cfg.vmr_vars or '').splitlines() if ln.strip()]
+        self.vmr_var_names = []
+        self.vmr_pars = []
+        has_pars = any(
+            _is_number(val) for ln in lines for val in ln.split()[1:])
+        may_retrieve = cfg.retrieval_params is not None
+        for ln in lines:
+            fields = ln.split()
+            if has_pars:
+                self.vmr_var_names.append(fields[0])
+                if len(fields) < 2:
+                    if not may_retrieve:
+                        raise ValueError(
+                            'Not all vmr parameter values were defined '
+                            '(vmr_vars)'
+                        )
+                    self.vmr_pars.append(None)
+                    continue
+                self.vmr_pars.append(np.array(fields[1:], float))
+            else:
+                self.vmr_var_names.extend(fields)
+        if not has_pars:
+            self.vmr_pars = None
+            if self.vmr_var_names and not may_retrieve:
+                raise ValueError(
+                    'Not all vmr parameter values were defined (vmr_vars)'
+                )
+
+        self.ifree = []
+        self._vmr_kinds = []
+        species = self.species or []
+        for var in self.vmr_var_names:
+            if var.startswith('log_'):
+                mol, kind = var[4:], 'iso'
+            elif var.startswith('scale_'):
+                mol, kind = var[6:], 'scale'
+            elif var.startswith('slant_'):
+                mol, kind = var[6:], 'slant'
+            elif var.startswith('[') or '/' in var:
+                raise _not_ported(
+                    f"Equilibrium vmr_vars '{var}'", 'A10 (atmosphere/chem.py)')
+            else:
+                raise ValueError(f"Unrecognized VMR model (vmr_vars): '{var}'")
+            if mol not in species:
+                raise ValueError(
+                    f"Invalid vmr_vars variable '{var}', species {mol} "
+                    'is not in the atmosphere'
+                )
+            self.ifree.append(species.index(mol))
+            self._vmr_kinds.append(kind)
+
+        self.bulk = cfg.bulk
+        self.ibulk = None
+        self.bulkratio = self.invsrat = None
+        if self.bulk is not None:
+            missing = np.setdiff1d(self.bulk, species)
+            if len(missing):
+                raise ValueError(
+                    f'These bulk species are not present in the '
+                    f'atmosphere: {missing}'
+                )
+            self.ibulk = [species.index(mol) for mol in self.bulk]
+            bratio = self.base_vmr[:, self.ibulk] \
+                / self.base_vmr[:, [self.ibulk[0]]]
+            bratio[:, 0] = 1.0
+            self.bulkratio = bratio
+            self.invsrat = 1.0 / np.sum(bratio, axis=1)
+
+    def _setup_opacity(self):
+        cfg = self.cfg
+        self.opacity_models = []   # (type, model, imol)
+        self.tmin = {}
+        self.tmax = {}
+        species = self.species or []
+        wn = self.wn
+
+        if cfg.sampled_cs is not None:
+            temp_array = None
+            if (cfg.tmin is not None and cfg.tmax is not None
+                    and cfg.tstep is not None):
+                ntemp = int((cfg.tmax - cfg.tmin) / cfg.tstep) + 1
+                tmax = cfg.tmin + (ntemp - 1) * cfg.tstep
+                temp_array = np.linspace(cfg.tmin, tmax, ntemp)
+            ls = LineSample(
+                cfg.sampled_cs, pressure=self.press, temperature=temp_array,
+                min_wn=self.grid.wnlow, max_wn=self.grid.wnhigh,
+                wl_thinning=cfg.wl_thinning,
+                isotope_ratios=cfg.isotope_ratios,
+            )
+            imol = [species.index(mol) for mol in ls.species]
+            self.opacity_models.append(('line_sample', ls, imol))
+            self.tmin['line_sample'] = ls.tmin
+            self.tmax['line_sample'] = ls.tmax
+
+        if cfg.tlifile is not None:
+            raise _not_ported('Line-by-line opacity (tlifile)', 'A9')
+        if cfg.alkali_models is not None:
+            for name in cfg.alkali_models:
+                model = get_alkali_model(
+                    name, self.press, wn, cutoff=cfg.alkali_cutoff)
+                imol = species.index(model.species)
+                self.opacity_models.append(('alkali', model, imol))
+        if cfg.continuum_cs is not None:
+            tmins, tmaxs = [], []
+            for cs_file in cfg.continuum_cs:
+                cia = CIA(cs_file, wn=wn)
+                imol = [species.index(mol) for mol in cia.species]
+                self.opacity_models.append(('cia', cia, imol))
+                tmins.append(cia.tmin)
+                tmaxs.append(cia.tmax)
+            self.tmin['cia'] = np.amax(tmins)
+            self.tmax['cia'] = np.amin(tmaxs)
+        if cfg.rayleigh is not None:
+            raise _not_ported('Rayleigh opacity', 'A3')
+
+        cloud_names, cloud_pars = cfg_parser.parse_var_vals(cfg.clouds)
+        for name, pars in zip(cloud_names, cloud_pars):
+            if name == 'deck':
+                model = Deck(self.press, wn)
+            elif name == 'lecavelier':
+                model = Lecavelier(self.press, wn)
+            else:
+                raise _not_ported(f'Cloud model {name!r}', 'A3')
+            if pars is None:
+                model.pars = [np.nan] * model.npars
+            else:
+                if len(pars) != model.npars:
+                    raise ValueError(
+                        f'Number of input parameters ({len(pars)}) does not '
+                        f'match required ({model.npars}) for model {name!r}'
+                    )
+                model.pars = list(np.asarray(pars, float))
+            self.opacity_models.append(('cloud', model, None))
+        if cfg.h_ion_model is not None:
+            raise _not_ported('H- opacity (h_ion)', 'A3')
+        if cfg.fpatchy is not None:
+            raise _not_ported('Patchy clouds (fpatchy)', 'A5')
+
+    # ------------------------------------------------------------------
+    # Tensors
+
+    def to(self, device=None):
+        """Put the static tables on `device` (float64 on the CPU,
+        float32 on CUDA); returns self."""
+        self.device, self.dtype = resolve(device)
+        tensor = lambda a: torch.as_tensor(
+            np.asarray(a, float), dtype=self.dtype, device=self.device)
+        self._press = tensor(self.press)
+        self._mol_mass = tensor(self.mol_mass)
+        self._base_vmr = tensor(self.base_vmr)
+        self._base_temp = (
+            None if self.base_temp is None else tensor(self.base_temp))
+        self._input_radius = (
+            None if self.input_radius is None else tensor(self.input_radius))
+        self._log_press = tensor(np.log10(self.press))
+        if self.bulk is not None:
+            self._bulkratio = tensor(self.bulkratio)
+            self._invsrat = tensor(self.invsrat)
+        for _, m, _ in self.opacity_models:
+            m.to(self.device, self.dtype)
+        return self
+
+    # ------------------------------------------------------------------
+    # Evaluation pieces shared by the forward builders
+
+    def eval_vmr(self, vmr_par_list, nchains):
+        """Free-VMR evaluation with bulk balancing (the free branch of
+        pyratbay_tpu Model._eval_vmr_pure): each entry of vmr_par_list
+        is a [B, npars] tensor or None -> vmr [B, l, nspecies]."""
+        base = self._base_vmr
+        if vmr_par_list is None or not self.ifree:
+            return base.expand(nchains, *base.shape)
+        profiles_list = []
+        for kind, imol, pars in zip(
+                self._vmr_kinds, self.ifree, vmr_par_list):
+            if kind == 'iso':
+                prof = vmr_models.iso_vmr(pars[:, 0], self.nlayers)
+            elif kind == 'scale':
+                prof = vmr_models.scale_vmr(base[:, imol], pars[:, 0])
+            else:
+                prof = vmr_models.slant_vmr(self._log_press, pars)
+            profiles_list.append(prof)
+        return vmr_models.vmr_scale(
+            base, profiles_list, self.ifree, self.ibulk,
+            self._bulkratio, self._invsrat,
+        )
+
+    def _run_transit(self, ec_parts, radius, rtop, deck_surface=None,
+                     cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None):
+        """Transit spectra [B, W] through the ensemble kernel (the
+        per-chain forward is this at B = 1, which replaces
+        pyratbay_tpu's per-chain transit_spectrum_fused).
+
+        Radius-normalized geometry: chords are computed on radius /
+        rscale (float32-safe) and rescaled; the scale cancels in the
+        (Rp/Rs)^2 output.
+        """
+        nb = radius.shape[0]
+        if deck_surface is not None:
+            deck_itop, rsurf, _ = deck_surface
+            ibottom = deck_itop + 1
+        else:
+            deck_itop = rsurf = None
+            ibottom = torch.full(
+                (nb,), self.nlayers, dtype=torch.int64, device=self.device)
+        rscale = self._radius_scale
+        rr = radius / rscale
+        path = geometry.transit_path_matrix(rr, rtop) * rscale
+        return transit_spectrum_ensemble(
+            ec_parts, path, rr, self.rstar / rscale, rtop, ibottom,
+            deck_itop=deck_itop,
+            deck_rsurf=None if rsurf is None else rsurf / rscale,
+            cia_w=cia_w, cia_tab=cia_tab, r1_cols=r1_cols, r1_rows=r1_rows,
+            maxdepth=self.maxdepth,
+        )
+
+
+def _is_number(value):
+    try:
+        float(value)
+        return True
+    except ValueError:
+        return False

@@ -1,0 +1,221 @@
+"""Observed data: band-integrated depths and their tophat passbands.
+
+Port of pyratbay_tpu/observation.py for data given in the config
+(data/uncert/filters) or an obsfile with tophat entries, plus the
+instrumental offset and error-scaling models.  Filter files, the
+bundled filter library and the high-resolution channel are not ported
+yet (ROADMAP.md A8/A10).
+"""
+import os
+
+import numpy as np
+import torch
+
+from . import constants as pc
+from .io import io as pio
+from .spectrum.passbands import Tophat, band_matrix
+
+__all__ = ['Observation']
+
+
+class Observation:
+    """Data points, uncertainties, and filter passbands."""
+
+    def __init__(self, cfg, wn, root=None):
+        self.data = None
+        self.uncert = None
+        self.filters = []
+        self.nbands = 0
+        self.band_wl = None
+        self._band_matrix = None
+        self.offset_inst = []
+        self.uncert_scaling = []
+
+        data = cfg.data
+        uncert = cfg.uncert
+        filters = cfg.filters
+        if cfg.obsfile is not None:
+            obs = pio.read_observations(cfg.obsfile)
+            data = obs['data']
+            uncert = obs['uncert']
+            filters = obs['filters']
+        if cfg.dunits is not None and cfg.data is not None:
+            scale = pc.u(cfg.dunits)
+            data = np.asarray(data, float) * scale
+            uncert = np.asarray(uncert, float) * scale
+        if data is not None:
+            self.data = np.asarray(data, float)
+        if uncert is not None:
+            self.uncert = np.asarray(uncert, float)
+        if self.data is not None and self.uncert is not None \
+                and len(self.data) != len(self.uncert):
+            raise ValueError(
+                f'Number of data uncertainty values ({len(self.uncert)}) '
+                'does not match the number of data points '
+                f'({len(self.data)})'
+            )
+
+        if filters is not None:
+            for entry in filters:
+                fields = str(entry).split()
+                if isinstance(entry, str) and (
+                        os.path.isfile(_expand(entry, root))
+                        or not (len(fields) >= 2 and _is_float(fields[-2]))):
+                    raise NotImplementedError(
+                        f'Filter {entry!r}: only tophat filters are ported '
+                        '(ROADMAP.md A10: passbands from files and the '
+                        'bundled filter library)'
+                    )
+                self.filters.append(Tophat(
+                    float(fields[-2]), float(fields[-1]), wn=wn,
+                ))
+            self.nbands = len(self.filters)
+            self.band_wl = np.array([band.wl0 for band in self.filters])
+            self._band_matrix = band_matrix(self.filters, len(wn))
+
+        if getattr(cfg, 'obsfile_hires', None) is not None:
+            raise NotImplementedError(
+                'High-resolution observations are not ported yet '
+                '(ROADMAP.md A8: the high-res channel)'
+            )
+        self.wn_hires = None
+        self.data_hires = None
+        self.inst_resolution = getattr(cfg, 'inst_resolution', None)
+
+        self.offset_pars = []
+        self.uncert_pars = []
+        if cfg.offset_inst is not None:
+            for entry in _param_lines(cfg.offset_inst):
+                fields = entry.split()
+                self.offset_inst.append(fields[0])
+                self.offset_pars.append(
+                    float(fields[1]) if len(fields) > 1 else 0.0
+                )
+        if cfg.uncert_scaling is not None:
+            for entry in _param_lines(cfg.uncert_scaling):
+                fields = entry.split()
+                self.uncert_scaling.append(fields[0])
+                self.uncert_pars.append(
+                    float(fields[1]) if len(fields) > 1 else 0.0
+                )
+
+        if self.data is not None and self.nbands:
+            if len(self.data) != self.nbands:
+                raise ValueError(
+                    f'Number of filter bands ({self.nbands}) does not '
+                    f'match the number of data points ({len(self.data)})'
+                )
+
+        self._offset_masks = []
+        for inst in self.offset_inst:
+            name = inst.replace('offset_', '').replace('_', ' ')
+            mask = np.array([
+                name in band.name.replace('_', ' ')
+                for band in self.filters
+            ])
+            if not mask.any():
+                raise ValueError(
+                    f"Invalid instrumental offset parameter '{inst}'. "
+                    f"There is no instrument matching the name '{name}'"
+                )
+            self._offset_masks.append(mask)
+
+        self._err_masks = []
+        self._err_modes = []
+        for var in self.uncert_scaling:
+            if var.startswith('err_scale_'):
+                mode = 'scale'
+                name = var[len('err_scale_'):]
+            elif var.startswith('err_quad_'):
+                mode = 'quadrature'
+                name = var[len('err_quad_'):]
+            else:
+                raise ValueError(
+                    f"Invalid error scaling parameter '{var}'. Valid "
+                    "options begin with: ['err_scale_', 'err_quad_']"
+                )
+            name = name.replace('_', ' ')
+            mask = np.array([
+                name in band.name.replace('_', ' ')
+                for band in self.filters
+            ])
+            if not mask.any():
+                raise ValueError(
+                    f"Invalid retrieval parameter '{var}'. There is "
+                    f"no instrument matching the name '{name}'"
+                )
+            self._err_masks.append(mask)
+            self._err_modes.append(mode)
+
+        self.units_scale = pc.u(cfg.dunits) if cfg.dunits else 1.0
+
+    def to(self, device, dtype):
+        """Materialize the band matrix, data and masks as tensors."""
+        tensor = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        self._bands_t = (
+            None if self._band_matrix is None
+            else tensor(self._band_matrix.T))
+        self._data = None if self.data is None else tensor(self.data)
+        self._uncert = None if self.uncert is None else tensor(self.uncert)
+        self._offset_masks_t = [
+            torch.as_tensor(m, device=device) for m in self._offset_masks]
+        self._err_masks_t = [
+            torch.as_tensor(m, device=device) for m in self._err_masks]
+        return self
+
+    def band_integrate(self, spectrum):
+        """Band-integrated values: spectrum [B, nwave] -> [B, nbands]."""
+        return spectrum @ self._bands_t
+
+    def offset_data(self, offset_pars):
+        """Data with per-instrument offsets: pars [B, noff] -> [B, nbands]."""
+        data = self._data[None, :]
+        for mask, par in zip(self._offset_masks_t, offset_pars.unbind(1)):
+            data = data + torch.where(
+                mask, par[:, None] * self.units_scale,
+                torch.zeros_like(data))
+        return data
+
+    def scale_uncert(self, err_pars):
+        """Inflated uncertainties: pars [B, nerr] -> [B, nbands]
+        ('err_scale_X': sigma*10**par; 'err_quad_X': quadrature sum)."""
+        uncert = self._uncert[None, :].expand(err_pars.shape[0], -1)
+        for mask, mode, par in zip(
+                self._err_masks_t, self._err_modes, err_pars.unbind(1)):
+            par = par[:, None]
+            if mode == 'scale':
+                uncert = torch.where(mask, uncert * 10.0**par, uncert)
+            else:
+                inflated = torch.sqrt(
+                    uncert**2 + (10.0**par * self.units_scale)**2)
+                uncert = torch.where(mask, inflated, uncert)
+        return uncert
+
+
+def _param_lines(value):
+    """Non-empty lines of a "name [value]" config block; a single-line
+    value with multiple bare names (legacy form) splits on whitespace."""
+    lines = [line.strip() for line in str(value).splitlines()]
+    lines = [line for line in lines if line]
+    if len(lines) == 1 and len(lines[0].split()) > 1:
+        fields = lines[0].split()
+        try:
+            float(fields[1])
+            return [lines[0]]
+        except ValueError:
+            return fields
+    return lines
+
+
+def _expand(path, root):
+    if root is not None:
+        path = path.replace('{ROOT}', root)
+    return path
+
+
+def _is_float(val):
+    try:
+        float(val)
+        return True
+    except ValueError:
+        return False

@@ -1,0 +1,144 @@
+"""Retrieval forward model: params -> (spectrum, bandflux).
+
+Port of pyratbay_tpu/retrieval/forward.py.  `build_state` maps a
+[B, npars] parameter ensemble onto the atmospheric state (T, VMR,
+densities, radius) for every chain at once; the per-chain forward and
+log-posterior are the batched ones (retrieval/batched.py) at B = 1.
+"""
+import numpy as np
+import torch
+
+from .. import constants as pc
+from ..atmosphere import hydro
+
+__all__ = ['build_state', 'build_forward', 'build_log_posterior']
+
+
+def build_state(model, ret=None):
+    """Build state(params [B, npars] or None) -> dict of batched state.
+
+    Same mapping as pyratbay_tpu forward.state (forward.py:124-217):
+    parameters overwrite the T(p), VMR and opacity-model slots and the
+    planet's radius, mass and reference pressure.
+    """
+    dev, dt = model.device, model.dtype
+    tensor = lambda a: torch.as_tensor(
+        np.asarray(a, float), dtype=dt, device=dev)
+    base_tpars = None if model.tpars is None else tensor(model.tpars)
+    base_pars = [
+        tensor(m.pars) if getattr(m, 'npars', 0) > 0 else None
+        for _, m, _ in model.opacity_models
+    ]
+    base_vmr_pars = model.vmr_pars
+    runits = pc.u(model.cfg.runits or 'rjup')
+    mass_units = pc.u(model.cfg.mass_units or 'mjup')
+
+    def state(params=None):
+        nb = 1 if params is None else params.shape[0]
+        tpars = None if base_tpars is None else base_tpars.expand(nb, -1)
+        vmr_par_list = None
+        if base_vmr_pars is not None:
+            vmr_par_list = [
+                None if p is None else tensor(p).expand(nb, -1)
+                for p in base_vmr_pars
+            ]
+        pars_list = [
+            None if p is None else p.expand(nb, -1) for p in base_pars
+        ]
+        rplanet = model.rplanet
+        mplanet = model.mplanet
+        refpress = model.refpressure
+
+        if ret is not None and params is not None:
+            if ret.itemp:
+                tpars = (
+                    base_tpars if base_tpars is not None
+                    else torch.zeros(len(ret.map_temp), dtype=dt, device=dev)
+                ).expand(nb, -1).clone()
+                tpars[:, ret.map_temp] = params[:, ret.itemp]
+            if ret.imol:
+                if vmr_par_list is None:
+                    vmr_par_list = [None] * len(model.vmr_var_names)
+                for i_par, slot in zip(ret.imol, ret.map_mol):
+                    vmr_par_list[slot] = params[:, i_par:i_par + 1]
+            for j, (idx, slots) in enumerate(
+                    zip(ret.iopacity, ret.map_opacity)):
+                if not idx:
+                    continue
+                pars = pars_list[j].clone()
+                pars[:, slots] = params[:, idx]
+                pars_list[j] = pars
+            if ret.irad is not None:
+                rplanet = params[:, ret.irad] * runits
+            if ret.imass is not None:
+                mplanet = params[:, ret.imass] * mass_units
+            if ret.ipress is not None:
+                refpress = 10.0 ** params[:, ret.ipress]
+            for name in ('ipatchy', 'idilut', 'itstar', 'irv'):
+                if getattr(ret, name, None) is not None:
+                    raise NotImplementedError(
+                        f'Retrieval parameter slot {name} is not ported yet '
+                        '(ROADMAP.md A8)'
+                    )
+
+        if tpars is not None and model.temp_model is not None:
+            temp = model.temp_model(tpars)
+        else:
+            temp = model._base_temp.expand(nb, -1)
+        vmr = model.eval_vmr(vmr_par_list, nb)
+        press = model._press
+        dens = hydro.ideal_gas_density(vmr, press, temp)
+        mm = hydro.mean_weight(vmr, model._mol_mass)
+        if model.rmodelname == 'hydro_m':
+            radius = hydro.hydro_m(press, temp, mm, mplanet, refpress, rplanet)
+        elif model.rmodelname == 'hydro_g':
+            gplanet = pc.G * mplanet / rplanet**2
+            radius = hydro.hydro_g(press, temp, mm, gplanet, refpress, rplanet)
+        elif model._input_radius is not None:
+            radius = model._input_radius.expand(nb, -1)
+        else:
+            raise ValueError('Transit geometry needs a radius profile')
+
+        rtop = torch.zeros(nb, dtype=torch.int64, device=dev)
+        if np.isfinite(model.rhill):
+            inside = radius < model.rhill
+            rtop = torch.where(
+                torch.any(inside, dim=1),
+                torch.argmax(inside.to(torch.int8), dim=1), rtop)
+        return {
+            'params': params, 'tpars': tpars, 'vmr_par_list': vmr_par_list,
+            'pars_list': pars_list, 'rplanet': rplanet, 'mplanet': mplanet,
+            'refpress': refpress, 'temp': temp, 'vmr': vmr, 'dens': dens,
+            'mm': mm, 'radius': radius, 'rtop': rtop,
+        }
+    return state
+
+
+def _unbatch(fn):
+    """Per-chain view of a batched function: params [npars] -> outputs
+    of the B = 1 evaluation with the chain axis dropped."""
+    def one(params=None):
+        if params is not None:
+            params = torch.as_tensor(params)[None]
+        out = fn(params)
+        if isinstance(out, dict):
+            return {k: v[0] for k, v in out.items()}
+        return out[0]
+    return one
+
+
+def build_forward(model, obs=None, ret=None):
+    """Per-chain forward(params [npars]) -> dict(spectrum [W],
+    bandflux [nbands], temperature [l], good): the batched forward at
+    B = 1, so its transit RT is one kernel launch at B = 1."""
+    from .batched import build_forward_batched
+    forward_b = build_forward_batched(model, obs, ret)
+    forward = _unbatch(forward_b)
+    forward.state = forward_b.state
+    return forward
+
+
+def build_log_posterior(model, obs, ret):
+    """Per-chain log-posterior(params [npars]) -> scalar tensor."""
+    from .batched import build_log_posterior_batched
+    return _unbatch(build_log_posterior_batched(model, obs, ret))
