@@ -2,11 +2,13 @@
 config of pyratbay_tpu/benchmark.py::make_flagship, built with the
 port.
 
-The flagship is an HD 209458 b-like transit retrieval: line-sampled
-H2O, H2-H2 CIA, Na alkali, a gray deck and a Lecavelier haze, a Guillot
-T(p), hydro_m radii and 7 retrieval parameters, 51 layers x ~3209
-wavenumbers at full size.  The table writers are copies of the JAX
-package's, so equal seeds write equal tables.
+The flagship is an HD 209458 b-like retrieval: line-sampled H2O, H2-H2
+CIA, Na alkali, a gray deck and a Lecavelier haze, a Guillot T(p),
+hydro_m radii and 7 retrieval parameters, 51 layers x ~3209
+wavenumbers at full size, in transit geometry or (rt_path = 'eclipse'
+or 'emission') through the plane-parallel emission solver.  The table
+writers are copies of the JAX package's, so equal seeds write equal
+tables.
 """
 import os
 import tempfile
@@ -60,9 +62,9 @@ def _synthetic_cia_table(path, species=('H2', 'H2'), seed=7):
 
 
 def make_flagship(workdir=None, nlayers=51, wl_low=1.1, wl_high=1.7,
-                  wnstep=1.0, device=None):
+                  wnstep=1.0, device=None, rt_path='transit'):
     """Write the flagship inputs into `workdir` and build the model on
-    `device`.
+    `device`, with the observing geometry `rt_path`.
 
     Returns (model, obs, ret, forward, example_params): forward is the
     per-chain forward (params [npars] -> dict of tensors).
@@ -93,7 +95,6 @@ def make_flagship(workdir=None, nlayers=51, wl_low=1.1, wl_high=1.7,
     _synthetic_cia_table(cia_file)
 
     sampling_key = f'wnstep = {wnstep}'
-    rt_path = 'transit'
     cfg_text = f"""[pyrat]
 runmode = spectrum
 verb = -1

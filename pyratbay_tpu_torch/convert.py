@@ -1,12 +1,13 @@
 """Static state across packages: numpy arrays in, the port's tensors out.
 
-`static_arrays` reads the static setup (grids, opacity tables, band
-matrix, parameter space and its slot maps) from a Model / Observation /
-RetrievalParams triple as numpy arrays.  It only reads attributes, so
-it works on the JAX package's objects as well as the port's without
-importing either.  `to_tensors` turns such a dict into the port's
-tensors, and `load_static` installs it into port objects, so tests can
-feed both packages the very same tables.
+`static_arrays` reads the static setup (grids, opacity tables, the
+star's flux, the emission quadrature, band matrix, parameter space and
+its slot maps) from a Model / Observation / RetrievalParams triple as
+numpy arrays.  It only reads attributes, so it works on the JAX
+package's objects as well as the port's without importing either.
+`to_tensors` turns such a dict into the port's tensors, and
+`load_static` installs it into port objects, so tests can feed both
+packages the very same tables.
 """
 import numpy as np
 
@@ -27,6 +28,9 @@ def static_arrays(model, obs, ret):
         'tpars': model.tpars,
         'bulkratio': model.bulkratio,
         'invsrat': model.invsrat,
+        'starflux': model.starflux,
+        'quadrature_mu': model.quadrature_mu,
+        'quadrature_weights': model.quadrature_weights,
         'band_matrix': obs._band_matrix,
         'data': obs.data,
         'uncert': obs.uncert,
@@ -80,7 +84,8 @@ def load_static(model, obs, ret, arrays):
     objects) into the port's Model/Observation/RetrievalParams and
     rebuild their tensors on the model's device."""
     for key in ('press', 'wn', 'base_vmr', 'mol_mass', 'tpars',
-                'bulkratio', 'invsrat'):
+                'bulkratio', 'invsrat', 'starflux', 'quadrature_mu',
+                'quadrature_weights'):
         setattr(model, key, arrays[key])
     for j, (mtype, m, _) in enumerate(model.opacity_models):
         if mtype == 'line_sample':

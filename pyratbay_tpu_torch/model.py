@@ -1,10 +1,13 @@
 """Forward-model setup: configuration -> static tables on a device.
 
 Port of pyratbay_tpu/model.py for the options the flagship transit
-retrieval uses: transit geometry, Guillot or isothermal T(p), free
-VMR models with bulk balancing, hydro_m/hydro_g radii, and the opacity
-types line_sample, cia, alkali and cloud (deck, lecavelier).  Other
-options raise NotImplementedError naming their ROADMAP.md item.
+and eclipse retrievals use: transit and plane-parallel emission
+geometry (rt_path transit, emission, eclipse, f_lambda) with a
+blackbody star and raygrid or Gauss quadrature, Guillot or isothermal
+T(p), free VMR models with bulk balancing, hydro_m/hydro_g radii, and
+the opacity types line_sample, cia, alkali and cloud (deck,
+lecavelier).  Other options raise NotImplementedError naming their
+ROADMAP.md item.
 
 Setup is host-side numpy, as in the JAX package; `to(device)` turns
 the static tables into tensors (float64 on the CPU, float32 on CUDA).
@@ -14,6 +17,7 @@ retrieval/batched.py.
 import os
 
 import numpy as np
+import scipy.constants as sc
 import torch
 
 from . import constants as pc
@@ -26,9 +30,16 @@ from .opacity.alkali import get_alkali_model
 from .opacity.cia import CIA
 from .opacity.clouds import Deck, Lecavelier
 from .opacity.line_sample import LineSample, wn_mask_tol
+from .spectrum import rt
+from .spectrum.emission_kernel import emission_flux_ensemble
+from .spectrum.starspec import bbflux
 from .spectrum.transit_kernel import transit_spectrum_ensemble
 
 __all__ = ['Model']
+
+# Geometries of the batched forward (pyratbay_tpu retrieval/batched.py
+# _BATCHED_RT):
+_RT_PATHS = pc.TRANSMISSION_RT + ['emission', 'eclipse', 'f_lambda']
 
 
 def _not_ported(what, item):
@@ -47,16 +58,18 @@ class Model:
         self.cfg = cfg
         self.rt_path = cfg.rt_path
         self.maxdepth = cfg.maxdepth
-        if self.rt_path not in pc.TRANSMISSION_RT:
+        if self.rt_path not in _RT_PATHS:
             raise _not_ported(
-                f'rt_path = {self.rt_path}', 'A8 (emission/eclipse slice)')
+                f'rt_path = {self.rt_path}', 'A10 (two-stream emission)')
         if log is None:
             from .logger import Log
             log = Log(verb=cfg.verb if cfg.verb is not None else 1)
         self.log = log
         self._setup_spectrum()
         self._setup_atmosphere()
+        self._setup_star()
         self._setup_opacity()
+        self._setup_quadrature()
         self.to(device)
 
     # ------------------------------------------------------------------
@@ -175,8 +188,11 @@ class Model:
         self.gplanet = gplanet
         self.refpressure = cfg.refpressure
         self.rmodelname = cfg.rmodelname
+        self.smaxis = cfg.smaxis
         self.rstar = cfg.rstar
-        self.rhill = hydro.hill_radius(cfg.smaxis, self.mplanet, cfg.mstar)
+        self.tstar = cfg.tstar
+        self.distance = cfg.distance
+        self.rhill = hydro.hill_radius(self.smaxis, self.mplanet, cfg.mstar)
         # Static radius scale for float32-safe transit geometry
         # (pyratbay_tpu/model.py:355-363):
         if self.rplanet is not None:
@@ -256,6 +272,36 @@ class Model:
             bratio[:, 0] = 1.0
             self.bulkratio = bratio
             self.invsrat = 1.0 / np.sum(bratio, axis=1)
+
+    def _setup_star(self):
+        """The stellar flux pi B(wn, tstar) of a blackbody star."""
+        cfg = self.cfg
+        if cfg.starspec is not None or cfg.kurucz is not None:
+            raise _not_ported(
+                'Stellar spectra from files (starspec, kurucz)',
+                'A8 (stellar spectra)')
+        self.starflux = None
+        self.star_is_blackbody = False
+        if self.tstar is not None:
+            self.starflux = np.asarray(bbflux(self.wn, self.tstar))
+            self.star_is_blackbody = True
+
+    def _setup_quadrature(self):
+        """Emission angles: Gauss quadrature of `quadrature` points, or
+        the `raygrid` angles (degrees) with their annulus weights."""
+        cfg = self.cfg
+        if cfg.quadrature is not None:
+            mu, weights = rt.gauss_quadrature(cfg.quadrature)
+        else:
+            raygrid = np.asarray(cfg.raygrid) * sc.degree
+            mu = np.cos(raygrid)
+            bounds = np.linspace(0, 0.5 * np.pi, len(raygrid) + 1)
+            bounds[1:-1] = 0.5 * (raygrid[:-1] + raygrid[1:])
+            weights = np.pi * (
+                np.sin(bounds[1:])**2 - np.sin(bounds[:-1])**2
+            )
+        self.quadrature_mu = mu
+        self.quadrature_weights = weights
 
     def _setup_opacity(self):
         cfg = self.cfg
@@ -344,6 +390,9 @@ class Model:
         self._input_radius = (
             None if self.input_radius is None else tensor(self.input_radius))
         self._log_press = tensor(np.log10(self.press))
+        self._wn = tensor(self.wn)
+        self._starflux = (
+            None if self.starflux is None else tensor(self.starflux))
         if self.bulk is not None:
             self._bulkratio = tensor(self.bulkratio)
             self._invsrat = tensor(self.invsrat)
@@ -374,6 +423,24 @@ class Model:
         return vmr_models.vmr_scale(
             base, profiles_list, self.ifree, self.ibulk,
             self._bulkratio, self._invsrat,
+        )
+
+    def _run_emission(self, ec_parts, temp, radius, rtop, deck_surface=None,
+                      cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None):
+        """Plane-parallel emission flux [B, W] through the ensemble
+        emission kernel (the per-chain forward is this at B = 1); a deck
+        bounds the integration and emits as a blackbody at tsurf."""
+        if deck_surface is not None:
+            deck_itop, _, tsurf = deck_surface
+            ibottom = deck_itop + 1
+        else:
+            deck_itop = tsurf = None
+            ibottom = self.nlayers
+        return emission_flux_ensemble(
+            ec_parts, radius, temp, self._wn, self.quadrature_mu,
+            self.quadrature_weights, rtop, ibottom, deck_itop=deck_itop,
+            deck_tsurf=tsurf, cia_w=cia_w, cia_tab=cia_tab,
+            r1_cols=r1_cols, r1_rows=r1_rows, maxdepth=self.maxdepth,
         )
 
     def _run_transit(self, ec_parts, radius, rtop, deck_surface=None,

@@ -1,7 +1,8 @@
 """Batched ensemble forward and log-posterior: the retrieval hot path.
 
-Port of the transit branch of pyratbay_tpu/retrieval/batched.py with
-one layout for the card: dense extinction parts are [B, l, W].
+Port of the transit and plane-parallel emission branches of
+pyratbay_tpu/retrieval/batched.py with one layout for the card: dense
+extinction parts are [B, l, W].
 
 * state (T, VMR, densities, radius) for the whole ensemble at once
   (retrieval/forward.py build_state);
@@ -12,6 +13,9 @@ one layout for the card: dense extinction parts are [B, l, W].
 * deck: the surface triple that bounds the integration;
 * transit RT: one launch of the ensemble kernel
   (spectrum/transit_kernel.py) on CUDA, its plain version on the CPU;
+* emission/eclipse RT: one launch of the emission kernel
+  (spectrum/emission_kernel.py), then the post-scalings: f_dilution,
+  the eclipse's / starflux * (Rp/Rs)^2 and the f_lambda flux at Earth;
 * band integration: one [B, W] x [W, nbands] product.
 
 Float32 CUDA matmuls run in full float32: the TF32 switch
@@ -22,7 +26,9 @@ import numpy as np
 import torch
 
 from .forward import build_state
+from .. import constants as pc
 from ..atmosphere import vmr as vmr_models
+from ..ops.planck import blackbody_wn
 
 __all__ = ['build_forward_batched', 'build_log_posterior_batched']
 
@@ -41,6 +47,15 @@ def build_forward_batched(model, obs=None, ret=None):
         tmin_bound = max(tmin_bound, ret.tlow)
         tmax_bound = min(tmax_bound, ret.thigh)
     qcap = ret.qcap if ret is not None else None
+    is_transit = model.rt_path in pc.TRANSMISSION_RT
+    is_eclipse = model.rt_path in pc.ECLIPSE_RT
+    retrieve_tstar = ret is not None and ret.itstar is not None
+    if is_eclipse and not retrieve_tstar and model.starflux is None:
+        raise ValueError(
+            'Undefined stellar flux (tstar), required for eclipse spectra')
+    if model.rt_path == 'f_lambda' and model.distance is None:
+        raise ValueError(
+            'Undefined distance to the system, required for f_lambda flux')
     has_bands = obs is not None and obs.nbands > 0
     if has_bands:
         obs.to(dev, dt)
@@ -85,13 +100,21 @@ def build_forward_batched(model, obs=None, ret=None):
         if elem is not None:
             parts.append(elem)
 
-        spectrum = model._run_transit(
-            parts, radius, st['rtop'], deck_surface,
+        kernel_operands = dict(
             cia_w=torch.cat(cia_ws, dim=2) if cia_ws else None,
             cia_tab=torch.cat(cia_tabs, dim=0) if cia_tabs else None,
             r1_cols=torch.stack(r1_cols, dim=1) if r1_cols else None,
             r1_rows=torch.stack(r1_rows, dim=1) if r1_rows else None,
         )
+        if is_transit:
+            spectrum = model._run_transit(
+                parts, radius, st['rtop'], deck_surface, **kernel_operands)
+        else:
+            spectrum = model._run_emission(
+                parts, temp, radius, st['rtop'], deck_surface,
+                **kernel_operands)
+            spectrum = _emission_scalings(
+                model, spectrum, st, retrieve_tstar)
 
         tmin = torch.min(temp, dim=1).values
         tmax = torch.max(temp, dim=1).values
@@ -109,6 +132,28 @@ def build_forward_batched(model, obs=None, ret=None):
 
     forward_b.state = state
     return forward_b
+
+
+def _emission_scalings(model, spectrum, st, retrieve_tstar):
+    """The post-scalings of an emission flux (pyratbay_tpu
+    batched.py:517-555): dilution, then the eclipse depth
+    F_p / F_s (Rp/Rs)^2 or the flux at Earth in W m-2 um-1."""
+    per_chain = lambda v: v[:, None] if torch.is_tensor(v) else v
+    if st['f_dilution'] is not None:
+        spectrum = spectrum * per_chain(st['f_dilution'])
+    rp = per_chain(st['rplanet'])
+    if model.rt_path in pc.ECLIPSE_RT:
+        if retrieve_tstar:
+            sflux = blackbody_wn(model._wn, st['tstar'][:, None]) * np.pi
+        else:
+            sflux = model._starflux
+        spectrum = spectrum / sflux * (rp / model.rstar)**2
+    if model.rt_path == 'f_lambda':
+        # 10x converts erg s-1 cm-2 cm to W m-2 um-1 after the
+        # (wn um)^2 wavelength-unit Jacobian:
+        spectrum = 10.0 * spectrum * (
+            rp / model.distance * model._wn * pc.um)**2
+    return spectrum
 
 
 def build_log_posterior_batched(model, obs, ret):

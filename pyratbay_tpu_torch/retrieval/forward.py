@@ -18,9 +18,18 @@ def build_state(model, ret=None):
     """Build state(params [B, npars] or None) -> dict of batched state.
 
     Same mapping as pyratbay_tpu forward.state (forward.py:124-217):
-    parameters overwrite the T(p), VMR and opacity-model slots and the
-    planet's radius, mass and reference pressure.
+    parameters overwrite the T(p), VMR and opacity-model slots, the
+    planet's radius, mass and reference pressure, the emission's
+    dilution factor and the star's temperature.
     """
+    if (ret is not None and ret.itstar is not None
+            and model.rt_path in pc.ECLIPSE_RT
+            and not model.star_is_blackbody):
+        raise ValueError(
+            'Cannot retrieve tstar from a fixed input stellar spectrum; '
+            'provide a temperature-gridded SED file (starspec with '
+            '@TEMPERATURES) or a blackbody star (tstar alone)'
+        )
     dev, dt = model.device, model.dtype
     tensor = lambda a: torch.as_tensor(
         np.asarray(a, float), dtype=dt, device=dev)
@@ -48,6 +57,8 @@ def build_state(model, ret=None):
         rplanet = model.rplanet
         mplanet = model.mplanet
         refpress = model.refpressure
+        f_dilution = model.cfg.f_dilution
+        tstar = model.tstar
 
         if ret is not None and params is not None:
             if ret.itemp:
@@ -74,11 +85,16 @@ def build_state(model, ret=None):
                 mplanet = params[:, ret.imass] * mass_units
             if ret.ipress is not None:
                 refpress = 10.0 ** params[:, ret.ipress]
-            for name in ('ipatchy', 'idilut', 'itstar', 'irv'):
+            if ret.idilut is not None:
+                f_dilution = params[:, ret.idilut]
+            if ret.itstar is not None:
+                tstar = params[:, ret.itstar]
+            for name, item in (('ipatchy', 'A5 (patchy clouds)'),
+                               ('irv', 'A8 (high-res channel)')):
                 if getattr(ret, name, None) is not None:
                     raise NotImplementedError(
                         f'Retrieval parameter slot {name} is not ported yet '
-                        '(ROADMAP.md A8)'
+                        f'(ROADMAP.md {item})'
                     )
 
         if tpars is not None and model.temp_model is not None:
@@ -108,7 +124,8 @@ def build_state(model, ret=None):
         return {
             'params': params, 'tpars': tpars, 'vmr_par_list': vmr_par_list,
             'pars_list': pars_list, 'rplanet': rplanet, 'mplanet': mplanet,
-            'refpress': refpress, 'temp': temp, 'vmr': vmr, 'dens': dens,
+            'refpress': refpress, 'f_dilution': f_dilution, 'tstar': tstar,
+            'temp': temp, 'vmr': vmr, 'dens': dens,
             'mm': mm, 'radius': radius, 'rtop': rtop,
         }
     return state

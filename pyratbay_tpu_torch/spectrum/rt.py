@@ -1,15 +1,22 @@
-"""Transit radiative transfer, per chain, in plain torch.
+"""Radiative transfer in plain torch: transit and plane-parallel
+emission.
 
-Port of pyratbay_tpu/spectrum/rt.py (transit_depth and
-transmission_spectrum).  This is the per-chain reference that the
-ensemble kernel's plain version (spectrum/transit_kernel.py) is held
-to in the tests.
+Port of pyratbay_tpu/spectrum/rt.py.  transit_depth and
+transmission_spectrum work on one chain; plane_parallel_depth and
+plane_parallel_intensity take any leading (chain) axes.  These are the
+references that the kernels' plain versions (spectrum/transit_kernel.py,
+spectrum/emission_kernel.py) are held to in the tests; the emission
+one also runs them itself.
 """
 import numpy as np
+import scipy.special as ss
 import torch
 import torch.nn.functional as F
 
-__all__ = ['transit_depth', 'transmission_spectrum']
+__all__ = [
+    'transit_depth', 'transmission_spectrum', 'plane_parallel_depth',
+    'plane_parallel_intensity', 'gauss_quadrature',
+]
 
 
 def transit_depth(ec, path, maxdepth=np.inf, itop=0, ibottom=None):
@@ -61,3 +68,91 @@ def transmission_spectrum(
     integral = torch.sum(
         torch.where(mask, terms, torch.zeros_like(terms)), dim=0)
     return (radius[int(itop)] ** 2 + 2.0 * integral) / rstar**2
+
+
+def _per_chain(value, like, ndim):
+    """An int or [...] tensor of layer indices as int64 with `ndim`
+    trailing unit axes, broadcastable against `like`'s leading axes."""
+    value = torch.as_tensor(value, device=like.device).to(torch.int64)
+    return value.reshape(value.shape + (1,) * ndim)
+
+
+def cumulative_depth(ec, dr, maxdepth=np.inf, itop=0, bottom=None):
+    """plane_parallel_depth on layer thicknesses dr [..., l-1] (positive)
+    and an integration bottom that is already clipped to [0, l-1]."""
+    nlayers, nwave = ec.shape[-2:]
+    if bottom is None:
+        bottom = nlayers - 1
+    itop = _per_chain(itop, ec, 2)
+    bottom = _per_chain(bottom, ec, 1)
+    steps = 0.5 * dr[..., None] * (ec[..., 1:, :] + ec[..., :-1, :])
+    rows = torch.arange(nlayers, device=ec.device)[:, None]
+    csum = torch.cumsum(
+        torch.where(rows[1:] > itop, steps, torch.zeros_like(steps)), dim=-2)
+    depth = torch.cat([torch.zeros_like(csum[..., :1, :]), csum], dim=-2)
+    depth = torch.where(rows > itop, depth, torch.zeros_like(depth))
+    stop = (depth >= maxdepth) & (rows > itop)
+    any_stop = torch.any(stop, dim=-2)
+    first_stop = torch.argmax(stop.to(torch.int8), dim=-2)
+    ideep = torch.where(
+        any_stop, torch.minimum(first_stop, bottom), bottom.expand_as(first_stop))
+    return depth, ideep
+
+
+def plane_parallel_depth(ec, radius, maxdepth=np.inf, itop=0, ibottom=None):
+    """Vertical optical depth for plane-parallel (emission) geometry.
+
+    ec [..., l, nwave]; radius [..., l]; itop, ibottom ints or [...]
+    tensors.  depth[k] is the cumulative trapezoid of ec over the layer
+    thicknesses, zero at and above itop.  ideep [..., nwave] is the
+    first row below itop where depth >= maxdepth, clipped to
+    min(ibottom, l-1), else that bottom.  Returns (depth, ideep).
+    """
+    nlayers = ec.shape[-2]
+    if ibottom is None:
+        ibottom = nlayers
+    bottom = torch.clamp(
+        torch.as_tensor(ibottom, device=ec.device), max=nlayers - 1)
+    dr = radius[..., :-1] - radius[..., 1:]
+    return cumulative_depth(ec, dr, maxdepth, itop, bottom)
+
+
+def gauss_quadrature(nquad):
+    """Gauss-Legendre nodes mapped to mu = cos(theta) over a hemisphere.
+
+    Returns (mu [nquad], weights [nquad]) such that
+    flux = sum_k weights[k] * I(mu[k]) approximates
+    pi * integral I(mu) mu dmu.
+    """
+    qnodes, qweights = ss.roots_legendre(nquad)
+    qnodes = 0.5 * (qnodes + 1.0)
+    return np.sqrt(qnodes), 0.5 * np.pi * qweights
+
+
+def plane_parallel_intensity(depth, bbody, mu, ideep, rtop=0):
+    """Emergent intensity I(mu) under plane-parallel LTE.
+
+    I = B[ideep] e^{-tau[ideep]/mu} - integral B d(e^{-tau/mu}) from
+    rtop to ideep (per wavelength), a masked trapezoid; a column with a
+    single interval gives I = B[ideep].  Terms past ideep are masked
+    with where, so NaN there does not reach the result.
+
+    depth, bbody [..., l, nwave]; mu [nmu]; ideep [..., nwave]; rtop an
+    int or [...] tensor.  Returns intensity [..., nmu, nwave].
+    """
+    nlayers = depth.shape[-2]
+    mu = torch.as_tensor(mu, dtype=depth.dtype, device=depth.device)
+    lay = torch.arange(nlayers - 1, device=depth.device)[:, None]
+    taumax = torch.take_along_dim(depth, ideep[..., None, :], dim=-2)
+    b_last = torch.take_along_dim(bbody, ideep[..., None, :], dim=-2)
+    etau = torch.exp(-depth[..., None, :, :] / mu[:, None, None])
+    dtau = etau[..., 1:, :] - etau[..., :-1, :]
+    b_mid = (bbody[..., 1:, :] + bbody[..., :-1, :])[..., None, :, :]
+    rtop = _per_chain(rtop, depth, 1)
+    mask = (lay >= rtop[..., None, None]) & (lay < ideep[..., None, None, :])
+    terms = dtau * b_mid
+    integral = 0.5 * torch.sum(
+        torch.where(mask, terms, torch.zeros_like(terms)), dim=-2)
+    intensity = b_last * torch.exp(-taumax / mu[:, None]) - integral
+    single = ((ideep - rtop) == 1)[..., None, :]
+    return torch.where(single, b_last, intensity)

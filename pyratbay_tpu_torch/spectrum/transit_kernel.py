@@ -1,5 +1,6 @@
 """Ensemble transit RT: the hand-written CUDA kernel, its wrapper and
-its plain PyTorch version.
+its plain PyTorch version; also the build and the ctypes loader of the
+one kernel library (every csrc/*.cu, the emission kernel included).
 
 The kernel (csrc/transit_rt.cu) replaces the Pallas TPU kernels
 pyratbay_tpu/spectrum/ensemble_pallas.py::_ensemble_kernel and, at
@@ -37,7 +38,7 @@ _BUILD = os.path.join(_PKG, '_build')
 _MAX_PARTS = 4
 NVCC_FLAGS = [
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-    '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+    '-Xcompiler', '-fPIC', '-Xptxas', '-v',
 ]
 
 
@@ -54,8 +55,9 @@ def _nvcc():
 def build_library():
     """Compile csrc/*.cu (once per source hash) and return the .so path.
 
-    The compiler's resource report (-Xptxas -v) is kept beside the
-    library as build.log.
+    One nvcc per source, all started together, then one link into a
+    single library.  The compilers' resource reports (-Xptxas -v) are
+    kept beside the library as build.log.
     """
     sources = sorted(
         os.path.join(_CSRC, name) for name in os.listdir(_CSRC)
@@ -70,18 +72,36 @@ def build_library():
         return lib
     nvcc = _nvcc()
     os.makedirs(outdir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=outdir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, '-o', tmp,
-           *[s for s in sources if s.endswith('.cu')]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tmpdir = tempfile.mkdtemp(dir=outdir)
+    compiles = []
+    for src in sources:
+        if not src.endswith('.cu'):
+            continue
+        obj = os.path.join(tmpdir, os.path.basename(src)[:-3] + '.o')
+        cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', obj, src]
+        compiles.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    tmp = os.path.join(tmpdir, 'libpbt_kernels.so')
+    link = [nvcc, *NVCC_FLAGS, '-shared', '-o', tmp,
+            *[obj for _, obj, _ in compiles]]
+    log, failed = [], []
+    for cmd, _, proc in compiles:
+        out, err = proc.communicate()
+        log.append(' '.join(cmd) + '\n' + out + err)
+        if proc.returncode != 0:
+            failed.append(f'{cmd[-1]} ({proc.returncode}):\n{err}')
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(' '.join(link) + '\n' + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f'link ({proc.returncode}):\n{proc.stderr}')
     with open(os.path.join(outdir, 'build.log'), 'w') as f:
-        f.write(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.remove(tmp)
-        raise RuntimeError(
-            f'nvcc failed ({proc.returncode}):\n{proc.stderr}')
+        f.write('\n'.join(log))
+    if failed:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+        raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
     os.replace(tmp, lib)
+    shutil.rmtree(tmpdir, ignore_errors=True)
     return lib
 
 
@@ -95,6 +115,16 @@ def _library():
     lib.pbt_transit_rt.restype = cint
     lib.pbt_transit_rt_smem_bytes.argtypes = [cint, cint, cint]
     lib.pbt_transit_rt_smem_bytes.restype = cint
+    fptr, cfloat = ctypes.POINTER(ctypes.c_float), ctypes.c_float
+    lib.pbt_emission_rt.argtypes = (
+        [ptr] * 4 + [cint] + [ptr, ptr, cint] + [ptr, ptr, cint]
+        + [ptr] * 4 + [fptr, fptr, cint, cfloat, cfloat, ptr]
+        + [cint, cint, cint, cfloat, ptr])
+    lib.pbt_emission_rt.restype = cint
+    lib.pbt_emission_rt_smem_bytes.argtypes = [cint, cint, cint]
+    lib.pbt_emission_rt_smem_bytes.restype = cint
+    lib.pbt_emission_rt_max_mu.argtypes = []
+    lib.pbt_emission_rt_max_mu.restype = cint
     return lib
 
 
@@ -200,9 +230,9 @@ def transit_rt_plain(ec_parts, path2, scal, rad, h, hprev,
     return (r_itop2[:, :, 0] + 2.0 * integral) * inv_rstar2[:, :, 0]
 
 
-def _checked(t, name, shape):
-    if not t.is_cuda or t.dtype != torch.float32:
-        raise TypeError(f'{name}: expected a float32 CUDA tensor')
+def _checked(t, name, shape, dtype=torch.float32):
+    if not t.is_cuda or t.dtype != dtype:
+        raise TypeError(f'{name}: expected a {str(dtype)[6:]} CUDA tensor')
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f'{name}: shape {tuple(t.shape)} != {shape}')
     return t.contiguous()

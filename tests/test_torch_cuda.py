@@ -1,5 +1,5 @@
-"""The hand-written CUDA transit kernel against its plain PyTorch
-version, on a GPU.
+"""The hand-written CUDA kernels (transit and emission RT) against
+their plain PyTorch versions, on a GPU.
 
 This file imports neither JAX nor pyratbay_tpu, so that it also runs on
 a machine without them, where tests/conftest.py (which imports JAX)
@@ -7,10 +7,11 @@ must be skipped:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Without a CUDA device the tests skip.  The bound, 2e-5 of the row
-maximum, is the transit bound of tests/test_tpu_hw.py (float32 on the
-card against float32 plain torch on the card, differing only in the
-order of the sums).
+Without a CUDA device the tests skip.  The bounds are those of
+tests/test_tpu_hw.py, relative to the row maximum: 2e-5 for transit,
+1e-4 for emission (float32 on the card against float32 plain torch on
+the card, differing in the order of the sums and, for emission, in the
+exponentials' last bits, which exp(-depth/mu) amplifies).
 """
 import numpy as np
 import pytest
@@ -18,9 +19,11 @@ import pytest
 torch = pytest.importorskip('torch')
 
 from pyratbay_tpu_torch.atmosphere.geometry import transit_path_matrix  # noqa: E402
+from pyratbay_tpu_torch.spectrum import emission_kernel as ek  # noqa: E402
 from pyratbay_tpu_torch.spectrum import transit_kernel as tk  # noqa: E402
 
 TOL = 2e-5
+EMISSION_TOL = 1e-4
 
 
 @pytest.fixture
@@ -96,3 +99,68 @@ def test_cuda_wrapper_routes_to_kernel(cuda):
     torch.cuda.synchronize()
     assert out.is_cuda and out.shape == (2, 64)
     assert tk.transit_rt_cuda.launches == launches + 1
+
+
+def _emission_operands(nb, nlayers, nwave, seed):
+    rng = np.random.default_rng(seed)
+    radius = np.linspace(7.2e9, 7.0e9, nlayers)[None, :] * (
+        1 + 0.01 * rng.standard_normal((nb, 1)))
+    temp = 1200 + 500 * rng.random((nb, nlayers))
+    ec = rng.lognormal(-25.0, 2.0, (nb, nlayers, nwave)) \
+        * np.exp(np.linspace(0, 10, nlayers))[None, :, None]
+    wn = np.linspace(2000.0, 9000.0, nwave)
+    cia_w = rng.lognormal(-28.0, 1.0, (nb, nlayers, 15))
+    cia_tab = rng.lognormal(0.0, 1.0, (15, nwave))
+    r1c = rng.lognormal(-24.0, 1.0, (nb, 1, nlayers))
+    r1r = rng.lognormal(0.0, 1.0, (nb, 1, nwave))
+    return radius, temp, [0.4 * ec, 0.6 * ec], wn, cia_w, cia_tab, r1c, r1r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('with_deck', [True, False])
+def test_cuda_emission_kernel_matches_plain(cuda, with_deck):
+    nb, nlayers = 6, 51
+    radius, temp, parts, wn, cia_w, cia_tab, r1c, r1r = _emission_operands(
+        nb, nlayers, 1000, seed=9)
+    f32 = lambda a: torch.as_tensor(
+        np.asarray(a), dtype=torch.float32, device=cuda)
+    i64 = lambda a: torch.as_tensor(np.asarray(a), device=cuda)
+    mu = np.cos(np.deg2rad([0.0, 20.0, 40.0, 60.0, 80.0]))
+    weights = np.full(5, np.pi / 5)
+    itop = np.array([0, 0, 2, 0, 5, 0])
+    if with_deck:
+        deck_itop = np.array([45, 50, 30, 12, 3, 20])
+        operands = ek.prep_emission_chains(
+            f32(radius), f32(temp), i64(itop), i64(deck_itop + 1),
+            i64(deck_itop), f32(np.full(nb, 1600.0)))
+    else:
+        operands = ek.prep_emission_chains(
+            f32(radius), f32(temp), i64(itop), i64(np.full(nb, nlayers)))
+    kw = dict(cia_w=f32(cia_w), cia_tab=f32(cia_tab), r1_cols=f32(r1c),
+              r1_rows=f32(r1r), maxdepth=10.0)
+    ec = [f32(p) for p in parts]
+    launches = ek.emission_rt_cuda.launches
+    got = ek.emission_rt_cuda(ec, *operands, f32(wn), mu, weights, **kw)
+    want = ek.emission_rt_plain(ec, *operands, f32(wn), mu, weights, **kw)
+    torch.cuda.synchronize()
+    assert ek.emission_rt_cuda.launches == launches + 1
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert np.all(np.isfinite(got))
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    assert np.max(np.abs(got - want) / scale) < EMISSION_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_emission_wrapper_routes_to_kernel(cuda):
+    """emission_flux_ensemble on CUDA tensors launches the kernel once."""
+    radius, temp, parts, wn, _, _, _, _ = _emission_operands(2, 12, 64, 1)
+    f32 = lambda a: torch.as_tensor(
+        np.asarray(a), dtype=torch.float32, device=cuda)
+    launches = ek.emission_rt_cuda.launches
+    out = ek.emission_flux_ensemble(
+        [f32(parts[0])], f32(radius), f32(temp), f32(wn), [1.0, 0.5],
+        [1.5, 1.5], torch.zeros(2, dtype=torch.int64, device=cuda),
+        torch.full((2,), 12, device=cuda))
+    torch.cuda.synchronize()
+    assert out.is_cuda and out.shape == (2, 64)
+    assert ek.emission_rt_cuda.launches == launches + 1

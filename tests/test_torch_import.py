@@ -20,6 +20,8 @@ for mod in pkgutil.walk_packages(pyratbay_tpu_torch.__path__,
 loaded = [m for m in sys.modules
           if m.split('.')[0] in ('jax', 'jaxlib', 'pyratbay_tpu', 'triton')]
 print('LOADED', sorted(loaded))
+print('SPECTRUM', sorted(
+    m for m in sys.modules if m.startswith('pyratbay_tpu_torch.spectrum.')))
 """
 
 
@@ -34,6 +36,9 @@ def test_import_without_jax_nvcc_or_triton():
     )
     assert proc.returncode == 0, proc.stderr
     assert 'LOADED []' in proc.stdout, proc.stdout
+    for name in ('transit_kernel', 'emission_kernel'):
+        assert f"'pyratbay_tpu_torch.spectrum.{name}'" in proc.stdout, \
+            proc.stdout
 
 
 def test_cli_help():
