@@ -1,6 +1,8 @@
 """GPU smoke run of pyratbay_tpu_torch: the flagship transit and eclipse
 retrievals end to end on one CUDA device, through the hand-written
-transit and emission kernels.
+transit and emission kernels, then the flagship opacity workflow (line
+list -> TLI file -> cross-section table) through the hand-written
+line-by-line wing and core kernels.
 
     python3 chip_smoke.py              # one GPU; exits non-zero on any failure
     python3 chip_smoke.py --profile    # also print torch.profiler breakdowns
@@ -11,8 +13,17 @@ version at the flagship's shapes (51 layers x 3209 wavenumbers, B = 512
 with and without the deck, and B = 1), the main path (python -m
 pyratbay_tpu_torch's driver on a flagship retrieval config with 512
 chains, checked for finite results and kernel launches), float32-GPU
-against float64-CPU agreement, and timings.  The line before the last
-is the kernel table; the last line is the result.
+against float64-CPU agreement, and timings.  Then the opacity path:
+a synthetic 50,000-line HITRAN H2O list through runmode = tli (the
+driver), Model(cfg, device='cuda').compute_opacity(engine='direct') on
+the flagship grid (10 T x 51 layers x 3209 points), the table read back
+through io and LineSample; the wing (K4, K6) and core (K5) kernels
+against their plain versions on one main-path block, a production-width
+block (200,000 points) and a two-species case; the table against a CPU
+float64 tabulation of 3 T x 4 layers; and timings, including one
+species at the production width of the JAX bench's _production_table.
+The line before the last is the kernel table; the last line is the
+result.
 """
 import argparse
 import json
@@ -45,6 +56,26 @@ KERNELS = {
         source='pyratbay_tpu_torch/csrc/emission_rt.cu',
         replaces='pyratbay_tpu/spectrum/emission_pallas.py:433'),
 }
+
+
+LBL = {
+    'wing_grouped': dict(
+        name='lbl_wing_grouped', fn='wing_sigma_grouped',
+        replaces='pyratbay_tpu/opacity/lbl_pallas.py:462'),
+    'core': dict(
+        name='lbl_core', fn='core_sigma',
+        replaces='pyratbay_tpu/opacity/lbl_pallas.py:648'),
+    'wing': dict(
+        name='lbl_wing', fn='wing_sigma',
+        replaces='pyratbay_tpu/opacity/lbl_pallas.py:239'),
+}
+LBL_SOURCE = 'pyratbay_tpu_torch/csrc/lbl_voigt.cu'
+LBL_TOL = 2e-4          # lbl_pallas against XLA, tests/test_tpu_hw.py
+TABLE_TOL = 1e-4        # strong-line bound of tests/test_lbl_tpu.py
+NLINES = 50_000
+PROD_NWAVE = 200_000    # bench.py::_production_table's width
+PROD_NTEMP = 24
+PROD_BUDGET_S = 60.0
 
 
 def emit(phase, **fields):
@@ -132,8 +163,8 @@ def write_retrieval_cfg(src_cfg, dst_cfg, data, uncert, filters, logfile):
 
 
 def record_call(module, name, fn):
-    """Run fn() with module.<name> wrapped; return the (args, kwargs)
-    of its last call."""
+    """Run fn() with module.<name> (or a class's method) wrapped; return
+    the (args, kwargs) of its last call."""
     recorded = {}
     real = getattr(module, name)
 
@@ -352,6 +383,280 @@ def run_path(label, rt_path, workdir, dev, args, card):
     return entry
 
 
+def masked_rel(got, want, floor=1e-6):
+    """(max relative difference on the entries of `want` above `floor`
+    of its maximum, max absolute difference); inf if not finite."""
+    got = got.double().cpu().numpy()
+    want = want.double().cpu().numpy()
+    if not (np.all(np.isfinite(got)) and np.all(np.isfinite(want))):
+        return np.inf, np.inf
+    mask = np.abs(want) > floor * np.abs(want).max()
+    diff = np.abs(got - want)
+    return float(np.max(diff[mask] / np.abs(want[mask]))), float(diff.max())
+
+
+def lbl_operands(direct, cells, nspec):
+    """Operands of K4, K5 and K6 for the cells (temps, dens, pf) of a
+    DirectLBL engine: kernel -> (args, kwargs)."""
+    tables = direct.tables()
+    fac = direct._cell_factors(tables, *cells, 'wf_')
+    fac_w = direct._cell_factors(tables, *cells, 'w_')
+    spec = lambda pre: tables[pre + 'spec'] if nspec > 1 else None
+    wing_kw = dict(margin=direct.margin, cutoff=direct.cutoff, nspec=nspec)
+    return {
+        'wing_grouped': ((
+            tables['wn_wf_hi'], tables['wn_wf_lo'], tables['wf_lwn_hi'],
+            tables['wf_lwn_lo'], fac['c1_w'], fac['y2_w'], fac['inv_ad_w'],
+            spec('wf_')), wing_kw),
+        'core': ((
+            tables['wn_core_hi'], tables['wn_core_lo'], tables['c_lwn_hi'],
+            tables['c_lwn_lo'], fac['scale_c'], fac['y_c'], fac['inv_ad_c'],
+            spec('c_')), dict(margin=direct.margin, nspec=nspec)),
+        'wing': ((
+            tables['wn_tiles_hi'], tables['wn_tiles_lo'], tables['w_lwn_hi'],
+            tables['w_lwn_lo'], fac_w['c1_w'], fac_w['y2_w'],
+            fac_w['inv_ad_w'], spec('w_')), wing_kw),
+    }
+
+
+def cells_of(direct, temps, press, vmr):
+    """Float32 cell inputs (temps, densities, pfs) on the engine's
+    device for every (T, p) pair, as DirectLBL.tabulate prepares them."""
+    from pyratbay_tpu_torch import constants as pc
+    t = np.repeat(temps, len(press))
+    p = np.tile(press, len(temps))
+    dens = np.tile(vmr, (len(temps), 1)) * (
+        p[:, None] * pc.bar / (pc.k * t[:, None]))
+    return [direct._f32(a) for a in (t, dens, direct.lbl.iso_pf(t).T)]
+
+
+def run_opacity(workdir, dev, args, card):
+    """The opacity path end to end: main path, kernel checks, GPU against
+    CPU, timings.  Returns the three kernel entries."""
+    import torch
+    from pyratbay_tpu_torch.benchmark import (
+        make_lbl_flagship, synthetic_lines)
+    from pyratbay_tpu_torch.driver import run
+    from pyratbay_tpu_torch.io import io as pio
+    from pyratbay_tpu_torch.model import Model
+    from pyratbay_tpu_torch.opacity import lbl_kernel as lk
+    from pyratbay_tpu_torch.opacity.lbl_direct import DirectLBL
+    from pyratbay_tpu_torch.opacity.line_sample import LineSample
+    from pyratbay_tpu_torch.spectrum import emission_kernel as ek
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+
+    kernels = {key: getattr(lk, spec['fn'] + '_cuda')
+               for key, spec in LBL.items()}
+    plains = {key: getattr(lk, spec['fn'] + '_plain')
+              for key, spec in LBL.items()}
+    counters = (*kernels.values(), tk.transit_rt_cuda, ek.emission_rt_cuda)
+
+    # 1. The main path: line list -> TLI -> table -> LineSample.
+    t0 = time.perf_counter()
+    _, tli_cfg, opacity_cfg = make_lbl_flagship(workdir, nlines=NLINES)
+    inputs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary = run(tli_cfg)
+    tli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = Model(opacity_cfg, device=dev)
+    setup_s = time.perf_counter() - t0
+    lbl = model.opacity_models[0][1]
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call = record_call(DirectLBL, '_cross_section_batch',
+                       lambda: model.compute_opacity(engine='direct'))
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {key: fn.launches for key, fn in kernels.items()}
+    all_launches = {c.__name__: c.launches for c in counters}
+    table = model.cs_table
+    direct = model.direct_lbl(lbl)
+    ncells = table.shape[0] * table.shape[1]
+    nblocks = -(-ncells // 64)
+    _, species, temps, press, wn, read = pio.read_opacity(
+        model.cfg.sampled_cs[0])
+    ls = LineSample(model.cfg.sampled_cs[0], pressure=model.press)
+    ls.to(dev, torch.float32)
+    ec = ls.extinction(
+        torch.full((1, model.nlayers), 1450.0, device=dev),
+        torch.full((1, model.nlayers, 1), 1e15, device=dev))
+    checks = {
+        'shape': list(table.shape) == [10, NLAYERS, NWAVE],
+        'finite': bool(np.all(np.isfinite(table))),
+        'non_negative': bool(np.all(table >= 0)),
+        'positive_share': float(np.mean(table > 0)),
+        'read_back': bool(np.array_equal(read, table)) and species == 'H2O',
+        'line_sample': list(ec.shape) == [1, NLAYERS, NWAVE]
+        and bool(torch.isfinite(ec).all()) and bool((ec >= 0).all()),
+    }
+    emit('main_path_opacity', seconds=main_s, inputs_seconds=inputs_s,
+         tli_seconds=tli_s, model_setup_seconds=setup_s,
+         tli_lines=int(summary[0]['n_lines']),
+         lines_on_grid=int(lbl.ntransitions), table_shape=list(table.shape),
+         blocks=nblocks, launches=all_launches, checks=checks,
+         margin=direct.margin, tile_wing=direct.tile_wing,
+         wing_group=direct.wing_group, ntiles_wf=direct.ntiles_wf,
+         lmax_wf=direct.lmax_wf, ntiles_core=direct.ntiles_core,
+         lmax_core=direct.lmax_core, lmax_w=direct.lmax)
+    if not all(v for k, v in checks.items() if k != 'positive_share'):
+        fail(f'opacity main path: {checks}')
+    for key in ('wing_grouped', 'core'):
+        if launches[key] < nblocks:
+            fail(f'opacity: {launches[key]} {LBL[key]["name"]} launches '
+                 f'< {nblocks} blocks')
+
+    # 2. The kernels against their plain versions on the card.
+    _, tables, t_blk, d_blk, pf_blk = call[0]
+    cases = {'flagship_block': lbl_operands(
+        direct, (t_blk, d_blk, pf_blk), 1)}
+    t0 = time.perf_counter()
+    prod_wn = np.linspace(model.wn[0], model.wn[-1], PROD_NWAVE)
+    prod = DirectLBL(lbl, wn=prod_wn, device=dev)
+    prod_setup_s = time.perf_counter() - t0
+    cases['production_block'] = lbl_operands(prod, cells_of(
+        prod, np.array([300.0, 3000.0]), model.press[[0, 50]],
+        model.base_vmr[[0, 50]]), 1)
+    two = DirectLBL(synthetic_lines(model.wn, 20_000, seed=1, nspec=2),
+                    device=dev)
+    vmr2 = np.tile([0.85, 0.149, 1e-6, 3e-6, 5e-8, 4e-4, 1e-4, 5e-4, 1e-7],
+                   (2, 1))
+    cases['two_species'] = lbl_operands(two, cells_of(
+        two, np.array([800.0, 2400.0]), np.array([1e-4, 10.0]), vmr2), 2)
+    max_abs = {key: 0.0 for key in LBL}
+    for case, ops in cases.items():
+        for key, (operands, kw) in ops.items():
+            got = kernels[key](*operands, **kw)
+            want = plains[key](*operands, **kw)
+            torch.cuda.synchronize()
+            rel, absolute = masked_rel(got, want)
+            max_abs[key] = max(max_abs[key], absolute)
+            emit('kernel_check', kernel=LBL[key]['name'], case=case,
+                 shape=list(got.shape), max_rel_err=rel,
+                 max_abs_err=absolute, tol=LBL_TOL,
+                 tile=int(operands[0].shape[1]),
+                 lmax=int(operands[2].shape[1]))
+            if not rel < LBL_TOL:
+                fail(f'{LBL[key]["name"]} {case}: kernel disagrees with '
+                     f'plain ({rel})')
+
+    # 3. GPU float32 table against a CPU float64 tabulation.
+    it, il = [0, 4, 9], [0, 17, 34, 50]
+    cpu_model = Model(opacity_cfg)
+    cpu_direct = cpu_model.direct_lbl(cpu_model.opacity_models[0][1])
+    t0 = time.perf_counter()
+    sub = cpu_direct.tabulate(model.cs_temps[it], cpu_model.press[il],
+                              cpu_model.base_vmr[il])
+    cpu_s = time.perf_counter() - t0
+    gpu = table[it][:, il]
+    rows = np.abs(sub).max(axis=-1, keepdims=True)
+    strong = np.abs(sub) > 1e-4 * rows
+    table_rel = float(np.max(np.abs(gpu - sub)[strong] / np.abs(sub[strong])))
+    emit('gpu_vs_cpu_opacity', temps=model.cs_temps[it].tolist(), layers=il,
+         max_rel_err=table_rel, tol=TABLE_TOL, cpu_seconds=cpu_s,
+         strong_entries=int(strong.sum()))
+    if not table_rel < TABLE_TOL:
+        fail(f'opacity: GPU f32 table disagrees with CPU f64 ({table_rel})')
+
+    # 4. Times.
+    ops = cases['flagship_block']
+    ms, plain_ms = {}, {}
+    for key, (operands, kw) in ops.items():
+        pair = paired_ms({
+            'plain': lambda: plains[key](*operands, **kw),
+            'kernel': lambda: kernels[key](*operands, **kw),
+        }, repeats=5)
+        ms[key], plain_ms[key] = pair['kernel'], pair['plain']
+    t0 = time.perf_counter()
+    model.compute_opacity(engine='direct')
+    torch.cuda.synchronize()
+    tab_s = time.perf_counter() - t0
+    if args.profile:
+        profile('opacity', lambda _: model.compute_opacity(engine='direct'),
+                None, tab_s * 1e3)
+    # Pair counts of one 64-cell block, as bench.py::_lbl_rates counts
+    # them (padded: the Pallas layout's lanes; effective: pairs inside
+    # the cutoff), and the pairs the CUDA kernels evaluate:
+    up = lambda v, m: -(-v // m) * m
+    block = int(t_blk.shape[0])
+    padded = block * (
+        up(direct.ntiles_wf, direct.wing_group) * direct.tile_wing
+        * up(direct.lmax_wf, 128)
+        + up(direct.ntiles_core, max(1, 128 // direct.tile_core))
+        * direct.tile_core * up(direct.lmax_core, 128))
+    kernel_pairs = block * (
+        direct.ntiles_wf * direct.tile_wing * direct.lmax_wf
+        + direct.ntiles_core * direct.tile_core * direct.lmax_core)
+    density = len(direct.lwn) / (direct.lwn[-1] - direct.lwn[0])
+    effective = block * direct.nwave * 2.0 * direct.cutoff * density
+    block_s = (ms['wing_grouped'] + ms['core']) * 1e-3
+    emit('times_opacity', card=card, block_cells=block,
+         kernel_ms={LBL[k]['name']: v for k, v in ms.items()},
+         plain_ms={LBL[k]['name']: v for k, v in plain_ms.items()},
+         compute_opacity_seconds=tab_s, main_path_seconds=main_s,
+         table_points_per_s=table.size / tab_s,
+         padded_pairs_per_s=padded / block_s,
+         effective_pairs_per_s=effective / block_s,
+         kernel_pairs_per_s=kernel_pairs / block_s,
+         pairs_note='per 64-cell block from the K4 + K5 times; padded '
+                    'and effective as bench.py::_lbl_rates defines them')
+
+    # One species at the production width (bench.py::_production_table):
+    prod_press = model.press
+    prod_temps = np.linspace(300.0, 3000.0, PROD_NTEMP)
+    probe = cells_of(prod, prod_temps[:2], prod_press[:32],
+                     model.base_vmr[:32])
+    run_block = lambda: prod._cross_section_batch(prod.tables(), *probe)
+    run_block()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_block()
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    if args.profile:
+        profile('opacity_production_block', lambda _: run_block(), None,
+                probe_s * 1e3)
+    nblk = -(-PROD_NTEMP * NLAYERS // 64)
+    ntemp = PROD_NTEMP
+    if nblk * probe_s > PROD_BUDGET_S:
+        ntemp = max(1, int(PROD_BUDGET_S / probe_s) * 64 // NLAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prod_table = prod.tabulate(prod_temps[:ntemp], prod_press,
+                               model.base_vmr)
+    torch.cuda.synchronize()
+    prod_s = time.perf_counter() - t0
+    prod_ok = bool(np.all(np.isfinite(prod_table))) and bool(
+        np.all(prod_table >= 0))
+    emit('production_opacity', card=card, ntemp=ntemp, nlayers=NLAYERS,
+         nwave=PROD_NWAVE, cut=None if ntemp == PROD_NTEMP else
+         f'ntemp {PROD_NTEMP} -> {ntemp}: a 64-cell block took '
+         f'{probe_s:.3f} s', seconds=prod_s, setup_seconds=prod_setup_s,
+         points_per_s=prod_table.size / prod_s,
+         block_probe_seconds=probe_s,
+         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+         tile_wing=prod.tile_wing, wing_group=prod.wing_group,
+         lmax_wf=prod.lmax_wf, lmax_core=prod.lmax_core, finite=prod_ok)
+    if not prod_ok:
+        fail('opacity: non-finite or negative production-width table')
+
+    entries = []
+    for key, spec in LBL.items():
+        entry = {'name': spec['name'], 'route': 'cuda', 'source': LBL_SOURCE,
+                 'replaces': spec['replaces'], 'launches': launches[key],
+                 'max_abs_err': max_abs[key], 'ms': ms[key],
+                 'plain_ms': plain_ms[key]}
+        if key == 'wing':
+            entry['note'] = ('no production path of the JAX package reaches '
+                             'wing_sigma; held against its plain version '
+                             'only')
+        entries.append(entry)
+    return entries
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--profile', action='store_true',
@@ -400,6 +705,9 @@ def main():
             path_dir = os.path.join(workdir, label)
             os.makedirs(path_dir)
             kernels.append(run_path(label, rt_path, path_dir, dev, args, card))
+        path_dir = os.path.join(workdir, 'opacity')
+        os.makedirs(path_dir)
+        kernels += run_opacity(path_dir, dev, args, card)
         print(json.dumps({'kernels': kernels}), flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -420,9 +728,11 @@ def obs_cfg(obs):
 
 
 def profile(label, forward_b, pb_t, ms_forward, reps=3):
-    """Device-time breakdown of one B = 512 forward (torch.profiler):
+    """Device-time breakdown of one call forward_b(pb_t) (torch.profiler):
     the device kernels by self time, their launches, and the device's
-    busy share of the forward's CUDA-event time `ms_forward`."""
+    busy share of the call's time `ms_forward` (CUDA events for a
+    B = 512 forward; the host clock around a compute_opacity or a
+    tabulation block, ending in a synchronize)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile

@@ -9,7 +9,8 @@ import sys
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog='python -m pyratbay_tpu_torch',
-        description='Transit retrieval on PyTorch (CPU or CUDA)',
+        description='Run a configuration (runmode = retrieval or tli) '
+                    'on PyTorch (CPU or CUDA)',
     )
     parser.add_argument('-c', '--cfile', metavar='CONFIG', required=True,
                         help='configuration file to run')

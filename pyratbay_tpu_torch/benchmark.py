@@ -1,6 +1,9 @@
 """Self-contained flagship model: the synthetic opacity tables and the
 config of pyratbay_tpu/benchmark.py::make_flagship, built with the
-port.
+port; the inputs of the opacity workflow that makes such a table
+from a line list (make_lbl_flagship); and a synthetic line list that
+the direct line-by-line engine reads without a TLI file
+(synthetic_lines).
 
 The flagship is an HD 209458 b-like retrieval: line-sampled H2O, H2-H2
 CIA, Na alkali, a gray deck and a Lecavelier haze, a Guillot T(p),
@@ -17,7 +20,7 @@ import numpy as np
 
 from .io import io as pio
 
-__all__ = ['make_flagship']
+__all__ = ['make_flagship', 'make_lbl_flagship', 'synthetic_lines']
 
 
 def _synthetic_cs_table(path, wn, press, species='H2O', ntemp=10, seed=5):
@@ -155,3 +158,141 @@ retrieval_params =
     ret = RetrievalParams(model, obs)
     forward = build_forward(model, obs, ret)
     return model, obs, ret, forward, np.asarray(ret.params)
+
+
+# HITRAN .par record (160 characters): molecule, isotope, wavenumber,
+# intensity, Einstein A, air/self widths, Elow, T exponent, shift,
+# quanta, uncertainty codes, references, line-mixing flag, g', g''.
+_PAR_RECORD = (
+    '{mol:2d}{iso:1d}{wn:12.6f}{sw:10.3E}{a21:10.3E}{gair:5.3f}'
+    '{gself:5.3f}{elow:10.4f}{nair:4.2f}{shift:8.5f}{quanta:60s}'
+    '{codes:6s}{refs:12s} {gup:7.1f}{glow:7.1f}\n'
+)
+
+
+def _synthetic_hitran(path, nlines, seed, wn_low=5800.0, wn_high=9200.0):
+    """Write a synthetic H2O line list in the HITRAN .par format.
+
+    The distributions of the JAX bench's synthetic lines
+    (bench.py::_synthetic_lines): centers uniform over [wn_low,
+    wn_high] cm-1, lognormal gf (mu = -8, sigma = 3), Elow uniform up to
+    15,000 cm-1, the four TIPS isotopes; Einstein A from gf and an
+    upper-state degeneracy g' = 2J + 1 (Simeckova et al. 2006, eq. 36,
+    inverted).
+    """
+    from . import constants as pc
+    rng = np.random.default_rng(seed)
+    wn = np.sort(rng.uniform(wn_low, wn_high, nlines))
+    gf = rng.lognormal(-8.0, 3.0, nlines)
+    elow = rng.uniform(0.0, 15000.0, nlines)
+    iso = rng.integers(1, 5, nlines)
+    gup = 2.0 * rng.integers(0, 30, nlines) + 1.0
+    a21 = gf * 8.0 * np.pi * pc.c * wn**2 / (gup * pc.C1)
+    with open(path, 'w') as f:
+        for i in range(nlines):
+            f.write(_PAR_RECORD.format(
+                mol=1, iso=int(iso[i]), wn=wn[i], sw=1e-25, a21=a21[i],
+                gair=0.07, gself=0.35, elow=max(elow[i], 1e-4), nair=0.7,
+                shift=0.0, quanta='', codes='000000', refs='',
+                gup=gup[i], glow=gup[i]))
+    return path
+
+
+def make_lbl_flagship(workdir, nlines=50_000, seed=0, nlayers=51,
+                      wl_low=1.1, wl_high=1.7, wnstep=1.0):
+    """Write the inputs of the flagship's opacity workflow into workdir.
+
+    A synthetic HITRAN H2O line list (`nlines` lines from `seed`), a
+    runmode = tli config that compiles it into a TLI file, and a
+    runmode = opacity config that tabulates the flagship's H2O cross
+    sections from that TLI file: wl_low to wl_high um at wnstep cm-1
+    (3209 points at the defaults), `nlayers` layers from 1e-6 to 100
+    bar, H2/He/H2O, 10 temperatures from 300 to 3000 K.
+
+    Returns (par_file, tli_cfg, opacity_cfg); the TLI file and the table
+    are workdir/flagship_h2o.tli and workdir/flagship_h2o_lbl.npz.
+    """
+    os.makedirs(workdir, exist_ok=True)
+    par_file = _synthetic_hitran(
+        os.path.join(workdir, 'flagship_h2o.par'), nlines, seed)
+    tli_file = os.path.join(workdir, 'flagship_h2o.tli')
+    tli_cfg = os.path.join(workdir, 'flagship_tli.cfg')
+    with open(tli_cfg, 'w') as f:
+        f.write(f"""[pyrat]
+runmode = tli
+verb = -1
+logfile = {workdir}/flagship_tli.log
+dblist = {par_file}
+pflist = tips
+dbtype = hitran
+tlifile = {tli_file}
+wl_low = 1.05 um
+wl_high = 1.75 um
+""")
+    opacity_cfg = os.path.join(workdir, 'flagship_opacity.cfg')
+    with open(opacity_cfg, 'w') as f:
+        f.write(f"""[pyrat]
+runmode = opacity
+verb = -1
+logfile = {workdir}/flagship_opacity.log
+tlifile = {tli_file}
+sampled_cross_sec = {workdir}/flagship_h2o_lbl.npz
+wl_low = {wl_low} um
+wl_high = {wl_high} um
+wnstep = {wnstep}
+nlayers = {nlayers}
+ptop = 1e-6 bar
+pbottom = 100 bar
+chemistry = free
+species = H2 He H2O
+uniform_vmr = 0.85 0.149 4e-4
+tmin = 300
+tmax = 3000
+tstep = 300
+""")
+    return par_file, tli_cfg, opacity_cfg
+
+
+def synthetic_lines(wn, nlines, seed=0, nspec=1, pad=100.0):
+    """A synthetic H2O-like line list over the grid `wn`, in the form
+    opacity/lbl_direct.py::DirectLBL reads (as LineByLine gives it).
+
+    The JAX bench's distributions (bench.py::_synthetic_lines): centers
+    uniform over [wn[0] - pad, wn[-1] + pad], lognormal gf, Elow uniform
+    up to 15,000 cm-1, four isotopes with a power-law partition
+    function; the atmosphere's species are H2 He H Na K H2O CH4 CO CO2.
+    nspec = 2 makes isotopes 2-3 a second species (CH4's slot).
+    """
+    if nspec not in (1, 2):
+        raise ValueError('nspec must be 1 or 2')
+    rng = np.random.default_rng(seed)
+    wn = np.asarray(wn, float)
+
+    class Lines:
+        lwn = np.sort(rng.uniform(wn[0] - pad, wn[-1] + pad, nlines))
+        gf = rng.lognormal(-8, 3, nlines)
+        elow = rng.uniform(0, 15000, nlines)
+        isoid = rng.integers(0, 4, nlines)
+        iso_mass = np.array([18.011, 20.015, 19.015, 19.017])
+        iso_ratio = np.array([0.997, 2e-3, 3.7e-4, 3.1e-4])
+        iso_spec_index = np.array([0, 0, 1, 1]) if nspec == 2 \
+            else np.zeros(4, int)
+        iso_atm_index = np.array([5, 5, 6, 6]) if nspec == 2 \
+            else np.full(4, 5)
+        mol_radius = np.array(
+            [1.445, 1.4, 1.1, 2.2, 2.8, 1.6, 2.0, 1.9, 1.97]) * 1e-8
+        mol_mass = np.array(
+            [2.016, 4.003, 1.008, 22.99, 39.098, 18.015, 16.04, 28.01,
+             44.01])
+        cutoff = 25.0
+        tmin = 100.0
+        tmax = 3000.0
+
+        @staticmethod
+        def iso_pf(t):
+            t = np.atleast_1d(t)
+            return np.tile(174.0 * (t / 296.0)**1.5, (4, 1))
+
+    Lines.wn = wn
+    Lines.nspec = nspec
+    return Lines()

@@ -7,13 +7,15 @@ numpy arrays.  It only reads attributes, so it works on the JAX
 package's objects as well as the port's without importing either.
 `to_tensors` turns such a dict into the port's tensors, and
 `load_static` installs it into port objects, so tests can feed both
-packages the very same tables.
+packages the very same tables.  `direct_lbl_tables` does the same for
+the line data of the direct line-by-line engine.
 """
 import numpy as np
 
 from .device import resolve
 
-__all__ = ['static_arrays', 'to_tensors', 'load_static']
+__all__ = ['static_arrays', 'to_tensors', 'load_static',
+           'direct_lbl_tables']
 
 _INT_KEYS = ('itemp', 'map_temp', 'imol', 'map_mol')
 
@@ -116,3 +118,12 @@ def load_static(model, obs, ret, arrays):
     model.to(model.device)
     obs.to(model.device, model.dtype)
     return model, obs, ret
+
+
+def direct_lbl_tables(jax_direct, device=None):
+    """The port's DirectLBL device tables from a JAX DirectLBL's host
+    tables (`_tables`, a dict of numpy arrays): floats in the device's
+    dtype, isotope ids as int64, and the species one-hots replaced by
+    the int32 species index of each window entry."""
+    from .opacity.lbl_direct import device_tables
+    return device_tables(jax_direct._tables, device)

@@ -6,8 +6,9 @@ geometry (rt_path transit, emission, eclipse, f_lambda) with a
 blackbody star and raygrid or Gauss quadrature, Guillot or isothermal
 T(p), free VMR models with bulk balancing, hydro_m/hydro_g radii, and
 the opacity types line_sample, cia, alkali and cloud (deck,
-lecavelier).  Other options raise NotImplementedError naming their
-ROADMAP.md item.
+lecavelier), and the line-by-line setup (tlifile) with the direct
+tabulation of runmode = opacity, compute_opacity(engine='direct').
+Other options raise NotImplementedError naming their ROADMAP.md item.
 
 Setup is host-side numpy, as in the JAX package; `to(device)` turns
 the static tables into tensors (float64 on the CPU, float32 on CUDA).
@@ -29,6 +30,7 @@ from .atmosphere import geometry, hydro, profiles, vmr as vmr_models
 from .opacity.alkali import get_alkali_model
 from .opacity.cia import CIA
 from .opacity.clouds import Deck, Lecavelier
+from .opacity.lbl import LineByLine
 from .opacity.line_sample import LineSample, wn_mask_tol
 from .spectrum import rt
 from .spectrum.emission_kernel import emission_flux_ensemble
@@ -58,7 +60,9 @@ class Model:
         self.cfg = cfg
         self.rt_path = cfg.rt_path
         self.maxdepth = cfg.maxdepth
-        if self.rt_path not in _RT_PATHS:
+        # An opacity tabulation needs no observing geometry:
+        if self.rt_path not in _RT_PATHS and not (
+                cfg.runmode == 'opacity' and self.rt_path is None):
             raise _not_ported(
                 f'rt_path = {self.rt_path}', 'A10 (two-stream emission)')
         if log is None:
@@ -83,7 +87,10 @@ class Model:
             wnlow = 1.0 / cfg.wl_high
         if wnhigh is None and cfg.wl_low is not None:
             wnhigh = 1.0 / cfg.wl_low
-        if cfg.sampled_cs is not None:
+        # Inherit the sampling of a cross-section table, except in
+        # runmode = opacity, where sampled_cross_sec names the table to
+        # be written (pyratbay_tpu/model.py:117-120):
+        if cfg.sampled_cs is not None and cfg.runmode != 'opacity':
             _, _, _, wn = pio.read_opacity(cfg.sampled_cs[0], 'arrays')
             mask = wn_mask_tol(wn, wnlow, wnhigh)
             wn = wn[mask][::cfg.wl_thinning]
@@ -311,7 +318,7 @@ class Model:
         species = self.species or []
         wn = self.wn
 
-        if cfg.sampled_cs is not None:
+        if cfg.sampled_cs is not None and cfg.runmode != 'opacity':
             temp_array = None
             if (cfg.tmin is not None and cfg.tmax is not None
                     and cfg.tstep is not None):
@@ -330,7 +337,28 @@ class Model:
             self.tmax['line_sample'] = ls.tmax
 
         if cfg.tlifile is not None:
-            raise _not_ported('Line-by-line opacity (tlifile)', 'A9')
+            if cfg.runmode != 'opacity':
+                raise _not_ported(
+                    'Line-by-line opacity (tlifile) in the forward model',
+                    'A12')
+            if self.grid.own is None:
+                raise ValueError(
+                    'Line-by-line opacity (tlifile) requires an explicit '
+                    'spectral sampling (resolution, wnstep, or wlstep); '
+                    'it cannot inherit the sampling from a cross-section '
+                    'table (sampled_cross_sec). Remove tlifile or set a '
+                    'sampling rate.'
+                )
+            lbl = LineByLine(
+                cfg.tlifile, wn=wn, species=species,
+                mol_mass=self.mol_mass, mol_radius=self.mol_radius,
+                own=self.grid.own, voigt_cutoff=cfg.voigt_cutoff,
+                single_isotope=cfg.single_isotope,
+            )
+            imol = [species.index(mol) for mol in lbl.species]
+            self.opacity_models.append(('lbl', lbl, imol))
+            self.tmin['lbl'] = lbl.tmin
+            self.tmax['lbl'] = lbl.tmax
         if cfg.alkali_models is not None:
             for name in cfg.alkali_models:
                 model = get_alkali_model(
@@ -399,6 +427,82 @@ class Model:
         for _, m, _ in self.opacity_models:
             m.to(self.device, self.dtype)
         return self
+
+    # ------------------------------------------------------------------
+    # Opacity tabulation (runmode = opacity)
+
+    def compute_opacity(self, engine='parity'):
+        """Tabulate line-by-line cross sections over a (T, layer, wave)
+        grid and write them to the sampled_cross_sec npz file.
+
+        engine='direct' evaluates exact Voigt profiles on the model's
+        device (opacity/lbl_direct.py, the CUDA kernels on a GPU).  The
+        parity engine, the reference's profile-grid sampling, is not
+        ported yet (ROADMAP.md A11).
+        """
+        cfg = self.cfg
+        if cfg.sampled_cs is None:
+            raise ValueError(
+                'Undefined output cross-section file (sampled_cross_sec) '
+                'needed to compute opacity table'
+            )
+        if cfg.tmin is None or cfg.tmax is None or cfg.tstep is None:
+            raise ValueError(
+                'Undefined temperature sampling (tmin/tmax/tstep) needed '
+                'to compute opacity table'
+            )
+        lbl = None
+        for mtype, model, _ in self.opacity_models:
+            if mtype == 'lbl':
+                lbl = model
+        if lbl is None:
+            raise ValueError(
+                'Undefined input TLI files (tlifile) needed to compute '
+                'opacity table'
+            )
+        if len(lbl.species) > 1:
+            raise ValueError(
+                'Cross-section files must be for a single species only, '
+                'but line-by-line data include transitions for multiple '
+                f'ones: {lbl.species}'
+            )
+        if cfg.tmin < lbl.tmin or cfg.tmax > lbl.tmax:
+            raise ValueError(
+                'Requested cross-section table temperatures '
+                f'[{cfg.tmin:.1f}, {cfg.tmax:.1f}] K lie outside the TLI '
+                f'range [{lbl.tmin:.1f}, {lbl.tmax:.1f}] K'
+            )
+        if engine != 'direct':
+            raise NotImplementedError(
+                f"compute_opacity(engine='{engine}'): the parity "
+                'line-by-line engine is not ported to pyratbay_tpu_torch '
+                "yet (ROADMAP.md A11); use engine='direct'")
+        ntemp = int((cfg.tmax - cfg.tmin) / cfg.tstep) + 1
+        temps = np.linspace(
+            cfg.tmin, cfg.tmin + (ntemp - 1) * cfg.tstep, ntemp,
+        )
+        direct = self.direct_lbl(lbl)
+        table = np.asarray(
+            direct.tabulate(temps, self.press, self.base_vmr), float)
+        pio.write_opacity(
+            cfg.sampled_cs[0], str(lbl.species[0]), temps, self.press,
+            self.wn, table,
+        )
+        self.cs_table = table
+        self.cs_temps = temps
+        return table
+
+    def direct_lbl(self, lbl):
+        """Cached DirectLBL engine of an lbl opacity model on the model's
+        device (opacity/lbl_direct.py)."""
+        if not hasattr(self, '_direct_lbl'):
+            self._direct_lbl = {}
+        key = (id(lbl), str(self.device))
+        if key not in self._direct_lbl:
+            from .opacity.lbl_direct import DirectLBL
+            self._direct_lbl[key] = DirectLBL(
+                lbl, wn=self.wn, device=self.device)
+        return self._direct_lbl[key]
 
     # ------------------------------------------------------------------
     # Evaluation pieces shared by the forward builders

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (transit and emission RT) against
-their plain PyTorch versions, on a GPU.
+"""The hand-written CUDA kernels (transit and emission RT, and the
+line-by-line wing and core passes) against their plain PyTorch
+versions, on a GPU.
 
 This file imports neither JAX nor pyratbay_tpu, so that it also runs on
 a machine without them, where tests/conftest.py (which imports JAX)
@@ -11,7 +12,9 @@ Without a CUDA device the tests skip.  The bounds are those of
 tests/test_tpu_hw.py, relative to the row maximum: 2e-5 for transit,
 1e-4 for emission (float32 on the card against float32 plain torch on
 the card, differing in the order of the sums and, for emission, in the
-exponentials' last bits, which exp(-depth/mu) amplifies).
+exponentials' last bits, which exp(-depth/mu) amplifies); 2e-4 for the
+line-by-line passes, relative on entries above 1e-6 of the maximum
+(sequential float32 sums over windows of up to a few thousand lines).
 """
 import numpy as np
 import pytest
@@ -19,11 +22,15 @@ import pytest
 torch = pytest.importorskip('torch')
 
 from pyratbay_tpu_torch.atmosphere.geometry import transit_path_matrix  # noqa: E402
+from pyratbay_tpu_torch.benchmark import synthetic_lines  # noqa: E402
+from pyratbay_tpu_torch.opacity import lbl_kernel as lk  # noqa: E402
+from pyratbay_tpu_torch.opacity.lbl_direct import DirectLBL  # noqa: E402
 from pyratbay_tpu_torch.spectrum import emission_kernel as ek  # noqa: E402
 from pyratbay_tpu_torch.spectrum import transit_kernel as tk  # noqa: E402
 
 TOL = 2e-5
 EMISSION_TOL = 1e-4
+LBL_TOL = 2e-4
 
 
 @pytest.fixture
@@ -164,3 +171,71 @@ def test_cuda_emission_wrapper_routes_to_kernel(cuda):
     torch.cuda.synchronize()
     assert out.is_cuda and out.shape == (2, 64)
     assert ek.emission_rt_cuda.launches == launches + 1
+
+
+def _lbl_lines(nspec, nlines=4000, seed=0):
+    """A synthetic H2O-like line list over the flagship grid; nspec = 2
+    splits the isotopes into two species."""
+    return synthetic_lines(np.arange(5882.0, 9091.0, 1.0), nlines, seed,
+                           nspec)
+
+
+def _lbl_cells(direct, ncell=4):
+    temps = np.linspace(300.0, 3000.0, ncell)
+    vmr = np.array([0.85, 0.149, 1e-6, 3e-6, 5e-8, 4e-4, 1e-4, 5e-4, 1e-7])
+    dens = vmr[None, :] * (np.logspace(-6, 2, ncell)[:, None] * 1e6
+                           / (1.380649e-16 * temps[:, None]))
+    pf = direct.lbl.iso_pf(temps).T
+    return [direct._f32(a) for a in (temps, dens, pf)]
+
+
+def _masked_rel(got, want):
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    mask = np.abs(want) > 1e-6 * np.abs(want).max()
+    return float(np.max(np.abs(got[mask] - want[mask]) / np.abs(want[mask])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('nspec', [1, 2])
+@pytest.mark.parametrize('kernel', ['wing_grouped', 'core', 'wing'])
+def test_cuda_lbl_kernels_match_plain(cuda, kernel, nspec):
+    direct = DirectLBL(_lbl_lines(nspec), device=cuda)
+    tables = direct.tables()
+    prefix = {'wing_grouped': 'wf_', 'core': 'c_', 'wing': 'w_'}[kernel]
+    fac = direct._cell_factors(tables, *_lbl_cells(direct),
+                               'w_' if kernel == 'wing' else 'wf_')
+    tiles = {'wf_': 'wn_wf', 'c_': 'wn_core', 'w_': 'wn_tiles'}[prefix]
+    factors = ('scale_c', 'y_c', 'inv_ad_c') if kernel == 'core' \
+        else ('c1_w', 'y2_w', 'inv_ad_w')
+    args = [tables[tiles + '_hi'], tables[tiles + '_lo'],
+            tables[prefix + 'lwn_hi'], tables[prefix + 'lwn_lo'],
+            *[fac[k] for k in factors],
+            tables[prefix + 'spec'] if nspec > 1 else None]
+    kw = dict(margin=direct.margin, nspec=nspec)
+    if kernel != 'core':
+        kw['cutoff'] = direct.cutoff
+    cuda_fn = getattr(lk, {'wing_grouped': 'wing_sigma_grouped_cuda',
+                           'core': 'core_sigma_cuda',
+                           'wing': 'wing_sigma_cuda'}[kernel])
+    plain_fn = getattr(lk, cuda_fn.__name__.replace('_cuda', '_plain'))
+    launches = cuda_fn.launches
+    got = cuda_fn(*args, **kw)
+    want = plain_fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_fn.launches == launches + 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _masked_rel(got, want) < LBL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_lbl_engine_routes_to_kernels(cuda):
+    """_cross_section_batch on CUDA launches K4 and K5 once each."""
+    direct = DirectLBL(_lbl_lines(1, nlines=500), device=cuda)
+    wing, core = lk.wing_sigma_grouped_cuda.launches, \
+        lk.core_sigma_cuda.launches
+    out = direct._cross_section_batch(direct.tables(), *_lbl_cells(direct, 2))
+    torch.cuda.synchronize()
+    assert out.is_cuda and out.shape == (2, 1, direct.nwave)
+    assert bool(torch.all(out >= 0))
+    assert lk.wing_sigma_grouped_cuda.launches == wing + 1
+    assert lk.core_sigma_cuda.launches == core + 1

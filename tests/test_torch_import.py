@@ -22,6 +22,8 @@ loaded = [m for m in sys.modules
 print('LOADED', sorted(loaded))
 print('SPECTRUM', sorted(
     m for m in sys.modules if m.startswith('pyratbay_tpu_torch.spectrum.')))
+print('OPACITY', sorted(
+    m for m in sys.modules if m.startswith('pyratbay_tpu_torch.opacity.')))
 """
 
 
@@ -38,6 +40,9 @@ def test_import_without_jax_nvcc_or_triton():
     assert 'LOADED []' in proc.stdout, proc.stdout
     for name in ('transit_kernel', 'emission_kernel'):
         assert f"'pyratbay_tpu_torch.spectrum.{name}'" in proc.stdout, \
+            proc.stdout
+    for name in ('lbl_kernel', 'lbl_direct', 'tli'):
+        assert f"'pyratbay_tpu_torch.opacity.{name}'" in proc.stdout, \
             proc.stdout
 
 
