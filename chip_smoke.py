@@ -9,11 +9,19 @@ line-by-line wing and core kernels.
 
 Phases, one JSON line each: device, kernel build, then for each path
 (transit, then eclipse): the path's kernel against its plain PyTorch
-version at the flagship's shapes (51 layers x 3209 wavenumbers, B = 512
-with and without the deck, and B = 1), the main path (python -m
-pyratbay_tpu_torch's driver on a flagship retrieval config with 512
-chains, checked for finite results and kernel launches), float32-GPU
-against float64-CPU agreement, and timings.  Then the opacity path:
+version at the flagship's shapes (51 layers x 3209 wavenumbers): with
+the line sample contracted in the kernel (B = 512 with and without the
+deck, with a dense part beside it, with the top of the atmosphere
+lowered by three layers, B = 500, B = 1, and eight chains of which one
+is rejected) and with the line sample as a dense part (B = 512 with and
+without the deck, B = 1); the main path (the entry point of python -m
+pyratbay_tpu_torch on a flagship retrieval config with 512 chains,
+checked for finite results and kernel launches); float32-GPU against float64-CPU
+agreement; and timings: the kernel, its plain version and its roofline
+bound at B = 512 and B = 1, its recorded time before it was redesigned
+(a constant, labelled so), and the two line-sample routes in turns (einsum + contiguous copy + kernel on a
+dense part, against the kernel on weights and table).  Then the opacity
+path:
 a synthetic 50,000-line HITRAN H2O list through runmode = tli (the
 driver), Model(cfg, device='cuda').compute_opacity(engine='direct') on
 the flagship grid (10 T x 51 layers x 3209 points), the table read back
@@ -49,13 +57,33 @@ KERNELS = {
     'transit': dict(
         name='transit_rt', tol=2e-5,
         source='pyratbay_tpu_torch/csrc/transit_rt.cu',
-        replaces='pyratbay_tpu/spectrum/ensemble_pallas.py:299',
-        also_replaces='pyratbay_tpu/spectrum/rt_pallas.py:221'),
+        replaces='pyratbay_tpu/spectrum/ensemble_pallas.py:299'),
     'eclipse': dict(
         name='emission_rt', tol=1e-4,
         source='pyratbay_tpu_torch/csrc/emission_rt.cu',
         replaces='pyratbay_tpu/spectrum/emission_pallas.py:433'),
 }
+# Constants, not measurements of a run of this script: the times of the
+# one-thread-a-column kernels that the present ones replaced, B = 512 on a
+# dense part, CUDA events around single calls, NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md, section 6).  Only the `times` phase repeats them.
+EARLIER_MS = {'transit': 2.286, 'eclipse': 1.341}
+# The per-chain interface (transit_spectrum_fused) is the transit kernel
+# launched with one chain:
+SINGLE_CHAIN = dict(
+    name='transit_rt_single_chain',
+    source='pyratbay_tpu_torch/csrc/transit_rt.cu',
+    replaces='pyratbay_tpu/spectrum/rt_pallas.py:221')
+# Peaks of one NVIDIA H100 SXM (data sheet): HBM3 bytes/s, and float32
+# operations/s outside the tensor cores (an FMA counts two).
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+# Float32 operations of one line-window pair, from the kernels' formulas:
+# a wing pair is the hi/lo difference, u, a, the 5-term series and the
+# sum (~30); a core pair is 16 Weideman terms of a complex multiply-add
+# plus the set-up (~160).
+WING_PAIR_FLOPS = 30
+CORE_PAIR_FLOPS = 160
 
 
 LBL = {
@@ -87,9 +115,11 @@ def fail(message):
     sys.exit(1)
 
 
-def cuda_times(fn, repeats=10, warmup=3):
-    """Milliseconds of each of `repeats` calls of fn() on the current
-    stream (CUDA events), after `warmup` calls."""
+def cuda_times(fn, repeats=10, warmup=3, inner=4):
+    """`repeats` timings in milliseconds of one call of fn() on the
+    current stream, each the mean over a run of `inner` calls between two
+    CUDA events, after `warmup` calls.  (Around a single call the events
+    would also count the host's time between the call's launches.)"""
     import torch
     for _ in range(warmup):
         fn()
@@ -98,10 +128,11 @@ def cuda_times(fn, repeats=10, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / inner)
     return times
 
 
@@ -113,6 +144,30 @@ def paired_ms(fns, repeats=10):
         for name in order:
             times[name] += cuda_times(fns[name], repeats)
     return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def device_ms(fn, kernel_name, reps=10):
+    """Device milliseconds of one call fn() by torch.profiler: (the
+    kernel whose name contains `kernel_name`, every device kernel and
+    copy the call launches).  CUDA events around a single call also
+    count the host's time between its launches; this does not."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with torch.no_grad(), tprofile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    main = total = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CPU:
+            total += evt.device_time_total
+            if kernel_name in evt.key:
+                main += evt.device_time_total
+    return main / reps * 1e-3, total / reps * 1e-3
 
 
 def rel_err(got, want):
@@ -180,64 +235,151 @@ def record_call(module, name, fn):
     return recorded['call']
 
 
-def transit_cases(tk, model, call):
-    """Kernel operands of the transit main path at B = 512 (with and
-    without the deck) and B = 1: name -> (args, kwargs)."""
+def roofline(nbytes, flops):
+    """(bound in ms, 'bytes' or 'operations'): the larger of the bytes
+    over the card's memory rate and the float32 operations over its
+    peak rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32
+    return (max(t_bytes, t_ops) * 1e3,
+            'bytes' if t_bytes >= t_ops else 'operations')
+
+
+def tensor_bytes(*tensors):
     import torch
-    (parts, path, rr, rstar, itop, ibottom), kw = call
-    common = dict(cia_w=kw['cia_w'], cia_tab=kw['cia_tab'],
-                  r1_cols=kw['r1_cols'], r1_rows=kw['r1_rows'],
-                  maxdepth=kw['maxdepth'])
-    nolayers = torch.full_like(ibottom, model.nlayers)
+    return sum(t.numel() * t.element_size() for t in tensors
+               if torch.is_tensor(t))
+
+
+def kernel_cases(label, model, call, rejected):
+    """Kernel operands at the flagship's width from a recorded B = 512
+    call of the main path's wrapper and a recorded call with a rejected
+    chain: name -> (args, kwargs) of the kernel and its plain version.
+    Cases named *_ls_* carry the line sample as ls_w / ls_tab, cases
+    named *_dense_* as a dense part."""
+    import torch
+    from pyratbay_tpu_torch.atmosphere import geometry
+    from pyratbay_tpu_torch.spectrum import emission_kernel as ek
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+    per_chain = ('cia_w', 'r1_cols', 'r1_rows', 'ls_w')
+
+    def common(kw, sl, **over):
+        out = {k: kw[k] for k in (*per_chain, 'cia_tab', 'ls_tab',
+                                  'maxdepth')}
+        out = {k: (v[sl] if k in per_chain and v is not None else v)
+               for k, v in out.items()}
+        out.update(over)
+        return out
+
+    def prep_transit(args, kw, sl, deck=True, lower_top=0):
+        _, path, rr, rstar, itop, ibottom = args
+        itop, path = itop[sl], path[sl]
+        if lower_top:
+            itop = itop + lower_top
+            path = geometry.transit_path_matrix(
+                rr[sl], itop) * model._radius_scale
+        if deck:
+            return tk.prep_chains(
+                path, rr[sl], rstar, itop, ibottom[sl], kw['deck_itop'][sl],
+                kw['deck_rsurf'][sl])
+        return tk.prep_chains(path, rr[sl], rstar, itop,
+                              torch.full_like(ibottom[sl], model.nlayers))
+
+    def prep_emission(args, kw, sl, deck=True, lower_top=0):
+        _, radius, temp, wn, mu, weights, itop, ibottom = args
+        itop = itop[sl] + lower_top
+        if deck:
+            operands = ek.prep_emission_chains(
+                radius[sl], temp[sl], itop, ibottom[sl], kw['deck_itop'][sl],
+                kw['deck_tsurf'][sl])
+        else:
+            operands = ek.prep_emission_chains(
+                radius[sl], temp[sl], itop, model.nlayers)
+        return (*operands, wn, mu, weights)
+
+    prep = prep_transit if label == 'transit' else prep_emission
+    args, kw = call
+    if args[0] or kw['ls_w'] is None:
+        fail(f'{label}: the main path did not hand the kernel the line '
+             'sample as ls_w / ls_tab alone')
+    every, some, one = slice(None), slice(0, 500), slice(0, 1)
+    dense = torch.einsum(
+        'bkl,klw->blw', kw['ls_w'], kw['ls_tab']).contiguous()
+    no_ls = dict(ls_w=None, ls_tab=None)
     return {
-        'B512_deck': ((parts, *tk.prep_chains(
-            path, rr, rstar, itop, ibottom, kw['deck_itop'],
-            kw['deck_rsurf'])), common),
-        'B512_nodeck': ((parts, *tk.prep_chains(
-            path, rr, rstar, itop, nolayers)), common),
-        'B1_deck': (([p[:1] for p in parts], *tk.prep_chains(
-            path[:1], rr[:1], rstar, itop[:1], ibottom[:1],
-            kw['deck_itop'][:1], kw['deck_rsurf'][:1])), first_chain(common)),
+        'B512_ls_deck': (([], *prep(args, kw, every)), common(kw, every)),
+        'B512_ls_nodeck': (
+            ([], *prep(args, kw, every, deck=False)), common(kw, every)),
+        'B512_ls_beside_dense_part': (
+            ([0.25 * dense], *prep(args, kw, every)),
+            common(kw, every, ls_w=0.75 * kw['ls_w'])),
+        'B512_ls_lowered_top': (
+            ([], *prep(args, kw, every, lower_top=3)), common(kw, every)),
+        'B500_ls_deck': (([], *prep(args, kw, some)), common(kw, some)),
+        'B1_ls_deck': (([], *prep(args, kw, one)), common(kw, one)),
+        'B8_ls_rejected_chain': (
+            ([], *prep(*rejected, every)), common(rejected[1], every)),
+        'B512_dense_deck': (
+            ([dense], *prep(args, kw, every)), common(kw, every, **no_ls)),
+        'B512_dense_nodeck': (
+            ([dense], *prep(args, kw, every, deck=False)),
+            common(kw, every, **no_ls)),
+        'B1_dense_deck': (
+            ([dense[:1]], *prep(args, kw, one)), common(kw, one, **no_ls)),
     }
 
 
-def emission_cases(ek, model, call):
-    """Kernel operands of the eclipse main path at B = 512 (with and
-    without the deck) and B = 1: name -> (args, kwargs)."""
-    (parts, radius, temp, wn, mu, weights, itop, ibottom), kw = call
-    common = dict(cia_w=kw['cia_w'], cia_tab=kw['cia_tab'],
-                  r1_cols=kw['r1_cols'], r1_rows=kw['r1_rows'],
-                  maxdepth=kw['maxdepth'])
-    angles = (wn, mu, weights)
-    return {
-        'B512_deck': ((parts, *ek.prep_emission_chains(
-            radius, temp, itop, ibottom, kw['deck_itop'],
-            kw['deck_tsurf']), *angles), common),
-        'B512_nodeck': ((parts, *ek.prep_emission_chains(
-            radius, temp, itop, model.nlayers), *angles), common),
-        'B1_deck': (([p[:1] for p in parts], *ek.prep_emission_chains(
-            radius[:1], temp[:1], itop[:1], ibottom[:1],
-            kw['deck_itop'][:1], kw['deck_tsurf'][:1]), *angles),
-            first_chain(common)),
-    }
-
-
-def first_chain(common):
-    return {k: (v[:1] if k in ('cia_w', 'r1_cols', 'r1_rows') else v)
-            for k, v in common.items()}
+def kernel_bound(label, args, kw):
+    """Roofline bound of one kernel call from its operands: every input
+    read once, the [B, W] result written once, and the float32
+    operations this data needs (an FMA counts two, a transcendental or a
+    division one).  Transit: the triangular chord product, the CIA and
+    rank-1 terms, the non-zero line-sample weights, ~10 operations a row
+    of the epilogue.  Emission: the same assembly, the depth step, one
+    Planck and an exponential with its FMA for each angle, for the rows
+    from the top to each column's ideep only (the walk stops there)."""
+    import torch
+    from pyratbay_tpu_torch.spectrum import rt
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+    parts = args[0]
+    like = args[3]      # the radius or the temperature column [B, l]
+    nb, nlayers = like.shape
+    nwave = tk._nwave(parts, kw['r1_rows'], kw['cia_tab'], kw['ls_tab'])
+    n_cia = 0 if kw['cia_w'] is None else kw['cia_w'].shape[2]
+    n_r1 = 0 if kw['r1_cols'] is None else kw['r1_cols'].shape[1]
+    ls_terms = 0 if kw['ls_w'] is None else int(
+        torch.count_nonzero(kw['ls_w']))
+    nbytes = tensor_bytes(*parts, *args[1:], *kw.values()) + 4 * nb * nwave
+    assembly_row = 2 * n_cia + 2 * n_r1 + max(len(parts) - 1, 0)
+    if label == 'transit':
+        flops = nb * nwave * (
+            nlayers * (nlayers + 1) + nlayers * (assembly_row + 10)
+        ) + 2 * ls_terms * nwave
+    else:
+        scal, dr = args[1], args[2]
+        ec = tk.extinction_plain(
+            parts, kw['cia_w'], kw['cia_tab'], kw['r1_cols'], kw['r1_rows'],
+            kw['ls_w'], kw['ls_tab'], like)
+        itop, bottom = scal[:, 0].long(), scal[:, 1].long()
+        _, ideep = rt.cumulative_depth(ec, dr, kw['maxdepth'], itop, bottom)
+        rows = int(torch.clamp(ideep - itop[:, None] + 1, min=1).sum())
+        nmu = len(args[5])
+        flops = rows * (
+            assembly_row + 2 * ls_terms / (nb * nlayers) + 8 + 5 * nmu)
+    return roofline(nbytes, flops)
 
 
 def check_kernel(name, kernel, plain, cases, tol):
-    """Each case through the kernel and its plain version; returns the
-    largest absolute difference.  Fails beyond `tol` of the row max."""
+    """Each case through the kernel and its plain version; returns each
+    case's largest absolute difference.  Fails beyond `tol` of the row
+    max."""
     import torch
-    max_abs = 0.0
+    max_abs = {}
     for case, (args, kw) in cases.items():
         got = kernel(*args, **kw)
         want = plain(*args, **kw)
         torch.cuda.synchronize()
         rel, absolute = rel_err(got, want)
-        max_abs = max(max_abs, absolute)
+        max_abs[case] = absolute
         emit('kernel_check', kernel=name, case=case, shape=list(got.shape),
              finite_rows=int(torch.isfinite(got).all(dim=1).sum()),
              max_rel_err=rel, max_abs_err=absolute, tol=tol)
@@ -247,8 +389,9 @@ def check_kernel(name, kernel, plain, cases, tol):
 
 
 def run_path(label, rt_path, workdir, dev, args, card):
-    """One path end to end: kernel checks, the main path through the
-    driver, GPU against CPU, and timings.  Returns the kernel entry."""
+    """One path end to end: kernel checks, the main path through
+    pyratbay_tpu_torch's run(), GPU against CPU, and timings.  Returns the
+    kernel entries."""
     import torch
     from pyratbay_tpu_torch import model as model_mod
     from pyratbay_tpu_torch.benchmark import make_flagship
@@ -265,11 +408,11 @@ def run_path(label, rt_path, workdir, dev, args, card):
     spec = KERNELS[label]
     suffix = '' if label == 'transit' else f'_{label}'
     if label == 'transit':
-        wrapper, make_cases = 'transit_spectrum_ensemble', transit_cases
-        kernel, plain, mod = tk.transit_rt_cuda, tk.transit_rt_plain, tk
+        wrapper = 'transit_spectrum_ensemble'
+        kernel, plain = tk.transit_rt_cuda, tk.transit_rt_plain
     else:
-        wrapper, make_cases = 'emission_flux_ensemble', emission_cases
-        kernel, plain, mod = ek.emission_rt_cuda, ek.emission_rt_plain, ek
+        wrapper = 'emission_flux_ensemble'
+        kernel, plain = ek.emission_rt_cuda, ek.emission_rt_plain
     counters = (tk.transit_rt_cuda, ek.emission_rt_cuda)
 
     # Flagship at full width on the GPU:
@@ -283,10 +426,15 @@ def run_path(label, rt_path, workdir, dev, args, card):
     forward_b = build_forward_batched(model, obs, ret)
 
     # The kernel against its plain version on the operands the main
-    # path hands it (recorded from one B = 512 forward):
+    # path hands it (recorded from one B = 512 forward, and from eight
+    # chains of which the last is rejected: T_irr = 1e6):
     call = record_call(model_mod, wrapper, lambda: forward_b(pb))
-    cases = make_cases(mod, model, call)
-    max_abs = check_kernel(spec['name'], kernel, plain, cases, spec['tol'])
+    pb_rejected = pb[:8].copy()
+    pb_rejected[-1, 1] = 1.0e6
+    rejected = record_call(model_mod, wrapper, lambda: forward_b(pb_rejected))
+    cases = kernel_cases(label, model, call, rejected)
+    case_abs = check_kernel(spec['name'], kernel, plain, cases, spec['tol'])
+    max_abs = max(case_abs.values())
 
     # The main path, through the driver:
     band0 = forward(p0)['bandflux'].cpu().numpy()
@@ -303,13 +451,18 @@ def run_path(label, rt_path, workdir, dev, args, card):
         filters, os.path.join(workdir, 'retrieval.log'))
     for counter in counters:
         counter.launches = 0
+    tk.transit_rt_cuda.single_chain_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rmodel = run(cfg_file, device=dev, seed=0)
+    rmodel = run(cfg_file, seed=0)       # the default device: the card
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = kernel.launches
+    single_launches = tk.transit_rt_cuda.single_chain_launches
     all_launches = {c.__name__: c.launches for c in counters}
+    if rmodel.device.type != 'cuda':
+        fail(f'{label}: the retrieval ran on {rmodel.device}, not on the '
+             'card')
     out = np.load(os.path.join(workdir, 'retrieval.npz'))
     finite = {k: bool(np.all(np.isfinite(out[k])))
               for k in ('posterior', 'bestp', 'spec_best', 'bandflux_best')}
@@ -329,7 +482,8 @@ def run_path(label, rt_path, workdir, dev, args, card):
         fail(f'{label}: {launches} {spec["name"]} launches < {NGEN + 2}')
 
     # GPU float32 forward against the CPU float64 plain forward:
-    cpu_model = model_mod.Model(os.path.join(workdir, 'flagship.cfg'))
+    cpu_model = model_mod.Model(
+        os.path.join(workdir, 'flagship.cfg'), device='cpu')
     cpu_obs = Observation(obs_cfg(obs), cpu_model.wn)
     cpu_ret = RetrievalParams(cpu_model, cpu_obs)
     p8 = pb[:8]
@@ -342,12 +496,38 @@ def run_path(label, rt_path, workdir, dev, args, card):
     if not fwd_rel < FORWARD_TOL:
         fail(f'{label}: GPU f32 forward disagrees with CPU f64 ({fwd_rel})')
 
-    # Times (CUDA events, medians after warm-up):
-    c_args, c_kw = cases['B512_deck']
+    # Times (CUDA events, medians after warm-up, in turns).  The two
+    # line-sample routes: the einsum and the contiguous copy that make the
+    # dense part, then the kernel on it; against the kernel on the
+    # weights and the table.
+    ls_args, ls_kw = cases['B512_ls_deck']
+    dense_args, dense_kw = cases['B512_dense_deck']
+    one_args, one_kw = cases['B1_ls_deck']
+
+    def route_dense():
+        part = torch.einsum(
+            'bkl,klw->blw', ls_kw['ls_w'], ls_kw['ls_tab']).contiguous()
+        return kernel([part], *dense_args[1:], **dense_kw)
+
     ms = paired_ms({
-        'plain': lambda: plain(*c_args, **c_kw),
-        'kernel': lambda: kernel(*c_args, **c_kw),
+        'plain': lambda: plain(*ls_args, **ls_kw),
+        'kernel': lambda: kernel(*ls_args, **ls_kw),
+        'kernel_dense': lambda: kernel(*dense_args, **dense_kw),
+        'route_dense': route_dense,
+        'plain_b1': lambda: plain(*one_args, **one_kw),
+        'kernel_b1': lambda: kernel(*one_args, **one_kw),
     })
+    kernel_name = spec['name'] + '_kernel'
+    dev_ms = {name: device_ms(fn, kernel_name) for name, fn in {
+        'kernel': lambda: kernel(*ls_args, **ls_kw),
+        'kernel_dense': lambda: kernel(*dense_args, **dense_kw),
+        'route_dense': route_dense,
+        'kernel_b1': lambda: kernel(*one_args, **one_kw),
+    }.items()}
+    bound_ms, bound_by = kernel_bound(label, ls_args, ls_kw)
+    dense_bound_ms, dense_bound_by = kernel_bound(
+        label, dense_args, dense_kw)
+    b1_bound_ms, b1_bound_by = kernel_bound(label, one_args, one_kw)
     pb_t = torch.as_tensor(pb, dtype=torch.float32, device=dev)
     with torch.no_grad():
         ms_forward = float(np.median(cuda_times(lambda: forward_b(pb_t))))
@@ -364,23 +544,55 @@ def run_path(label, rt_path, workdir, dev, args, card):
         torch.cuda.synchronize()
         gen_times.append(time.perf_counter() - t0)
     emit('times', path=label, card=card, kernel=spec['name'],
-         kernel_ms=ms['kernel'], plain_ms=ms['plain'],
+         kernel_ms=ms['kernel'], plain_ms=ms['plain'], bound_ms=bound_ms,
+         bound_by=bound_by, earlier_ms=EARLIER_MS[label],
+         earlier_note='a constant from PERF.md, not measured in this run: '
+                      'the kernel before its redesign, events around '
+                      'single calls, which also count host gaps',
+         main_path_launches=launches,
+         device_ms={name: {'kernel_alone': alone, 'whole_call': whole}
+                    for name, (alone, whole) in dev_ms.items()},
+         times_note='*_ms: CUDA events around runs of 4 calls of the '
+                    'wrapper (its layout operations included; at B = 1 '
+                    'the host between the launches too); device_ms: '
+                    'torch.profiler device time of one call',
+         routes_ms={'einsum_copy_kernel_on_dense_part': ms['route_dense'],
+                    'kernel_on_weights_and_table': ms['kernel']},
+         kernel_dense_ms=ms['kernel_dense'], dense_bound_ms=dense_bound_ms,
+         dense_bound_by=dense_bound_by,
+         b1_kernel_ms=ms['kernel_b1'], b1_plain_ms=ms['plain_b1'],
+         b1_bound_ms=b1_bound_ms, b1_bound_by=b1_bound_by,
          forward_ms=ms_forward,
          forward_spectra_per_s=NCHAINS / (ms_forward * 1e-3),
          demc_generations_per_s=gens / float(np.median(gen_times)),
          demc_note='includes the initial ensemble evaluation and the '
                    'history copy to the host')
+    if not ms['kernel'] <= ms['route_dense']:
+        fail(f'{label}: the main path takes the line sample in the kernel '
+             f'({ms["kernel"]:.3f} ms), but the dense-part route is faster '
+             f'({ms["route_dense"]:.3f} ms)')
 
     if args.profile:
         profile(label, forward_b, pb_t, ms_forward)
 
     entry = {'name': spec['name'], 'route': 'cuda', 'source': spec['source'],
-             'replaces': spec['replaces']}
-    if 'also_replaces' in spec:
-        entry['also_replaces'] = spec['also_replaces']
-    entry.update(launches=launches, max_abs_err=max_abs, ms=ms['kernel'],
-                 plain_ms=ms['plain'])
-    return entry
+             'replaces': spec['replaces'], 'launches': launches,
+             'max_abs_err': max_abs, 'ms': ms['kernel'],
+             'plain_ms': ms['plain'], 'bound_ms': bound_ms,
+             'bound_by': bound_by, 'library_ms': None}
+    entries = [entry]
+    if label == 'transit':
+        if single_launches < 1:
+            fail('transit: the main path launched the kernel with one '
+                 'chain no time')
+        entries.append({
+            **SINGLE_CHAIN, 'route': 'cuda', 'launches': single_launches,
+            'max_abs_err': max(case_abs['B1_ls_deck'],
+                               case_abs['B1_dense_deck']),
+            'ms': ms['kernel_b1'], 'plain_ms': ms['plain_b1'],
+            'bound_ms': b1_bound_ms, 'bound_by': b1_bound_by,
+            'library_ms': None})
+    return entries
 
 
 def masked_rel(got, want, floor=1e-6):
@@ -417,6 +629,27 @@ def lbl_operands(direct, cells, nspec):
             tables['w_lwn_lo'], fac_w['c1_w'], fac_w['y2_w'],
             fac_w['inv_ad_w'], spec('w_')), wing_kw),
     }
+
+
+def lbl_bound(key, operands, kw):
+    """Roofline bound of one line-by-line launch from its operands: the
+    tiles, windows and per-cell factors read once, the cross sections
+    written once, and the float32 operations of the pairs this data
+    needs: those inside the pass's mask (margin < |dnu| <= cutoff for
+    the wings, |dnu| <= margin for the cores), for every cell."""
+    import torch
+    wn_hi, wn_lo, lwn_hi, lwn_lo, factor = operands[:5]
+    ncell, ntiles, _ = factor.shape
+    dnu = torch.abs((wn_hi[:, :, None] - lwn_hi[:, None, :])
+                    + (wn_lo[:, :, None] - lwn_lo[:, None, :]))
+    if key == 'core':
+        pairs, flops = int((dnu <= kw['margin']).sum()), CORE_PAIR_FLOPS
+    else:
+        pairs = int(((dnu > kw['margin']) & (dnu <= kw['cutoff'])).sum())
+        flops = WING_PAIR_FLOPS
+    out_bytes = 4 * ncell * kw['nspec'] * ntiles * wn_hi.shape[1]
+    return roofline(tensor_bytes(*operands) + out_bytes,
+                    ncell * pairs * flops)
 
 
 def cells_of(direct, temps, press, vmr):
@@ -544,7 +777,7 @@ def run_opacity(workdir, dev, args, card):
 
     # 3. GPU float32 table against a CPU float64 tabulation.
     it, il = [0, 4, 9], [0, 17, 34, 50]
-    cpu_model = Model(opacity_cfg)
+    cpu_model = Model(opacity_cfg, device='cpu')
     cpu_direct = cpu_model.direct_lbl(cpu_model.opacity_models[0][1])
     t0 = time.perf_counter()
     sub = cpu_direct.tabulate(model.cs_temps[it], cpu_model.press[il],
@@ -562,13 +795,14 @@ def run_opacity(workdir, dev, args, card):
 
     # 4. Times.
     ops = cases['flagship_block']
-    ms, plain_ms = {}, {}
+    ms, plain_ms, bounds = {}, {}, {}
     for key, (operands, kw) in ops.items():
         pair = paired_ms({
             'plain': lambda: plains[key](*operands, **kw),
             'kernel': lambda: kernels[key](*operands, **kw),
         }, repeats=5)
         ms[key], plain_ms[key] = pair['kernel'], pair['plain']
+        bounds[key] = lbl_bound(key, operands, kw)
     t0 = time.perf_counter()
     model.compute_opacity(engine='direct')
     torch.cuda.synchronize()
@@ -595,6 +829,8 @@ def run_opacity(workdir, dev, args, card):
     emit('times_opacity', card=card, block_cells=block,
          kernel_ms={LBL[k]['name']: v for k, v in ms.items()},
          plain_ms={LBL[k]['name']: v for k, v in plain_ms.items()},
+         bound_ms={LBL[k]['name']: v[0] for k, v in bounds.items()},
+         bound_by={LBL[k]['name']: v[1] for k, v in bounds.items()},
          compute_opacity_seconds=tab_s, main_path_seconds=main_s,
          table_points_per_s=table.size / tab_s,
          padded_pairs_per_s=padded / block_s,
@@ -648,7 +884,8 @@ def run_opacity(workdir, dev, args, card):
         entry = {'name': spec['name'], 'route': 'cuda', 'source': LBL_SOURCE,
                  'replaces': spec['replaces'], 'launches': launches[key],
                  'max_abs_err': max_abs[key], 'ms': ms[key],
-                 'plain_ms': plain_ms[key]}
+                 'plain_ms': plain_ms[key], 'bound_ms': bounds[key][0],
+                 'bound_by': bounds[key][1], 'library_ms': None}
         if key == 'wing':
             entry['note'] = ('no production path of the JAX package reaches '
                              'wing_sigma; held against its plain version '
@@ -704,7 +941,7 @@ def main():
         for label, rt_path in (('transit', 'transit'), ('eclipse', 'eclipse')):
             path_dir = os.path.join(workdir, label)
             os.makedirs(path_dir)
-            kernels.append(run_path(label, rt_path, path_dir, dev, args, card))
+            kernels += run_path(label, rt_path, path_dir, dev, args, card)
         path_dir = os.path.join(workdir, 'opacity')
         os.makedirs(path_dir)
         kernels += run_opacity(path_dir, dev, args, card)

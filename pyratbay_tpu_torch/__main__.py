@@ -1,12 +1,14 @@
 """Command-line entry point:
 
-    python -m pyratbay_tpu_torch -c config.cfg --device cuda
+    python -m pyratbay_tpu_torch -c config.cfg [--device cpu]
+
+It runs on the CUDA device unless --device names another.
 """
 import argparse
 import sys
 
 
-def main(argv=None):
+def build_parser():
     parser = argparse.ArgumentParser(
         prog='python -m pyratbay_tpu_torch',
         description='Run a configuration (runmode = retrieval or tli) '
@@ -14,13 +16,17 @@ def main(argv=None):
     )
     parser.add_argument('-c', '--cfile', metavar='CONFIG', required=True,
                         help='configuration file to run')
-    parser.add_argument('--device', default='cpu',
-                        help="torch device, e.g. 'cpu' or 'cuda'")
+    parser.add_argument('--device', default='cuda',
+                        help="torch device: 'cuda' (the default) or 'cpu'")
     parser.add_argument('--root', default=None,
                         help="path substituted for '{ROOT}' in config paths")
     parser.add_argument('--seed', type=int, default=0,
                         help='random seed of the sampler')
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     from .driver import run
     run(args.cfile, device=args.device, root=args.root, seed=args.seed)
     return 0

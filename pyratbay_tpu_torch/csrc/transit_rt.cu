@@ -10,6 +10,7 @@
 //   ec[j]   = sum of dense parts[b, j, w]
 //           + sum_r r1_cols[b, r, j] * r1_rows[b, r, w]
 //           + sum_k cia_w[b, j, k] * cia_tab[k, w]
+//           + sum_k ls_w[b, k, j] * ls_tab[k, j, w]     (line sample)
 //   depth[i] = sum_j path2[b, i, j] * ec[j]      (chord matrix, pair-sum fold)
 //   ideep   = first row i in [itop, ibottom) with depth > maxdepth,
 //             else ibottom - 1
@@ -19,163 +20,351 @@
 //             coef = 0.5 (h[i] m[i] + h[i-1] mp[i]),
 //             m = in_range & i < ideep, mp = i >= itop+1 & i <= ideep.
 //
-// Design: one block per (tile of TILE wave columns, chain), one thread per
-// column.  The chain's small operands (path2 [l, l], r/h/h_prev columns,
-// CIA weights [l, K], rank-1 columns) and the tile's table rows are staged
-// in shared memory; each thread assembles its ec column in shared memory,
-// then walks the rows once: the depth row is an FMA dot product against
-// the broadcast path2 row, and the epilogue (ideep, exp, deck splice,
-// masked trapezoid) is accumulated in the same pass.  This is exact
-// because the ideep known so far (first exceed, else ibottom-1) gives
-// every row the coefficient of the final ideep: a later exceed changes
-// no earlier row's masks.  Every row's integ * coef is added, zero
-// coefficients included, so NaN/inf propagate as in the Pallas kernel.
+// Design (the block layout, the teams, the staging and the assembly of
+// the extinction are in rt_common.cuh).  The chord product is the bulk of
+// the arithmetic, and it runs from registers: a thread keeps the depth
+// column of its wave column, d[LP] with LP the layer count padded to a
+// multiple of 4 (a template parameter: 32, 52 or 64), and walks the layers
+// j in ascending order as an outer product.  It assembles ec[j], four
+// layers at a time and never stored, then adds path2[i, j] * ec[j] to the
+// d[i] below.  The chord matrix is zero above its diagonal
+// (transit_path_matrix), so rows i < j would add zeros: a layer adds only
+// to the rows from the first of its chunk of four on, which drops 44% of
+// the FMAs at 51 layers, and a layer j < itop, whose whole column is
+// zero, skips its FMAs too.  The registers want static indices, so every
+// chunk's row range is its own unrolled code, reached through a switch;
+// the loops around it stay loops (with the whole layer loop and the
+// epilogue unrolled, 96 KB of code, the kernel waited for its
+// instructions: 2.7 ms).  Each d[i] receives its non-zero terms in the
+// order j = 0, 1, ... of the earlier row-by-row kernel.  The matrix comes
+// packed from the wrapper (transit_kernel.py chord_layout: layer j's row
+// holds path2[i, j] for the rows from its chunk's first on), so a warp
+// reads it as 16-byte broadcast loads, one for four independent FMAs.
+// The epilogue (ideep, exp, deck splice, masked trapezoid) then runs down
+// d, exact as before: the ideep known so far (first exceed, else
+// ibottom - 1) gives every row the coefficient of the final ideep.  The
+// rows leave the registers through the team's dead chord matrix, so that
+// one loop with a run-time row serves them all.  Every row's integ * coef
+// is added, zero coefficients included, so NaN/inf propagate as in the
+// Pallas kernel; the skipped zero terms would have turned a non-finite
+// ec[j] into NaN in every row, which a sum of ec[j] * 0 added to the
+// result restores.  No index is taken from data: itop, ibottom and the
+// deck row are only compared, so a rejected chain computes garbage but
+// cannot fault.  No fast-math, no TF32: the result needs full float32.
 //
-// Bound on the H100 at the flagship shape (B = 512, l = 51, W = 3209):
-// 2*B*l*l*W = 8.5 GFLOP for the chord product plus 2*B*l*K*W = 2.5 GFLOP
-// for CIA (K = 15), all fp32 FMAs outside the tensor cores (no TF32), and
-// one read of the 335 MB line-sample part plus a 6.6 MB write.  At the
-// card's 67 TFLOP/s fp32 and 3.35 TB/s that is ~0.16 ms of arithmetic and
-// ~0.10 ms of HBM traffic; shared-memory reads of the ec column (one per
-// FMA of the chord product) are the practical limit of this simple design.
-#include <cuda_runtime.h>
-#include <math.h>
+// Bound on the H100 at the flagship shape (B = 512, l = 51, W = 3209,
+// K = 15, K2 = 10, line sample in the kernel): 4.4 GFLOP for the
+// triangular chord product (l (l + 1) / 2 FMAs a column), 2.5 GFLOP for
+// CIA, 0.3 GFLOP for the two live line-sample terms a layer, all fp32 FMAs
+// outside the tensor cores, so ~0.12 ms at the card's 67 TFLOP/s; the
+// bytes are 6.5 MB of table, 5.3 MB of chord matrices, 3 MB of weights
+// and a 6.6 MB result, ~0.01 ms at 3.35 TB/s.  With the line sample as a
+// dense part the 335 MB part is read once, ~0.10 ms.  Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W: 0.84 ms of device time (0.79 ms on a
+// dense part), against 1.99 ms for the kernel this replaces (one thread a
+// column, the extinction column and the chord matrix read from shared
+// memory for every FMA, the whole square matrix).  What is left is
+// latency: a chain takes a warp ~58,000 cycles (a build with clock64()
+// around the phases, not kept: the assembly 36%, the chord product 38%,
+// the epilogue 16%, staging 8%; ~39,000 with the SM to itself), and the
+// 130 KB slab leaves room for eight chains in flight on an SM.
+// PERF.md has the runs and the designs that were tried.
+#include "rt_common.cuh"
 
 namespace {
 
-constexpr int TILE = 128;
-constexpr int MAX_PARTS = 4;
+using namespace pbt;
 
-struct Parts {
-    const float* p[MAX_PARTS];
-};
+constexpr int MAX_WARPS = 16;    // warps of a block, at most
 
-__global__ void transit_rt_kernel(
-        Parts parts, int n_parts,
-        const float* __restrict__ r1_cols, const float* __restrict__ r1_rows,
-        int n_r1,
+// Offset of chunk q (four layers) in the packed chord matrix, and its
+// whole size (q = NL4), in floats: the layers of chunk q hold the rows
+// from 4 q to the padded last.
+__host__ __device__ constexpr int chunk_base(int NL4, int q) {
+    return 16 * (q * NL4 - q * (q - 1) / 2);
+}
+
+// Floats of a team's region (all multiples of 4): the packed chord
+// matrix, then the assembly region of rt_common.cuh, with room for the
+// CIA weights whether or not there are any (the epilogue parks rows there).
+__host__ __device__ inline int team_floats(
+        int NL4, int KP, int K2P, int ncols, int n_parts) {
+    return chunk_base(NL4, NL4)
+        + assembly_floats(4 * NL4, KP, 1, K2P, ncols, n_parts);
+}
+
+// d[i] += path2[i, j] * ec[j] for layer j of chunk Q and the rows from
+// 4 Q on:
+template <int NL4, int Q>
+__device__ __forceinline__ void add_layer(
+        float (&d)[4 * NL4], const float* s_pt, int j, float e) {
+    if constexpr (Q < NL4) {
+        const float4* prow = reinterpret_cast<const float4*>(
+            s_pt + chunk_base(NL4, Q) + (j - 4 * Q) * 4 * (NL4 - Q));
+#pragma unroll
+        for (int i4 = Q; i4 < NL4; ++i4) {
+            const float4 p = prow[i4 - Q];
+            d[4 * i4] = fmaf(p.x, e, d[4 * i4]);
+            d[4 * i4 + 1] = fmaf(p.y, e, d[4 * i4 + 1]);
+            d[4 * i4 + 2] = fmaf(p.z, e, d[4 * i4 + 2]);
+            d[4 * i4 + 3] = fmaf(p.w, e, d[4 * i4 + 3]);
+        }
+    }
+}
+
+// The layer's chunk decides which rows it adds to: every chunk is its own
+// unrolled code, because the registers of d want static indices.
+template <int NL4>
+__device__ __forceinline__ void add_to_rows(
+        float (&d)[4 * NL4], const float* s_pt, int j, int chunk, float e) {
+    switch (chunk) {
+#define PBT_CHUNK(Q) \
+    case Q: add_layer<NL4, Q>(d, s_pt, j, e); break;
+        PBT_CHUNK(0) PBT_CHUNK(1) PBT_CHUNK(2) PBT_CHUNK(3)
+        PBT_CHUNK(4) PBT_CHUNK(5) PBT_CHUNK(6) PBT_CHUNK(7)
+        PBT_CHUNK(8) PBT_CHUNK(9) PBT_CHUNK(10) PBT_CHUNK(11)
+        PBT_CHUNK(12) PBT_CHUNK(13) PBT_CHUNK(14) PBT_CHUNK(15)
+#undef PBT_CHUNK
+    }
+}
+
+template <int NL4, int KP>
+__global__ void __launch_bounds__(32 * MAX_WARPS, 1) transit_rt_kernel(
+        Parts parts, const float* __restrict__ r1_rows, int n_r1,
         const float* __restrict__ cia_w, const float* __restrict__ cia_tab,
         int n_cia,
-        const float* __restrict__ path2, const float* __restrict__ scal,
-        const float* __restrict__ rad, const float* __restrict__ h,
-        const float* __restrict__ hprev,
-        float* __restrict__ out, int nlayers, int nwave, float maxdepth) {
-    extern __shared__ float smem[];
+        const float* __restrict__ ls_w, const float* __restrict__ ls_tab,
+        int n_ls,
+        const float* __restrict__ packed, const float* __restrict__ cols,
+        const float* __restrict__ scal, float* __restrict__ out,
+        int nchains, int group, int nlayers, int nwave, float maxdepth) {
+    constexpr int LP = 4 * NL4;
+    constexpr int PK = chunk_base(NL4, NL4);
+    // Rows of d that the epilogue can park in the dead chord matrix and
+    // CIA weights at a time:
+    constexpr int PARK = (PK + LP * KP) / TW < LP ? (PK + LP * KP) / TW : LP;
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
     const int L = nlayers;
-    const int K = n_cia;
-    const int tid = threadIdx.x;
-    float* s_path2 = smem;                     // [L * L]
-    float* s_rad = s_path2 + L * L;            // [L]
-    float* s_h = s_rad + L;                    // [L]
-    float* s_hprev = s_h + L;                  // [L]
-    float* s_ciaw = s_hprev + L;               // [L * K]
-    float* s_r1c = s_ciaw + L * K;             // [n_r1 * L]
-    float* s_ciat = s_r1c + n_r1 * L;          // [K * TILE]
-    float* s_r1r = s_ciat + K * TILE;          // [n_r1 * TILE]
-    float* s_ec = s_r1r + n_r1 * TILE;         // [L * TILE]
-
-    const int b = blockIdx.y;
-    const int w = blockIdx.x * TILE + tid;
+    const int K2P = round4(n_ls);
+    const int ncols = 3 + n_r1;
+    const int lane = threadIdx.x & 31;
+    const int team = threadIdx.x / (32 * TEAM);
+    const int nteams = blockDim.x / (32 * TEAM);
+    const int tlane = threadIdx.x % (32 * TEAM);   // the column in the tile
+    const int w = blockIdx.x * TW + tlane;
     const bool valid = w < nwave;
 
-    const size_t chain_ll = (size_t)b * L * L;
-    for (int i = tid; i < L * L; i += TILE) s_path2[i] = path2[chain_ll + i];
-    for (int i = tid; i < L; i += TILE) {
-        s_rad[i] = rad[(size_t)b * L + i];
-        s_h[i] = h[(size_t)b * L + i];
-        s_hprev[i] = hprev[(size_t)b * L + i];
-    }
-    for (int i = tid; i < L * K; i += TILE)
-        s_ciaw[i] = cia_w[(size_t)b * L * K + i];
-    for (int i = tid; i < n_r1 * L; i += TILE)
-        s_r1c[i] = r1_cols[(size_t)b * n_r1 * L + i];
-    for (int k = 0; k < K; ++k)
-        s_ciat[k * TILE + tid] = valid ? cia_tab[(size_t)k * nwave + w] : 0.f;
-    for (int r = 0; r < n_r1; ++r)
-        s_r1r[r * TILE + tid] =
-            valid ? r1_rows[((size_t)b * n_r1 + r) * nwave + w] : 0.f;
+    float* s_tab = smem;                                   // [n_ls][L][TW]
+    const int region = team_floats(NL4, KP, K2P, ncols, parts.n);
+    float* s_pt = smem + n_ls * L * TW + team * region;    // packed path2T
+    float* s_ciaw = s_pt + PK;                             // [LP][KP]
+    float* s_lsw = s_ciaw + LP * KP;                       // [LP][K2P]
+    unsigned* s_mask = reinterpret_cast<unsigned*>(s_lsw + LP * K2P);
+    float* s_cols = s_lsw + LP * K2P + LP * ((K2P + 31) >> 5);
+    const float* s_rad = s_cols;                           // [LP]
+    const float* s_h = s_cols + LP;                        // [LP]
+    const float* s_hprev = s_cols + 2 * LP;                // [LP]
+    float* ring = s_cols + ncols * LP;                     // parts ring
+
+    load_slab(s_tab, ls_tab, n_ls * L, blockIdx.x * TW, nwave);
+    for (int i = tlane; i < region; i += 32 * TEAM) s_pt[i] = 0.f;
+
+    Assembler<KP> as;
+    as.s_ciaw = s_ciaw;
+    as.s_lsw = s_lsw;
+    as.s_mask = s_mask;
+    as.s_r1c = s_cols + 3 * LP;
+    as.s_tab = s_tab;
+    as.ring = ring;
+    as.n_parts = parts.n;
+    as.n_r1 = n_r1;
+    as.n_cia = n_cia;
+    as.K2P = K2P;
+    as.L = L;
+    as.rows = LP;
+    as.col = tlane;
+    as.load_cia_table(cia_tab, nwave, w, valid);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
 
-    // Extinction column of this thread (only this thread reads it back):
-    const size_t col0 = (size_t)b * L * nwave + (valid ? w : 0);
-    for (int j = 0; j < L; ++j) {
-        float e = 0.f;
-        if (valid) {
-            const size_t at = col0 + (size_t)j * nwave;
-            if (n_parts > 0) e = parts.p[0][at];
-            for (int p = 1; p < n_parts; ++p) e += parts.p[p][at];
-        }
-        for (int r = 0; r < n_r1; ++r)
-            e += s_r1c[r * L + j] * s_r1r[r * TILE + tid];
-        if (K > 0) {
-            float c = 0.f;
-            for (int k = 0; k < K; ++k)
-                c = fmaf(s_ciaw[j * K + k], s_ciat[k * TILE + tid], c);
-            e += c;
-        }
-        s_ec[j * TILE + tid] = e;
-    }
+    for (int c = team; c < group; c += nteams) {
+        const int b = blockIdx.y * group + c;
+        if (b >= nchains) break;
+        team_sync(team);
 
-    const float* sc = scal + (size_t)b * 8;
-    const int itop = (int)sc[0];
-    const int ibottom = (int)sc[1];
-    const int deck_row = (int)sc[2];
-    const bool apply_deck = sc[3] > 0.5f;
-    const float w_surf = sc[4];
-    const float inv_rstar2 = sc[5];
-    const float r_itop2 = sc[6];
+        // The chain's operands into the team's region, all copies in
+        // flight together, and the first rows of the dense parts:
+        copy_block(s_pt, packed + (size_t)b * PK, PK, tlane);
+        stage_chain(s_ciaw, s_lsw, s_cols, cia_w, ls_w, cols, b, LP, KP,
+                    n_cia, K2P, ncols, tlane);
+        cp_async_commit();
+        const size_t chain_off = (size_t)b * L * nwave;
+        for (int r = 0; r < RING; ++r)
+            ring_fetch(ring, parts, chain_off, r, L, nwave, tlane, w, valid);
+        as.load_r1_rows(r1_rows, b, nwave, w, valid);
+        const float* sc = scal + (size_t)b * 8;
+        const int itop = (int)sc[0];
+        const int ibottom = (int)sc[1];
+        const int deck_row = (int)sc[2];
+        const bool apply_deck = sc[3] > 0.5f;
+        const float w_surf = sc[4];
+        const float inv_rstar2 = sc[5];
+        const float r_itop2 = sc[6];
+        cp_async_wait<RING>();
+        team_sync(team);
+        build_mask(s_mask, s_lsw, LP, K2P, tlane, team);
 
-    int ideep = ibottom - 1;
-    bool found = false;
-    float integral = 0.f;
-    float prev_integ = 0.f;
-    for (int i = 0; i < L; ++i) {
-        const float* prow = s_path2 + i * L;
-        float d = 0.f;
-        for (int j = 0; j < L; ++j) d = fmaf(prow[j], s_ec[j * TILE + tid], d);
-        const bool in_range = i >= itop && i < ibottom;
-        if (!found && in_range && d > maxdepth) {
-            found = true;
-            ideep = i;
+        // Outer product down the layers, four at a time:
+        float d[LP];
+#pragma unroll
+        for (int i = 0; i < LP; ++i) d[i] = 0.f;
+        float poison = 0.f;
+#pragma unroll 1
+        for (int chunk = 0; 4 * chunk < L; ++chunk) {
+            const int j0 = 4 * chunk;
+            // The ring holds the layers j0 .. j0 + 7; the first four must
+            // have landed, and their slots take the next four after use.
+            if (parts.n > 0) cp_async_wait<4>();
+            float e[4];
+            as.rows4(j0, e);
+            if (parts.n > 0) {
+#pragma unroll
+                for (int t = 0; t < 4; ++t)
+                    ring_fetch(ring, parts, chain_off, j0 + RING + t, L,
+                               nwave, tlane, w, valid);
+            }
+#pragma unroll
+            for (int t = 0; t < 4; ++t) poison = fmaf(e[t], 0.f, poison);
+#pragma unroll 1
+            for (int t = 0; t < 4; ++t) {
+                const int j = j0 + t;
+                const float ej =
+                    t == 0 ? e[0] : t == 1 ? e[1] : t == 2 ? e[2] : e[3];
+                if (j >= itop && j < L)
+                    add_to_rows<NL4>(d, s_pt, j, chunk, ej);
+            }
         }
-        const float raw = expf(-d) * s_rad[i];
-        float integ = raw;
-        if (apply_deck && i == deck_row)
-            integ = prev_integ * (1.f - w_surf) + raw * w_surf;
-        const float m = (in_range && i < ideep) ? 1.f : 0.f;
-        const float mp = (i >= itop + 1 && i <= ideep) ? 1.f : 0.f;
-        integral += integ * (0.5f * (s_h[i] * m + s_hprev[i] * mp));
-        prev_integ = raw;
+        cp_async_wait<0>();
+        // The other warp of the team may still read the chord matrix:
+        team_sync(team);
+
+        // Epilogue down the rows, PARK rows at a time through the team's
+        // dead chord matrix and CIA weights (each lane reads back only
+        // what it parked).
+        int ideep = ibottom - 1;
+        bool found = false;
+        float integral = 0.f;
+        float prev = 0.f;
+#pragma unroll
+        for (int first = 0; first < LP; first += PARK) {
+#pragma unroll
+            for (int i = first; i < first + PARK && i < LP; ++i)
+                s_pt[(i - first) * TW + tlane] = d[i];
+            const int last = min(L, first + PARK);
+#pragma unroll 4
+            for (int i = first; i < last; ++i) {
+                const float di = s_pt[(i - first) * TW + tlane];
+                const bool in_range = i >= itop && i < ibottom;
+                if (!found && in_range && di > maxdepth) {
+                    found = true;
+                    ideep = i;
+                }
+                const float raw = expf(-di) * s_rad[i];
+                float integ = raw;
+                if (apply_deck && i == deck_row)
+                    integ = prev * (1.f - w_surf) + raw * w_surf;
+                const float m = (in_range && i < ideep) ? 1.f : 0.f;
+                const float mp = (i >= itop + 1 && i <= ideep) ? 1.f : 0.f;
+                integral += integ * (0.5f * (s_h[i] * m + s_hprev[i] * mp));
+                prev = raw;
+            }
+        }
+        if (valid)
+            out[(size_t)b * nwave + w] =
+                (r_itop2 + 2.f * integral) * inv_rstar2 + poison;
     }
-    if (valid)
-        out[(size_t)b * nwave + w] = (r_itop2 + 2.f * integral) * inv_rstar2;
+}
+
+typedef void (*Kernel)(
+    Parts, const float*, int, const float*, const float*, int, const float*,
+    const float*, int, const float*, const float*, const float*, float*,
+    int, int, int, int, float);
+
+// The instantiation for a padded layer count and CIA depth; null above the
+// largest.
+Kernel pick_kernel(int nlayers, int n_cia, int* NL4, int* KP) {
+    *KP = n_cia <= 16 ? 16 : 32;
+    *NL4 = nlayers <= 32 ? 8 : nlayers <= 52 ? 13 : 16;
+    if (nlayers < 2 || nlayers > 64 || n_cia > 32) return nullptr;
+    if (*KP == 16) {
+        if (*NL4 == 8) return transit_rt_kernel<8, 16>;
+        if (*NL4 == 13) return transit_rt_kernel<13, 16>;
+        return transit_rt_kernel<16, 16>;
+    }
+    if (*NL4 == 8) return transit_rt_kernel<8, 32>;
+    if (*NL4 == 13) return transit_rt_kernel<13, 32>;
+    return transit_rt_kernel<16, 32>;
+}
+
+int smem_bytes(int NL4, int KP, int nlayers, int n_r1, int n_ls, int n_parts,
+               int nwarps) {
+    const long floats = (long)n_ls * nlayers * TW + (long)(nwarps / TEAM)
+        * team_floats(NL4, KP, round4(n_ls), 3 + n_r1, n_parts);
+    return floats * 4 > (1L << 30) ? (1 << 30) : (int)(floats * 4);
 }
 
 }  // namespace
 
-extern "C" int pbt_transit_rt_smem_bytes(int nlayers, int n_r1, int n_cia) {
-    const int L = nlayers;
-    return (int)sizeof(float) * (L * L + 3 * L + L * n_cia + n_r1 * L
-                                 + (n_cia + n_r1 + L) * TILE);
+// Warps of a block for these operand sizes: the most, up to 16 and in
+// teams of 2, whose regions fit the shared memory beside the line-sample
+// slab; 0 if the shapes have no instantiation or not even one team fits.
+extern "C" int pbt_transit_rt_warps(int nlayers, int n_r1, int n_cia,
+                                    int n_ls, int n_parts) {
+    int NL4, KP;
+    if (pick_kernel(nlayers, n_cia, &NL4, &KP) == nullptr) return 0;
+    if (n_r1 > pbt::MAX_R1 || n_parts > pbt::MAX_PARTS) return 0;
+    for (int nwarps = MAX_WARPS; nwarps >= TEAM; nwarps -= TEAM)
+        if (smem_bytes(NL4, KP, nlayers, n_r1, n_ls, n_parts, nwarps)
+                <= pbt::SMEM_MAX)
+            return nwarps;
+    return 0;
 }
 
+// packed [B, packed_floats], cia_w [B, 4 nl4, KP], ls_w [B, 4 nl4, K2P]
+// and cols [B, ncols, 4 nl4] come laid out by the wrapper
+// (transit_kernel.py); nl4, packed_floats and ncols are checked against
+// this file's own layout.
 extern "C" int pbt_transit_rt(
         const float* part0, const float* part1, const float* part2,
-        const float* part3, int n_parts,
-        const float* r1_cols, const float* r1_rows, int n_r1,
+        const float* part3, int n_parts, const float* r1_rows, int n_r1,
         const float* cia_w, const float* cia_tab, int n_cia,
-        const float* path2, const float* scal, const float* rad,
-        const float* h, const float* hprev, float* out,
-        int nchains, int nlayers, int nwave, float maxdepth, void* stream) {
-    if (n_parts < 0 || n_parts > MAX_PARTS) return (int)cudaErrorInvalidValue;
-    Parts parts = {{part0, part1, part2, part3}};
-    const int smem = pbt_transit_rt_smem_bytes(nlayers, n_r1, n_cia);
+        const float* ls_w, const float* ls_tab, int n_ls,
+        const float* packed, const float* cols, const float* scal,
+        float* out, int nchains, int nlayers, int nwave, int nl4,
+        int packed_floats, int ncols, float maxdepth, void* stream) {
+    if (n_parts < 0 || n_parts > pbt::MAX_PARTS)
+        return (int)cudaErrorInvalidValue;
+    const int nwarps =
+        pbt_transit_rt_warps(nlayers, n_r1, n_cia, n_ls, n_parts);
+    if (nwarps < 1) return (int)cudaErrorInvalidValue;
+    int NL4, KP;
+    Kernel kernel = pick_kernel(nlayers, n_cia, &NL4, &KP);
+    if (nl4 != NL4 || packed_floats != chunk_base(NL4, NL4)
+            || ncols != 3 + n_r1)
+        return (int)cudaErrorInvalidValue;
+    const int smem =
+        smem_bytes(NL4, KP, nlayers, n_r1, n_ls, n_parts, nwarps);
     cudaError_t err = cudaFuncSetAttribute(
-        transit_rt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((nwave + TILE - 1) / TILE, nchains);
-    transit_rt_kernel<<<grid, TILE, smem, (cudaStream_t)stream>>>(
-        parts, n_parts, r1_cols, r1_rows, n_r1, cia_w, cia_tab, n_cia,
-        path2, scal, rad, h, hprev, out, nlayers, nwave, maxdepth);
+    // Two chains a team: the slab is staged once for the group.
+    const int group = 2 * (nwarps / pbt::TEAM);
+    Parts parts = {part0, part1, part2, part3, n_parts};
+    dim3 grid((nwave + pbt::TW - 1) / pbt::TW, (nchains + group - 1) / group);
+    kernel<<<grid, 32 * nwarps, smem, (cudaStream_t)stream>>>(
+        parts, r1_rows, n_r1, cia_w, cia_tab, n_cia, ls_w, ls_tab, n_ls,
+        packed, cols, scal, out, nchains, group, nlayers, nwave, maxdepth);
     return (int)cudaGetLastError();
 }

@@ -7,13 +7,16 @@ __all__ = ['resolve']
 def resolve(device=None):
     """(torch.device, dtype): float64 on the CPU, float32 on CUDA.
 
-    A CUDA device that is not available raises here instead of
-    silently running on the CPU.
+    The default (None) is the CUDA device: the port runs on the card
+    unless the caller names 'cpu'.  A CUDA device that is not available
+    raises here instead of silently running on the CPU.
     """
-    device = torch.device('cpu' if device is None else device)
+    device = torch.device('cuda' if device is None else device)
     if device.type == 'cuda':
         if not torch.cuda.is_available():
-            raise RuntimeError('CUDA device requested but none is available')
+            raise RuntimeError(
+                "No CUDA device is available: pass device='cpu' to run on "
+                'the CPU')
         return device, torch.float32
     if device.type != 'cpu':
         raise ValueError(f'Unsupported device {device}')

@@ -530,7 +530,8 @@ class Model:
         )
 
     def _run_emission(self, ec_parts, temp, radius, rtop, deck_surface=None,
-                      cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None):
+                      cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None,
+                      ls_w=None, ls_tab=None):
         """Plane-parallel emission flux [B, W] through the ensemble
         emission kernel (the per-chain forward is this at B = 1); a deck
         bounds the integration and emits as a blackbody at tsurf."""
@@ -544,11 +545,13 @@ class Model:
             ec_parts, radius, temp, self._wn, self.quadrature_mu,
             self.quadrature_weights, rtop, ibottom, deck_itop=deck_itop,
             deck_tsurf=tsurf, cia_w=cia_w, cia_tab=cia_tab,
-            r1_cols=r1_cols, r1_rows=r1_rows, maxdepth=self.maxdepth,
+            ls_w=ls_w, ls_tab=ls_tab, r1_cols=r1_cols, r1_rows=r1_rows,
+            maxdepth=self.maxdepth,
         )
 
     def _run_transit(self, ec_parts, radius, rtop, deck_surface=None,
-                     cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None):
+                     cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None,
+                     ls_w=None, ls_tab=None):
         """Transit spectra [B, W] through the ensemble kernel (the
         per-chain forward is this at B = 1, which replaces
         pyratbay_tpu's per-chain transit_spectrum_fused).
@@ -573,7 +576,7 @@ class Model:
             deck_itop=deck_itop,
             deck_rsurf=None if rsurf is None else rsurf / rscale,
             cia_w=cia_w, cia_tab=cia_tab, r1_cols=r1_cols, r1_rows=r1_rows,
-            maxdepth=self.maxdepth,
+            ls_w=ls_w, ls_tab=ls_tab, maxdepth=self.maxdepth,
         )
 
 

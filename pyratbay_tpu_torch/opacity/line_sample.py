@@ -1,9 +1,13 @@
 """Line-sampled (tabulated) cross-section opacity.
 
 Setup (table loading, pressure/temperature re-gridding, isotope
-ratios) is a numpy copy of pyratbay_tpu/opacity/line_sample.py; the
-runtime temperature interpolation is one einsum over the ensemble,
-'bstl,stlw->blw', as in pyratbay_tpu/retrieval/batched.py:235-247.
+ratios) is a numpy copy of pyratbay_tpu/opacity/line_sample.py.  The
+runtime temperature interpolation is a contraction of per-chain layer
+weights [B, nspec*ntemp, l] (two-hot along temperature, times density
+and isotope ratio) with the table [nspec*ntemp, l, W], as in
+pyratbay_tpu/retrieval/batched.py:202-247: either inside the RT kernels
+(`kernel_weights` and `kernel_table` are their ls_w / ls_tab operands)
+or as one einsum that makes a dense [B, l, W] part (`extinction`).
 """
 import numpy as np
 import scipy.interpolate as sip
@@ -239,13 +243,31 @@ class LineSample:
         dt = self._temp[tlo + 1] - self._temp[tlo]
         return tlo, (temperature - self._temp[tlo]) / dt
 
-    def extinction(self, temperature, density, pars=None):
-        """EC (cm-1) over the ensemble: temperature [B, l], density
-        [B, l, nspec] -> [B, l, nwave].  The TF32 switch of CUDA
-        matmuls stays off (float32 products in full precision)."""
+    @property
+    def kernel_table(self):
+        """The table as the RT kernels' ls_tab operand
+        [nspec*ntemp, l, nwave] (a view of the device table)."""
+        return self._table.reshape(
+            self.nspec * self.ntemp, self.nlayers, self.nwave)
+
+    def kernel_weights(self, temperature, density, pars=None):
+        """The RT kernels' ls_w operand: temperature [B, l], density
+        [B, l, nspec] -> [B, nspec*ntemp, l] layer weights (two-hot
+        temperature lerp x density x isotope ratio), whose contraction
+        with `kernel_table` over the middle axis is the extinction."""
         tlo, w_hi = self._t_weights(temperature)
         w_t = two_hot(tlo, w_hi, self.ntemp)             # [B, t, l]
         ratios = self._jit_ratios(pars)                  # [B|1, s]
         d_w = density.transpose(1, 2) * ratios[:, :, None]  # [B, s, l]
         w_stl = w_t[:, None] * d_w[:, :, None]           # [B, s, t, l]
-        return torch.einsum('bstl,stlw->blw', w_stl, self._table)
+        return w_stl.reshape(
+            w_stl.shape[0], self.nspec * self.ntemp, self.nlayers)
+
+    def extinction(self, temperature, density, pars=None):
+        """EC (cm-1) over the ensemble: temperature [B, l], density
+        [B, l, nspec] -> a dense [B, l, nwave] part.  The TF32 switch of
+        CUDA matmuls stays off (float32 products in full precision)."""
+        return torch.einsum(
+            'bkl,klw->blw',
+            self.kernel_weights(temperature, density, pars),
+            self.kernel_table)

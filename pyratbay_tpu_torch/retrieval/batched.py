@@ -6,7 +6,10 @@ extinction parts are [B, l, W].
 
 * state (T, VMR, densities, radius) for the whole ensemble at once
   (retrieval/forward.py build_state);
-* line-sampled opacity: one 'bstl,stlw->blw' einsum (a dense part);
+* line-sampled opacity: per-chain layer weights [B, K2, l] contracted
+  in the kernel against the table [K2, l, W] when the table's wave-tile
+  slab fits the kernel's shared memory (transit_kernel.ls_in_kernel, a
+  static size rule), else one einsum that makes a dense part;
 * CIA: per-layer table weights [B, l, K], contracted in the kernel;
 * Lecavelier haze: a rank-1 (layer column, wave row) pair per chain;
 * alkali lines with no on-grid support are pruned statically;
@@ -29,6 +32,7 @@ from .forward import build_state
 from .. import constants as pc
 from ..atmosphere import vmr as vmr_models
 from ..ops.planck import blackbody_wn
+from ..spectrum.transit_kernel import ls_in_kernel
 
 __all__ = ['build_forward_batched', 'build_log_posterior_batched']
 
@@ -59,6 +63,13 @@ def build_forward_batched(model, obs=None, ret=None):
     has_bands = obs is not None and obs.nbands > 0
     if has_bands:
         obs.to(dev, dt)
+    # All line-sample tables go into the kernel, or none:
+    ls_models = [m for mtype, m, _ in model.opacity_models
+                 if mtype == 'line_sample']
+    ls_fused = bool(ls_models) and ls_in_kernel(
+        sum(m.nspec * m.ntemp for m in ls_models), model.nlayers)
+    ls_tab = torch.cat([m.kernel_table for m in ls_models]) \
+        if ls_fused else None
 
     def forward_b(params_b=None):
         if params_b is not None:
@@ -72,6 +83,7 @@ def build_forward_batched(model, obs=None, ret=None):
         parts = []
         r1_cols, r1_rows = [], []
         cia_ws, cia_tabs = [], []
+        ls_ws = []
         elem = None
         deck_surface = None
         for (mtype, m, imol), pars in zip(
@@ -80,7 +92,11 @@ def build_forward_batched(model, obs=None, ret=None):
                 deck_surface = m.surface(radius, temp, pars)
                 continue
             if mtype == 'line_sample':
-                parts.append(m.extinction(temp, dens[:, :, imol], pars))
+                if ls_fused:
+                    ls_ws.append(
+                        m.kernel_weights(temp, dens[:, :, imol], pars))
+                else:
+                    parts.append(m.extinction(temp, dens[:, :, imol], pars))
             elif mtype == 'cia':
                 cia_ws.append(m.kernel_weights(temp, dens[:, :, imol]))
                 cia_tabs.append(m._tab)
@@ -105,6 +121,8 @@ def build_forward_batched(model, obs=None, ret=None):
             cia_tab=torch.cat(cia_tabs, dim=0) if cia_tabs else None,
             r1_cols=torch.stack(r1_cols, dim=1) if r1_cols else None,
             r1_rows=torch.stack(r1_rows, dim=1) if r1_rows else None,
+            ls_w=torch.cat(ls_ws, dim=1) if ls_ws else None,
+            ls_tab=ls_tab,
         )
         if is_transit:
             spectrum = model._run_transit(

@@ -21,7 +21,10 @@ import torch
 from .. import constants as pc
 from ..ops.planck import blackbody_wn
 from . import rt
-from .transit_kernel import _MAX_PARTS, _checked, _library
+from .transit_kernel import (
+    LS_TILE, _checked, _library, _pad_to, assembly_operands,
+    extinction_plain,
+)
 
 __all__ = [
     'emission_flux_ensemble', 'prep_emission_chains', 'emission_rt_plain',
@@ -60,36 +63,21 @@ def prep_emission_chains(radius, temp, itop, ibottom,
     return scal, dr, temp_col
 
 
-def _extinction(ec_parts, cia_w, cia_tab, r1_cols, r1_rows, shape, like):
-    """Dense parts, then rank-1 terms, then CIA (the kernels' order)."""
-    ec = None
-    for part in ec_parts:
-        ec = part if ec is None else ec + part
-    if ec is None:
-        ec = torch.zeros(shape, dtype=like.dtype, device=like.device)
-    if r1_cols is not None:
-        for r in range(r1_cols.shape[1]):
-            ec = ec + r1_cols[:, r, :, None] * r1_rows[:, r, None, :]
-    if cia_w is not None:
-        ec = ec + cia_w @ cia_tab
-    return ec
-
-
 def emission_rt_plain(ec_parts, scal, dr, temp_col, wn, mu, weights,
                       cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None,
-                      maxdepth=np.inf):
+                      ls_w=None, ls_tab=None, maxdepth=np.inf):
     """Plain PyTorch version of the kernel on prepared operands.
 
     ec_parts: list of [B, l, W]; r1_cols [B, n_r1, l] with r1_rows
-    [B, n_r1, W]; cia_w [B, l, K] with cia_tab [K, W]; wn [W] tensor;
-    mu, weights [nmu] host arrays.  Returns the flux [B, W]: the summed
-    extinction, rt.py's cumulative-trapezoid depth and ideep, Planck,
-    the masked intensity integral over [B, nmu, l, W], and the weighted
-    sum over angles.
+    [B, n_r1, W]; cia_w [B, l, K] with cia_tab [K, W]; ls_w [B, K2, l]
+    with ls_tab [K2, l, W]; wn [W] tensor; mu, weights [nmu] host
+    arrays.  Returns the flux [B, W]: the summed extinction
+    (extinction_plain), rt.py's cumulative-trapezoid depth and ideep,
+    Planck, the masked intensity integral over [B, nmu, l, W], and the
+    weighted sum over angles.
     """
-    nb, nlayers = temp_col.shape
-    ec = _extinction(ec_parts, cia_w, cia_tab, r1_cols, r1_rows,
-                     (nb, nlayers, wn.shape[0]), temp_col)
+    ec = extinction_plain(
+        ec_parts, cia_w, cia_tab, r1_cols, r1_rows, ls_w, ls_tab, temp_col)
     itop, bottom = scal[:, 0], scal[:, 1]
     depth, ideep = rt.cumulative_depth(ec, dr, maxdepth, itop, bottom)
     bbody = blackbody_wn(wn, temp_col[:, :, None])
@@ -101,30 +89,24 @@ def emission_rt_plain(ec_parts, scal, dr, temp_col, wn, mu, weights,
 
 def emission_rt_cuda(ec_parts, scal, dr, temp_col, wn, mu, weights,
                      cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None,
-                     maxdepth=np.inf):
+                     ls_w=None, ls_tab=None, maxdepth=np.inf):
     """Launch the CUDA kernel on prepared float32 CUDA operands (same
     signature and result as emission_rt_plain).  Each launch adds one
     to `emission_rt_cuda.launches`."""
     nb, nlayers = temp_col.shape
-    nwave = wn.shape[0]
-    if len(ec_parts) > _MAX_PARTS:
-        raise ValueError(f'At most {_MAX_PARTS} dense extinction parts')
-    if nb > 65535:
-        raise ValueError('At most 65535 chains per launch')
-    parts = [_checked(p, 'ec_part', (nb, nlayers, nwave)) for p in ec_parts]
+    rows = -(-nlayers // 4) * 4
+    keep, assembly, r1_cols, nwave, sizes = assembly_operands(
+        ec_parts, cia_w, cia_tab, r1_cols, r1_rows, ls_w, ls_tab, nb,
+        nlayers, rows)
     scal = _checked(scal, 'scal', (nb, 2), torch.int32)
-    dr = _checked(dr, 'dr', (nb, nlayers - 1))
-    temp_col = _checked(temp_col, 'temp', (nb, nlayers))
-    wn = _checked(wn, 'wn', (nwave,))
-    n_r1 = n_cia = 0
+    # The layer columns as one [B, 2 + n_r1, rows] block: the layer
+    # thicknesses, the temperatures, the rank-1 columns.
+    cols = [_pad_to(_checked(dr, 'dr', (nb, nlayers - 1)), nlayers)[:, None],
+            _checked(temp_col, 'temp', (nb, nlayers))[:, None]]
     if r1_cols is not None:
-        n_r1 = r1_cols.shape[1]
-        r1_cols = _checked(r1_cols, 'r1_cols', (nb, n_r1, nlayers))
-        r1_rows = _checked(r1_rows, 'r1_rows', (nb, n_r1, nwave))
-    if cia_w is not None:
-        n_cia = cia_w.shape[2]
-        cia_w = _checked(cia_w, 'cia_w', (nb, nlayers, n_cia))
-        cia_tab = _checked(cia_tab, 'cia_tab', (n_cia, nwave))
+        cols.append(r1_cols)
+    cols = _pad_to(torch.cat(cols, dim=1), rows)
+    wn = _checked(wn, 'wn', (nwave,))
     mu = np.asarray(mu, float)
     weights = np.asarray(weights, float)
     lib = _library()
@@ -133,21 +115,18 @@ def emission_rt_cuda(ec_parts, scal, dr, temp_col, wn, mu, weights,
         raise ValueError(
             f'{nmu} quadrature angles: the kernel takes 1 to {max_mu}, '
             'with one weight each')
-    if lib.pbt_emission_rt_smem_bytes(nlayers, n_r1, n_cia) > 232448:
-        raise ValueError('Operands exceed the shared memory of one block')
+    if lib.pbt_emission_rt_warps(nlayers, *sizes) < 1:
+        raise ValueError(
+            f'No emission kernel for a line-sample slab of {sizes[2]} x '
+            f'{nlayers} x {LS_TILE} floats beside the other operands: it '
+            'exceeds the shared memory of one block')
     out = torch.empty((nb, nwave), dtype=torch.float32, device=wn.device)
-    ptr = lambda t: None if t is None else t.data_ptr()
     floats = lambda a: (ctypes.c_float * len(a))(*a)
-    part_ptrs = [p.data_ptr() for p in parts] + [None] * (
-        _MAX_PARTS - len(parts))
     err = lib.pbt_emission_rt(
-        *part_ptrs, len(parts),
-        ptr(r1_cols), ptr(r1_rows), n_r1,
-        ptr(cia_w), ptr(cia_tab), n_cia,
-        scal.data_ptr(), dr.data_ptr(), temp_col.data_ptr(), wn.data_ptr(),
+        *assembly, cols.data_ptr(), scal.data_ptr(), wn.data_ptr(),
         floats(1.0 / mu), floats(weights), nmu, _PLANCK_C1, _PLANCK_C2,
-        out.data_ptr(), nb, nlayers, nwave, float(maxdepth),
-        torch.cuda.current_stream(wn.device).cuda_stream,
+        out.data_ptr(), nb, nlayers, nwave, rows, cols.shape[1],
+        float(maxdepth), torch.cuda.current_stream(wn.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
@@ -172,21 +151,22 @@ def emission_flux_ensemble(
     mu, weights: the quadrature angles and weights (host arrays); itop,
     ibottom [B] integers (ibottom = deck_itop + 1 with a deck);
     deck_itop / deck_tsurf [B] or None; cia_w [B, l, K] with cia_tab
-    [K, W]; r1_cols [B, n_r1, l] with r1_rows [B, n_r1, W].  CPU
-    tensors take the plain version, CUDA tensors the kernel.
+    [K, W]; ls_w [B, K2, l] with ls_tab [K2, l, W] (the line-sample
+    weights and table, contracted in the kernel); r1_cols [B, n_r1, l]
+    with r1_rows [B, n_r1, W].  CPU tensors take the plain version,
+    CUDA tensors the kernel.
 
-    The Pallas kernel's in-kernel line-sample operands (ls_w, ls_tab)
-    and layer-major parts (ec_parts_lbw) are TPU layout workarounds and
-    are not taken.
+    The Pallas kernel's layer-major parts (ec_parts_lbw) are a TPU
+    layout workaround and are not taken.
     """
-    if ls_w is not None or ls_tab is not None or len(ec_parts_lbw):
+    if len(ec_parts_lbw):
         raise NotImplementedError(
-            'The in-kernel line-sample and layer-major operands are not '
-            'ported (ROADMAP.md B1): pass dense [B, l, W] parts')
+            'The layer-major operands are not ported (ROADMAP.md B1): '
+            'pass dense [B, l, W] parts')
     wn = torch.as_tensor(wn, dtype=radius.dtype, device=radius.device)
     operands = prep_emission_chains(
         radius, temp, itop, ibottom, deck_itop, deck_tsurf)
     flux = emission_rt_cuda if radius.is_cuda else emission_rt_plain
     return flux(list(ec_parts), *operands, wn, mu, weights, cia_w=cia_w,
                 cia_tab=cia_tab, r1_cols=r1_cols, r1_rows=r1_rows,
-                maxdepth=maxdepth)
+                ls_w=ls_w, ls_tab=ls_tab, maxdepth=maxdepth)

@@ -9,6 +9,12 @@ sm_90a into a plain-C shared library at its first launch, under
 pyratbay_tpu_torch/_build/<hash of the sources>/, and bound with
 ctypes.  Importing this module needs neither nvcc nor a GPU.
 
+Like the Pallas kernel it takes the line-sampled opacity either as a
+dense [B, l, W] part or as the operands ls_w [B, K2, l] and ls_tab
+[K2, l, W], contracted inside the kernel against a table slab held in
+shared memory; `ls_in_kernel` is the static size rule by which the
+batched forward picks between the two.
+
 `transit_spectrum_ensemble` prepares the per-chain operands in torch
 (the pair-sum fold of the chord matrix and prep_chain's scalars and
 radius columns, all small), then takes the plain version for CPU
@@ -29,17 +35,33 @@ import torch.nn.functional as F
 
 __all__ = [
     'transit_spectrum_ensemble', 'transit_spectrum_fused', 'prep_chains',
-    'transit_rt_plain', 'transit_rt_cuda', 'build_library',
+    'transit_rt_plain', 'transit_rt_cuda', 'build_library', 'ls_in_kernel',
+    'extinction_plain', 'assembly_operands', 'chord_layout',
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
 _BUILD = os.path.join(_PKG, '_build')
 _MAX_PARTS = 4
+_MAX_R1 = 4
+# The kernels hold the line-sample table of one 64-column wave tile in
+# shared memory; a slab up to this size leaves room for the warps'
+# own operands beside it (232,448 bytes a block in all).
+LS_TILE = 64
+LS_SLAB_MAX = 147456
 NVCC_FLAGS = [
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-Xcompiler', '-fPIC', '-Xptxas', '-v',
 ]
+
+
+def ls_in_kernel(n_k, nlayers):
+    """Whether a line-sample table of n_k (species x temperature) rows
+    by nlayers goes into the RT kernels as ls_w / ls_tab (its wave-tile
+    slab fits the shared memory) or stays a dense part made by an
+    einsum.  On an NVIDIA H100 the in-kernel route measured faster for
+    both kernels (PERF.md), so it is taken whenever the slab fits."""
+    return n_k * nlayers * LS_TILE * 4 <= LS_SLAB_MAX
 
 
 def _nvcc():
@@ -109,20 +131,18 @@ def build_library():
 def _library():
     lib = ctypes.CDLL(build_library())
     ptr, cint = ctypes.c_void_p, ctypes.c_int
-    lib.pbt_transit_rt.argtypes = (
-        [ptr] * 4 + [cint] + [ptr, ptr, cint] + [ptr, ptr, cint]
-        + [ptr] * 6 + [cint, cint, cint, ctypes.c_float, ptr])
-    lib.pbt_transit_rt.restype = cint
-    lib.pbt_transit_rt_smem_bytes.argtypes = [cint, cint, cint]
-    lib.pbt_transit_rt_smem_bytes.restype = cint
     fptr, cfloat = ctypes.POINTER(ctypes.c_float), ctypes.c_float
+    assembly = [ptr] * 4 + [cint] + [ptr, cint] + [ptr, ptr, cint] * 2
+    lib.pbt_transit_rt.argtypes = (
+        assembly + [ptr] * 4 + [cint] * 6 + [cfloat, ptr])
+    lib.pbt_transit_rt.restype = cint
     lib.pbt_emission_rt.argtypes = (
-        [ptr] * 4 + [cint] + [ptr, ptr, cint] + [ptr, ptr, cint]
-        + [ptr] * 4 + [fptr, fptr, cint, cfloat, cfloat, ptr]
-        + [cint, cint, cint, cfloat, ptr])
+        assembly + [ptr] * 3 + [fptr, fptr, cint, cfloat, cfloat, ptr]
+        + [cint] * 5 + [cfloat, ptr])
     lib.pbt_emission_rt.restype = cint
-    lib.pbt_emission_rt_smem_bytes.argtypes = [cint, cint, cint]
-    lib.pbt_emission_rt_smem_bytes.restype = cint
+    for fn in (lib.pbt_transit_rt_warps, lib.pbt_emission_rt_warps):
+        fn.argtypes = [cint] * 5
+        fn.restype = cint
     lib.pbt_emission_rt_max_mu.argtypes = []
     lib.pbt_emission_rt_max_mu.restype = cint
     return lib
@@ -177,29 +197,49 @@ def prep_chains(path, radius, rstar, itop, ibottom,
     return path2, scal, radius, h_col, hprev_col
 
 
-def transit_rt_plain(ec_parts, path2, scal, rad, h, hprev,
-                     cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None,
-                     maxdepth=np.inf):
-    """Plain PyTorch version of the kernel on prepared operands.
-
-    ec_parts: list of [B, l, W]; r1_cols [B, n_r1, l] with r1_rows
-    [B, n_r1, W]; cia_w [B, l, K] with cia_tab [K, W].  Returns
-    [B, W].  Same summation order as the kernel: dense parts, rank-1
-    terms, CIA; then the chord product and chain_rt_epilogue.
-    """
-    nb, nlayers = rad.shape
+def extinction_plain(ec_parts, cia_w, cia_tab, r1_cols, r1_rows, ls_w,
+                     ls_tab, like):
+    """The summed extinction [B, l, W] in the kernels' order: dense
+    parts, rank-1 terms, CIA, line sample.  `like` [B, l] gives the
+    batch, the layers, the dtype and the device."""
     ec = None
     for part in ec_parts:
         ec = part if ec is None else ec + part
     if ec is None:
-        nwave = (r1_rows if r1_rows is not None else cia_tab).shape[-1]
-        ec = torch.zeros((nb, nlayers, nwave), dtype=rad.dtype,
-                         device=rad.device)
+        nwave = _nwave(ec_parts, r1_rows, cia_tab, ls_tab)
+        ec = torch.zeros((*like.shape, nwave), dtype=like.dtype,
+                         device=like.device)
     if r1_cols is not None:
         for r in range(r1_cols.shape[1]):
             ec = ec + r1_cols[:, r, :, None] * r1_rows[:, r, None, :]
     if cia_w is not None:
         ec = ec + cia_w @ cia_tab
+    if ls_w is not None:
+        ec = ec + torch.einsum('bkl,klw->blw', ls_w, ls_tab)
+    return ec
+
+
+def _nwave(ec_parts, r1_rows, cia_tab, ls_tab):
+    for operand in (*ec_parts, r1_rows, cia_tab, ls_tab):
+        if operand is not None:
+            return operand.shape[-1]
+    raise ValueError('No extinction operand: the spectrum has no width')
+
+
+def transit_rt_plain(ec_parts, path2, scal, rad, h, hprev,
+                     cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None,
+                     ls_w=None, ls_tab=None, maxdepth=np.inf):
+    """Plain PyTorch version of the kernel on prepared operands.
+
+    ec_parts: list of [B, l, W]; r1_cols [B, n_r1, l] with r1_rows
+    [B, n_r1, W]; cia_w [B, l, K] with cia_tab [K, W]; ls_w [B, K2, l]
+    with ls_tab [K2, l, W].  Returns [B, W].  Same summation order as
+    the kernel (extinction_plain); then the chord product and
+    chain_rt_epilogue.
+    """
+    nb, nlayers = rad.shape
+    ec = extinction_plain(
+        ec_parts, cia_w, cia_tab, r1_cols, r1_rows, ls_w, ls_tab, rad)
     depth = path2 @ ec
 
     (itop, ibottom, deck_row, apply_deck, w_surf, inv_rstar2,
@@ -238,67 +278,140 @@ def _checked(t, name, shape, dtype=torch.float32):
     return t.contiguous()
 
 
-def transit_rt_cuda(ec_parts, path2, scal, rad, h, hprev,
-                    cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None,
-                    maxdepth=np.inf):
-    """Launch the CUDA kernel on prepared float32 CUDA operands (same
-    signature and result as transit_rt_plain).  Each launch adds one
-    to `transit_rt_cuda.launches`."""
-    nb, nlayers = rad.shape
-    if r1_rows is not None:
-        nwave = r1_rows.shape[-1]
-    elif ec_parts:
-        nwave = ec_parts[0].shape[-1]
-    else:
-        nwave = cia_tab.shape[-1]
+def _pad_to(t, *sizes):
+    """Zero-pad the trailing dimensions of t up to `sizes` (a new,
+    contiguous tensor even when nothing is added)."""
+    pad = []
+    for have, want in zip(reversed(t.shape[-len(sizes):]), reversed(sizes)):
+        pad += [0, want - have]
+    out = F.pad(t, pad).contiguous()
+    # The kernels copy 16 bytes at a time: a view into the middle of
+    # another tensor's storage may not be aligned.
+    return out if out.data_ptr() % 16 == 0 else out.clone()
+
+
+def assembly_operands(ec_parts, cia_w, cia_tab, r1_cols, r1_rows, ls_w,
+                      ls_tab, nb, nlayers, rows):
+    """The extinction operands both kernels share, checked (float32 CUDA
+    tensors of matching shapes) and laid out as the kernels stage them:
+    the per-chain weights zero-padded to `rows` layers and to a multiple
+    of 4 (line sample, transposed to [B, rows, K2P]) or to KP = 16 or 32
+    (CIA, [B, rows, KP]) weights a layer, so that a warp copies a
+    chain's block 16 bytes at a time.  Returns (tensors kept alive,
+    leading C arguments, rank-1 columns [B, n_r1, l] or None, nwave,
+    (n_r1, n_cia, n_ls, n_parts))."""
+    nwave = _nwave(ec_parts, r1_rows, cia_tab, ls_tab)
     if len(ec_parts) > _MAX_PARTS:
         raise ValueError(f'At most {_MAX_PARTS} dense extinction parts')
-    if nb > 65535:
-        raise ValueError('At most 65535 chains per launch')
     parts = [_checked(p, 'ec_part', (nb, nlayers, nwave)) for p in ec_parts]
-    path2 = _checked(path2, 'path2', (nb, nlayers, nlayers))
-    scal = _checked(scal, 'scal', (nb, 8))
-    rad = _checked(rad, 'radius', (nb, nlayers))
-    h = _checked(h, 'h', (nb, nlayers))
-    hprev = _checked(hprev, 'hprev', (nb, nlayers))
-    n_r1 = n_cia = 0
+    n_r1 = n_cia = n_ls = 0
     if r1_cols is not None:
         n_r1 = r1_cols.shape[1]
+        if n_r1 > _MAX_R1:
+            raise ValueError(f'At most {_MAX_R1} rank-1 extinction terms')
         r1_cols = _checked(r1_cols, 'r1_cols', (nb, n_r1, nlayers))
         r1_rows = _checked(r1_rows, 'r1_rows', (nb, n_r1, nwave))
     if cia_w is not None:
         n_cia = cia_w.shape[2]
-        cia_w = _checked(cia_w, 'cia_w', (nb, nlayers, n_cia))
+        if n_cia > 32:
+            raise ValueError('At most 32 CIA table rows')
+        cia_w = _pad_to(_checked(cia_w, 'cia_w', (nb, nlayers, n_cia)),
+                        rows, 16 if n_cia <= 16 else 32)
         cia_tab = _checked(cia_tab, 'cia_tab', (n_cia, nwave))
-    lib = _library()
-    if lib.pbt_transit_rt_smem_bytes(nlayers, n_r1, n_cia) > 232448:
-        raise ValueError('Operands exceed the shared memory of one block')
-    out = torch.empty((nb, nwave), dtype=torch.float32, device=rad.device)
+    if ls_w is not None:
+        n_ls = ls_w.shape[1]
+        ls_w = _pad_to(
+            _checked(ls_w, 'ls_w', (nb, n_ls, nlayers)).transpose(1, 2),
+            rows, -(-n_ls // 4) * 4)
+        ls_tab = _checked(ls_tab, 'ls_tab', (n_ls, nlayers, nwave))
     ptr = lambda t: None if t is None else t.data_ptr()
     part_ptrs = [p.data_ptr() for p in parts] + [None] * (
         _MAX_PARTS - len(parts))
+    args = [*part_ptrs, len(parts), ptr(r1_rows), n_r1,
+            ptr(cia_w), ptr(cia_tab), n_cia, ptr(ls_w), ptr(ls_tab), n_ls]
+    keep = (parts, r1_rows, cia_w, cia_tab, ls_w, ls_tab)
+    return keep, args, r1_cols, nwave, (n_r1, n_cia, n_ls, len(parts))
+
+
+def chord_layout(nlayers):
+    """How the transit kernel holds a chain's chord matrix: (NL4, index)
+    with NL4 the layer count in chunks of 4, padded up to the kernel's
+    instantiations (32, 52 or 64 layers), and `index` the gather that
+    packs path2 [l * l] (plus one trailing zero) for it.  The packed row
+    of layer j holds path2[i, j] for the rows i from the first of j's
+    chunk to the padded last (the matrix is zero above its diagonal, so
+    the rows above add nothing)."""
+    if not 2 <= nlayers <= 64:
+        raise ValueError(
+            f'The transit kernel takes 2 to 64 layers, not {nlayers}')
+    nl4 = 8 if nlayers <= 32 else 13 if nlayers <= 52 else 16
+    index = []
+    for j in range(4 * nl4):
+        for i in range(4 * (j // 4), 4 * nl4):
+            index.append(i * nlayers + j if i < nlayers and j < nlayers
+                         else nlayers * nlayers)
+    return nl4, np.array(index)
+
+
+@functools.lru_cache(maxsize=8)
+def _chord_index(nlayers, device):
+    nl4, index = chord_layout(nlayers)
+    return nl4, torch.as_tensor(index, device=device)
+
+
+def transit_rt_cuda(ec_parts, path2, scal, rad, h, hprev,
+                    cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None,
+                    ls_w=None, ls_tab=None, maxdepth=np.inf):
+    """Launch the CUDA kernel on prepared float32 CUDA operands (same
+    signature and result as transit_rt_plain).  Each launch adds one
+    to `transit_rt_cuda.launches`, and one with a single chain also to
+    `transit_rt_cuda.single_chain_launches`."""
+    nb, nlayers = rad.shape
+    nl4, index = _chord_index(nlayers, rad.device)
+    keep, assembly, r1_cols, nwave, sizes = assembly_operands(
+        ec_parts, cia_w, cia_tab, r1_cols, r1_rows, ls_w, ls_tab, nb,
+        nlayers, 4 * nl4)
+    # The chord matrix packed column by column, and the layer columns
+    # (radius, h, h_prev, rank-1 columns) as one [B, 3 + n_r1, rows] block:
+    path2 = _checked(path2, 'path2', (nb, nlayers, nlayers))
+    packed = F.pad(path2.reshape(nb, -1), (0, 1))[:, index]
+    scal = _checked(scal, 'scal', (nb, 8))
+    cols = [_checked(t, name, (nb, nlayers))[:, None] for t, name in (
+        (rad, 'radius'), (h, 'h'), (hprev, 'hprev'))]
+    if r1_cols is not None:
+        cols.append(r1_cols)
+    cols = _pad_to(torch.cat(cols, dim=1), 4 * nl4)
+    lib = _library()
+    if lib.pbt_transit_rt_warps(nlayers, *sizes) < 1:
+        raise ValueError(
+            f'No transit kernel for a line-sample slab of {sizes[2]} x '
+            f'{nlayers} x {LS_TILE} floats beside the other operands: it '
+            'exceeds the shared memory of one block')
+    out = torch.empty((nb, nwave), dtype=torch.float32, device=rad.device)
     err = lib.pbt_transit_rt(
-        *part_ptrs, len(parts),
-        ptr(r1_cols), ptr(r1_rows), n_r1,
-        ptr(cia_w), ptr(cia_tab), n_cia,
-        path2.data_ptr(), scal.data_ptr(), rad.data_ptr(),
-        h.data_ptr(), hprev.data_ptr(), out.data_ptr(),
-        nb, nlayers, nwave, float(maxdepth),
+        *assembly, packed.data_ptr(), cols.data_ptr(), scal.data_ptr(),
+        out.data_ptr(), nb, nlayers, nwave, nl4, packed.shape[1],
+        cols.shape[1], float(maxdepth),
         torch.cuda.current_stream(rad.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f'transit_rt kernel launch failed: CUDA error {err}')
     transit_rt_cuda.launches += 1
+    if nb == 1:
+        transit_rt_cuda.single_chain_launches += 1
     return out
 
 
 transit_rt_cuda.launches = 0
+# Launches with one chain, the per-chain transit_spectrum_fused case:
+transit_rt_cuda.single_chain_launches = 0
 
 
 def transit_spectrum_ensemble(
         ec_parts, path, radius, rstar, itop, ibottom,
         deck_itop=None, deck_rsurf=None, cia_w=None, cia_tab=None,
-        r1_cols=None, r1_rows=None, maxdepth=np.inf):
+        r1_cols=None, r1_rows=None, ls_w=None, ls_tab=None,
+        maxdepth=np.inf):
     """Batched transit (Rp/Rs)^2 spectra [B, W].
 
     ec_parts: list of [B, l, W] extinction contributions (summed in the
@@ -306,14 +419,16 @@ def transit_spectrum_ensemble(
     like rstar; itop, ibottom [B] integers (ibottom = deck_itop + 1
     with a deck); deck_itop [B] / deck_rsurf [B] or None; cia_w
     [B, l, K] with cia_tab [K, W]; r1_cols [B, n_r1, l] with r1_rows
-    [B, n_r1, W].  CPU tensors take the plain version, CUDA tensors
-    the kernel.
+    [B, n_r1, W]; ls_w [B, K2, l] with ls_tab [K2, l, W] (the
+    line-sample weights and table, contracted in the kernel).  CPU
+    tensors take the plain version, CUDA tensors the kernel.
     """
     operands = prep_chains(
         path, radius, rstar, itop, ibottom, deck_itop, deck_rsurf)
     rt = transit_rt_cuda if radius.is_cuda else transit_rt_plain
     return rt(list(ec_parts), *operands, cia_w=cia_w, cia_tab=cia_tab,
-              r1_cols=r1_cols, r1_rows=r1_rows, maxdepth=maxdepth)
+              r1_cols=r1_cols, r1_rows=r1_rows, ls_w=ls_w, ls_tab=ls_tab,
+              maxdepth=maxdepth)
 
 
 def transit_spectrum_fused(ec, path, radius, rstar, itop, ibottom,

@@ -92,6 +92,92 @@ def test_cuda_kernel_matches_plain(cuda, with_deck):
     assert np.max(np.abs(got - want) / scale) < TOL
 
 
+def _line_sample(nb, nlayers, nwave, nk, seed, scale=1.0):
+    """Two-hot line-sample weights [B, K2, l] and a table [K2, l, W]."""
+    rng = np.random.default_rng(seed)
+    ls_w = np.zeros((nb, nk, nlayers))
+    tlo = rng.integers(0, nk - 1, (nb, nlayers))
+    frac = rng.random((nb, nlayers))
+    dens = rng.lognormal(0.0, 1.0, (nb, nlayers))
+    b, j = np.meshgrid(np.arange(nb), np.arange(nlayers), indexing='ij')
+    ls_w[b, tlo, j] = (1 - frac) * dens
+    ls_w[b, tlo + 1, j] = frac * dens
+    ls_tab = scale * rng.lognormal(-3.0, 2.0, (nk, nlayers, nwave)) \
+        * np.exp(np.linspace(0.0, 7.0, nlayers))[None, :, None]
+    return ls_w, ls_tab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', [
+    'ls', 'ls_nodeck', 'ls_beside_parts', 'one_chain', 'odd_group',
+    'few_layers', 'many_cia'])
+def test_cuda_kernel_line_sample_operands(cuda, case):
+    """The kernel on ls_w / ls_tab against the plain version: alone,
+    beside dense parts, one chain (the per-chain interface), a chain
+    count that no chain group divides, a layer count of the smallest
+    instantiation, and more than 16 CIA rows."""
+    nb = {'one_chain': 1, 'odd_group': 37}.get(case, 6)
+    nlayers = 12 if case == 'few_layers' else 51
+    ncia = 20 if case == 'many_cia' else 15
+    nwave = 1000
+    radius, parts, cia_tab, cia_w, r1c, r1r = _operands(
+        nb, nlayers, nwave, ncia=ncia, nr1=2, seed=11)
+    ls_w, ls_tab = _line_sample(nb, nlayers, nwave, 10, seed=12)
+    f32 = lambda a: torch.as_tensor(
+        np.asarray(a), dtype=torch.float32, device=cuda)
+    i64 = lambda a: torch.as_tensor(np.asarray(a), device=cuda)
+    itop = np.arange(nb) % 3
+    rr = f32(radius)
+    path = transit_path_matrix(rr, i64(itop))
+    if case == 'ls_nodeck':
+        operands = tk.prep_chains(path, rr, 12.0, i64(itop),
+                                  i64(np.full(nb, nlayers)))
+    else:
+        deck_itop = nlayers - 1 - np.arange(nb) % 7
+        rsurf = radius[np.arange(nb), deck_itop] + 0.4 * (
+            radius[np.arange(nb), deck_itop - 1]
+            - radius[np.arange(nb), deck_itop])
+        operands = tk.prep_chains(path, rr, 12.0, i64(itop),
+                                  i64(deck_itop + 1), i64(deck_itop),
+                                  f32(rsurf))
+    kw = dict(cia_w=f32(cia_w), cia_tab=f32(cia_tab), r1_cols=f32(r1c),
+              r1_rows=f32(r1r), ls_w=f32(ls_w), ls_tab=f32(ls_tab),
+              maxdepth=10.0)
+    ec = [f32(p) for p in parts] if case == 'ls_beside_parts' else []
+    launches = tk.transit_rt_cuda.launches
+    single = tk.transit_rt_cuda.single_chain_launches
+    got = tk.transit_rt_cuda(ec, *operands, **kw)
+    want = tk.transit_rt_plain(ec, *operands, **kw)
+    torch.cuda.synchronize()
+    assert tk.transit_rt_cuda.launches == launches + 1
+    assert tk.transit_rt_cuda.single_chain_launches == single + (nb == 1)
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert np.all(np.isfinite(got))
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    assert np.max(np.abs(got - want) / scale) < TOL
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_a_slab_beyond_shared_memory(cuda):
+    """A line-sample table whose wave-tile slab leaves no room in a
+    block's shared memory raises before any launch."""
+    nb, nlayers, nwave = 2, 51, 128
+    radius, _, _, _, _, _ = _operands(nb, nlayers, nwave, 1, 1, seed=3)
+    ls_w, ls_tab = _line_sample(nb, nlayers, nwave, 20, seed=4)
+    assert not tk.ls_in_kernel(20, nlayers)
+    f32 = lambda a: torch.as_tensor(
+        np.asarray(a), dtype=torch.float32, device=cuda)
+    rr = f32(radius)
+    operands = tk.prep_chains(
+        transit_path_matrix(rr), rr, 12.0,
+        torch.zeros(nb, dtype=torch.int64, device=cuda),
+        torch.full((nb,), nlayers, device=cuda))
+    launches = tk.transit_rt_cuda.launches
+    with pytest.raises(ValueError, match='shared memory'):
+        tk.transit_rt_cuda([], *operands, ls_w=f32(ls_w), ls_tab=f32(ls_tab))
+    assert tk.transit_rt_cuda.launches == launches
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_routes_to_kernel(cuda):
     """transit_spectrum_ensemble on CUDA tensors launches the kernel."""
@@ -146,6 +232,58 @@ def test_cuda_emission_kernel_matches_plain(cuda, with_deck):
     kw = dict(cia_w=f32(cia_w), cia_tab=f32(cia_tab), r1_cols=f32(r1c),
               r1_rows=f32(r1r), maxdepth=10.0)
     ec = [f32(p) for p in parts]
+    launches = ek.emission_rt_cuda.launches
+    got = ek.emission_rt_cuda(ec, *operands, f32(wn), mu, weights, **kw)
+    want = ek.emission_rt_plain(ec, *operands, f32(wn), mu, weights, **kw)
+    torch.cuda.synchronize()
+    assert ek.emission_rt_cuda.launches == launches + 1
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert np.all(np.isfinite(got))
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    assert np.max(np.abs(got - want) / scale) < EMISSION_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', [
+    'ls', 'ls_nodeck', 'ls_beside_parts', 'one_chain', 'odd_group',
+    'gauss3', 'gauss12', 'many_cia'])
+def test_cuda_emission_kernel_line_sample_operands(cuda, case):
+    """The emission kernel on ls_w / ls_tab against the plain version:
+    alone, beside dense parts, one chain, a chain count that no chain
+    group divides, angle counts of the predicated instantiations, and
+    more than 16 CIA rows."""
+    nb = {'one_chain': 1, 'odd_group': 37}.get(case, 6)
+    nlayers, nwave = 51, 1000
+    radius, temp, parts, wn, cia_w, cia_tab, r1c, r1r = _emission_operands(
+        nb, nlayers, nwave, seed=13)
+    if case == 'many_cia':
+        rng = np.random.default_rng(5)
+        cia_w = rng.lognormal(-28.0, 1.0, (nb, nlayers, 20))
+        cia_tab = rng.lognormal(0.0, 1.0, (20, nwave))
+    ls_w, ls_tab = _line_sample(nb, nlayers, nwave, 10, seed=14,
+                                scale=3e-10)
+    f32 = lambda a: torch.as_tensor(
+        np.asarray(a), dtype=torch.float32, device=cuda)
+    i64 = lambda a: torch.as_tensor(np.asarray(a), device=cuda)
+    if case.startswith('gauss'):
+        from pyratbay_tpu_torch.spectrum.rt import gauss_quadrature
+        mu, weights = gauss_quadrature(int(case[5:]))
+    else:
+        mu = np.cos(np.deg2rad([0.0, 20.0, 40.0, 60.0, 80.0]))
+        weights = np.full(5, np.pi / 5)
+    itop = np.arange(nb) % 3
+    if case == 'ls_nodeck':
+        operands = ek.prep_emission_chains(
+            f32(radius), f32(temp), i64(itop), i64(np.full(nb, nlayers)))
+    else:
+        deck_itop = nlayers - 1 - np.arange(nb) % 7
+        operands = ek.prep_emission_chains(
+            f32(radius), f32(temp), i64(itop), i64(deck_itop + 1),
+            i64(deck_itop), f32(np.full(nb, 1600.0)))
+    kw = dict(cia_w=f32(cia_w), cia_tab=f32(cia_tab), r1_cols=f32(r1c),
+              r1_rows=f32(r1r), ls_w=f32(ls_w), ls_tab=f32(ls_tab),
+              maxdepth=10.0)
+    ec = [f32(p) for p in parts] if case == 'ls_beside_parts' else []
     launches = ek.emission_rt_cuda.launches
     got = ek.emission_rt_cuda(ec, *operands, f32(wn), mu, weights, **kw)
     want = ek.emission_rt_plain(ec, *operands, f32(wn), mu, weights, **kw)

@@ -5,7 +5,9 @@ on the CPU.
   rt.plane_parallel_depth + plane_parallel_intensity route (rtol 1e-12)
   and against the Pallas kernel in interpret mode (rtol 1e-10: the
   Pallas kernel's depth is a matrix product and its Planck uses
-  exp - 1 where the port uses expm1).
+  exp - 1 where the port uses expm1); with the line-sample operands
+  (ls_w, ls_tab) against the einsum's dense part (1e-12) and the Pallas
+  kernel's in-kernel contraction.
 * The plain RT pieces against pyratbay_tpu's (rtol 1e-12).
 * The eclipse flagship at test size (21 layers, 1.1-1.3 um, wnstep 4):
   batched forward and log-posterior against the JAX package at rtol
@@ -180,6 +182,82 @@ def test_plain_matches_rt_route_and_pallas(case):
     np.testing.assert_allclose(got, pallas, rtol=RTOL_PALLAS)
 
 
+@pytest.mark.parametrize('case', ['beside_a_part', 'with_everything'])
+def test_plain_line_sample_operands(case):
+    """ls_w / ls_tab in the plain version: equal to the einsum's dense
+    part (1e-12) and to the Pallas kernel's in-kernel contraction, run
+    as tests/test_emission_pallas.py runs it (interpret mode, the
+    operands of its test_emission_ensemble_inkernel_line_sample)."""
+    rng, ec, radius, temp, wn = _setup(seed=13)
+    nb, nlayers, nwave = ec.shape
+    mu, weights = _raygrid()
+    nk = 6
+    ls_w = rng.lognormal(-2.0, 1.0, (nb, nk, nlayers))
+    ls_w[:, ::2] *= (rng.random((nb, nk // 2, nlayers)) < 0.5)  # zeros too
+    ls_tab = rng.lognormal(-24.0, 1.5, (nk, nlayers, nwave))
+    itop = np.array([0, 1, 0, 3, 0])
+    extra, jextra = {}, {}
+    ibottom = np.full(nb, nlayers)
+    if case == 'with_everything':
+        cia_w = rng.lognormal(-28.0, 1.0, (nb, nlayers, 6))
+        cia_tab = rng.lognormal(0.0, 1.0, (6, nwave))
+        r1c = rng.lognormal(-24.0, 1.0, (nb, 2, nlayers))
+        r1r = rng.lognormal(0.0, 1.0, (nb, 2, nwave))
+        deck_itop = np.array([38, 39, 10, 30, 25])
+        deck_tsurf = np.array([1450.0, 1350.0, 1650.0, 1250.0, 1550.0])
+        ibottom = deck_itop + 1
+        extra = dict(cia_w=T(cia_w), cia_tab=T(cia_tab), r1_cols=T(r1c),
+                     r1_rows=T(r1r), deck_itop=T(deck_itop),
+                     deck_tsurf=T(deck_tsurf))
+        jextra = dict(cia_w=jnp.asarray(cia_w), cia_tab=cia_tab,
+                      r1_cols=jnp.asarray(r1c[..., None]),
+                      r1_rows=jnp.asarray(r1r[:, :, None, :]),
+                      deck_itop=jnp.asarray(deck_itop),
+                      deck_tsurf=jnp.asarray(deck_tsurf))
+    common = (T(radius), T(temp), wn, mu, weights, T(itop), T(ibottom))
+    got = ek.emission_flux_ensemble(
+        [T(ec)], *common, ls_w=T(ls_w), ls_tab=T(ls_tab), maxdepth=6.0,
+        **extra).numpy()
+
+    dense = np.einsum('bkl,klw->blw', ls_w, ls_tab)
+    ref = ek.emission_flux_ensemble(
+        [T(ec), T(dense)], *common, maxdepth=6.0, **extra).numpy()
+    np.testing.assert_allclose(got, ref, rtol=RTOL_RT)
+
+    pallas = np.asarray(jemission(
+        [jnp.asarray(ec)], jnp.asarray(radius), jnp.asarray(temp), wn, mu,
+        weights, jnp.asarray(itop), jnp.asarray(ibottom),
+        ls_w=jnp.asarray(ls_w[..., None]), ls_tab=ls_tab,
+        maxdepth=6.0, interpret=True, chain_block=2, **jextra))
+    np.testing.assert_allclose(got, pallas, rtol=RTOL_PALLAS)
+
+
+def test_plain_line_sample_alone_matches_float32_pallas():
+    """No dense part: the Pallas kernel then runs in float32 and the
+    bound is 1e-5."""
+    rng, ec, radius, temp, wn = _setup(seed=21)
+    nb, nlayers, nwave = ec.shape
+    mu, weights = _raygrid()
+    ls_w = rng.lognormal(-2.0, 1.0, (nb, 6, nlayers))
+    ls_tab = rng.lognormal(-23.0, 1.5, (6, nlayers, nwave)) \
+        * np.exp(np.linspace(0, 10, nlayers))[None, :, None]
+    f32 = lambda a: np.asarray(a, np.float32).astype(float)
+    radius, temp, ls_w, ls_tab = (f32(a) for a in (radius, temp, ls_w,
+                                                   ls_tab))
+    args = (T(radius), T(temp), wn, mu, weights, T(np.zeros(nb, int)),
+            T(np.full(nb, nlayers)))
+    got = ek.emission_flux_ensemble(
+        [], *args, ls_w=T(ls_w), ls_tab=T(ls_tab), maxdepth=np.inf).numpy()
+    pallas = np.asarray(jemission(
+        [], jnp.asarray(radius), jnp.asarray(temp), wn, mu, weights,
+        jnp.zeros(nb, int), jnp.full(nb, nlayers),
+        ls_w=jnp.asarray(ls_w[..., None], jnp.float32),
+        ls_tab=np.asarray(ls_tab, np.float32),
+        maxdepth=np.inf, interpret=True, chain_block=2))
+    assert pallas.dtype == np.float32
+    np.testing.assert_allclose(got, pallas, rtol=1e-5)
+
+
 def test_rejected_chain_stays_in_its_row():
     """A chain with T <= 0 and a diverged radius yields non-finite
     values only in its own row."""
@@ -196,7 +274,7 @@ def test_rejected_chain_stays_in_its_row():
 
 def test_wrapper_routes_by_device(monkeypatch):
     """CPU tensors take the plain version and never reach the CUDA
-    launcher; the TPU layout operands are refused."""
+    launcher; the TPU's layer-major operands are refused."""
     calls = []
     monkeypatch.setattr(ek, 'emission_rt_cuda',
                         lambda *a, **k: calls.append(1))
@@ -284,7 +362,7 @@ class _ObsCfg:
 
 
 def _port_setup(cfg_file):
-    model = Model(cfg_file)
+    model = Model(cfg_file, device='cpu')
     obs = Observation(_ObsCfg, model.wn)
     return model, obs, RetrievalParams(model, obs)
 
@@ -326,6 +404,38 @@ def _assert_forward_matches(got, ref):
     band, jband = got['bandflux'].numpy(), np.asarray(ref['bandflux'])
     np.testing.assert_array_equal(np.isinf(band), np.isinf(jband))
     np.testing.assert_allclose(band[good], jband[good], rtol=RTOL_SLICE)
+
+
+@pytest.mark.parametrize('route', ['in_kernel', 'dense_part'])
+def test_eclipse_forward_line_sample_routes(eclipse, monkeypatch, route):
+    """The eclipse forward hands the line sample to the RT wrapper as
+    ls_w / ls_tab when the table's slab fits the kernel and as a dense
+    part otherwise; both agree with pyratbay_tpu's batched forward."""
+    from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch.retrieval import batched
+    _, (jmodel, jobs, jret, p0), (model, obs, ret) = eclipse
+    if route == 'dense_part':
+        monkeypatch.setattr(batched, 'ls_in_kernel', lambda n_k, nl: False)
+    seen = {}
+    real = model_mod.emission_flux_ensemble
+
+    def recorder(ec_parts, *args, **kw):
+        seen['parts'], seen['kw'] = list(ec_parts), kw
+        return real(ec_parts, *args, **kw)
+
+    monkeypatch.setattr(model_mod, 'emission_flux_ensemble', recorder)
+    pb = _params(p0)[:-1]
+    got = build_forward_batched(model, obs, ret)(pb)['spectrum'].numpy()
+    if route == 'in_kernel':
+        assert not seen['parts']
+        assert seen['kw']['ls_w'].shape[0::2] == (len(pb), model.nlayers)
+        assert seen['kw']['ls_tab'].shape[1:] == (model.nlayers, model.nwave)
+    else:
+        assert len(seen['parts']) == 1 and seen['kw']['ls_w'] is None
+    ref = jax.jit(jbuild_forward_batched(jmodel, jobs, jret))(
+        jnp.asarray(pb))
+    np.testing.assert_allclose(got, np.asarray(ref['spectrum']),
+                               rtol=RTOL_SLICE)
 
 
 def test_eclipse_forward_and_log_posterior(eclipse):
@@ -404,7 +514,8 @@ def test_eclipse_state_from_jax_arrays(eclipse):
     assert from_jax.keys() == from_cfg.keys()
     for key in ('starflux', 'quadrature_mu', 'quadrature_weights'):
         assert from_jax[key] is not None, key
-    tj, tc = convert.to_tensors(from_jax), convert.to_tensors(from_cfg)
+    tj, tc = convert.to_tensors(from_jax, 'cpu'), convert.to_tensors(
+        from_cfg, 'cpu')
     for key in tj:
         if tj[key] is None:
             assert tc[key] is None, key
@@ -428,4 +539,4 @@ def test_unported_rt_path_raises(eclipse, tmp_path):
     with open(cfg_file, 'w') as f:
         f.write(text)
     with pytest.raises(NotImplementedError, match='A10'):
-        Model(cfg_file)
+        Model(cfg_file, device='cpu')

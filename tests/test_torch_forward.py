@@ -41,7 +41,7 @@ class _ObsCfg:
 
 
 def _port_setup(workdir):
-    model = Model(workdir + '/flagship.cfg')
+    model = Model(workdir + '/flagship.cfg', device='cpu')
     obs = Observation(_ObsCfg, model.wn)
     return model, obs, RetrievalParams(model, obs)
 
@@ -105,13 +105,52 @@ def test_batched_forward_and_log_posterior(flagship):
         one['spectrum'].numpy(), got['spectrum'][0].numpy(), rtol=1e-14)
 
 
+@pytest.mark.parametrize('route', ['in_kernel', 'dense_part'])
+def test_batched_forward_line_sample_routes(flagship, monkeypatch, route):
+    """The batched forward hands the line sample to the RT wrapper as
+    ls_w / ls_tab when the table's slab fits the kernel (the flagship's
+    does) and as a dense part otherwise; both agree with pyratbay_tpu's
+    batched forward at the slice's bound."""
+    from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch.retrieval import batched
+    _, (jmodel, jobs, jret, _, p0), (model, obs, ret) = flagship
+    if route == 'dense_part':
+        monkeypatch.setattr(batched, 'ls_in_kernel', lambda n_k, nl: False)
+    seen = {}
+    real = model_mod.transit_spectrum_ensemble
+
+    def recorder(ec_parts, *args, **kw):
+        seen['parts'], seen['kw'] = list(ec_parts), kw
+        return real(ec_parts, *args, **kw)
+
+    monkeypatch.setattr(model_mod, 'transit_spectrum_ensemble', recorder)
+    pb = _params(p0)[:-1]
+    got = build_forward_batched(model, obs, ret)(pb)['spectrum'].numpy()
+    ls = model.opacity_models[[m[0] for m in model.opacity_models].index(
+        'line_sample')][1]
+    if route == 'in_kernel':
+        assert not seen['parts']
+        assert seen['kw']['ls_w'].shape == (
+            len(pb), ls.nspec * ls.ntemp, model.nlayers)
+        assert seen['kw']['ls_tab'].shape == (
+            ls.nspec * ls.ntemp, model.nlayers, model.nwave)
+        # Two-hot along temperature: two weights a layer for one species.
+        assert int((seen['kw']['ls_w'] != 0).sum(dim=1).max()) == 2
+    else:
+        assert len(seen['parts']) == 1 and seen['kw']['ls_w'] is None
+    ref = jax.jit(jbuild_forward_batched(jmodel, jobs, jret))(
+        jnp.asarray(pb))
+    np.testing.assert_allclose(got, np.asarray(ref['spectrum']), rtol=RTOL)
+
+
 def test_port_state_from_jax_arrays_equals_config_state(flagship):
     workdir, (jmodel, jobs, jret, _, p0), _ = flagship
     from_jax = convert.static_arrays(jmodel, jobs, jret)
     model, obs, ret = _port_setup(workdir)
     from_cfg = convert.static_arrays(model, obs, ret)
     assert from_jax.keys() == from_cfg.keys()
-    tj, tc = convert.to_tensors(from_jax), convert.to_tensors(from_cfg)
+    tj, tc = convert.to_tensors(from_jax, 'cpu'), convert.to_tensors(
+        from_cfg, 'cpu')
     for key in tj:
         if tj[key] is None:
             assert tc[key] is None, key

@@ -101,7 +101,7 @@ def engines():
                                 nspec=nspec)
         out[nspec] = (JDirectLBL(lines, tile=128, use_pallas=False),
                       JDirectLBL(lines, tile=128, use_pallas='interpret'),
-                      DirectLBL(lines, tile=128))
+                      DirectLBL(lines, tile=128, device='cpu'))
     return out
 
 
@@ -182,7 +182,7 @@ def test_line_by_line_setup_matches_jax(workflow, tmp_path, single_isotope):
         cfg = str(tmp_path / 'single.cfg')
         with open(workflow['opacity_cfg']) as f, open(cfg, 'w') as g:
             g.write(f.read() + f'single_isotope = {single_isotope}\n')
-    lbl = Model(cfg).opacity_models[0][1]
+    lbl = Model(cfg, device='cpu').opacity_models[0][1]
     jlbl = JModel(cfg).opacity_models[0][1]
     for attr in ('lwn', 'gf', 'elow', 'isoid', 'iso_name', 'iso_mass',
                  'iso_ratio', 'iso_atm_index', 'iso_spec_index', 'species',
@@ -294,7 +294,7 @@ def test_plain_kernels_match_pallas_interpret(engines, kernel, nspec):
 def test_cross_section_batch_matches_jax(engines, nspec):
     jdirect, jdirect_p, direct = engines[nspec]
     temps, dens, pf = cells(3)
-    tables = convert.direct_lbl_tables(jdirect)
+    tables = convert.direct_lbl_tables(jdirect, 'cpu')
     got = direct._cross_section_batch(
         tables, *(torch.as_tensor(a) for a in (temps, dens, pf))).numpy()
     assert got.shape == (3, nspec, direct.nwave)
@@ -375,7 +375,7 @@ def test_tabulate_matches_jax(engines):
 def test_compute_opacity_matches_jax(workflow, tmp_path):
     """runmode = opacity through Model.compute_opacity(engine='direct'),
     then the table read back through io and LineSample."""
-    model = Model(workflow['opacity_cfg'])
+    model = Model(workflow['opacity_cfg'], device='cpu')
     assert [m[0] for m in model.opacity_models] == ['lbl']
     table = model.compute_opacity(engine='direct')
     jcfg = str(tmp_path / 'jax_opacity.cfg')
@@ -439,17 +439,17 @@ def test_opacity_config_keeps_its_own_grid(workflow, tmp_path):
     keys, not from the table it is about to write (the port read that
     table, failing when it did not exist yet)."""
     cfg = _stale_table(workflow, tmp_path)
-    model = Model(cfg)
+    model = Model(cfg, device='cpu')
     np.testing.assert_array_equal(model.wn, JModel(cfg).wn)
     assert model.nwave == 758
-    assert Model(workflow['opacity_cfg']).nwave == 758
+    assert Model(workflow['opacity_cfg'], device='cpu').nwave == 758
 
 
 def test_opacity_config_reads_no_line_sample(workflow, tmp_path):
     """runmode = opacity builds no line-sample opacity from its output
     table (the port did)."""
     cfg = _stale_table(workflow, tmp_path)
-    types = [m[0] for m in Model(cfg).opacity_models]
+    types = [m[0] for m in Model(cfg, device='cpu').opacity_models]
     assert types == [m[0] for m in JModel(cfg).opacity_models] == ['lbl']
 
 
@@ -457,11 +457,11 @@ def test_opacity_config_reads_no_line_sample(workflow, tmp_path):
 # What is not ported yet raises, naming its ROADMAP item
 
 def test_unported_parts_raise(workflow, tmp_path):
-    model = Model(workflow['opacity_cfg'])
+    model = Model(workflow['opacity_cfg'], device='cpu')
     with pytest.raises(NotImplementedError, match='A11'):
         model.compute_opacity()
     with pytest.raises(NotImplementedError, match='A11'):
-        run(workflow['opacity_cfg'])
+        run(workflow['opacity_cfg'], device='cpu')
     with pytest.raises(NotImplementedError, match='A13'):
         get_linelist_reader('exomol')
     with pytest.raises(NotImplementedError, match='A13'):
@@ -473,4 +473,4 @@ def test_unported_parts_raise(workflow, tmp_path):
     with open(cfg, 'w') as f:
         f.write(text)
     with pytest.raises(NotImplementedError, match='A12'):
-        Model(cfg)
+        Model(cfg, device='cpu')

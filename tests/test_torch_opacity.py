@@ -184,7 +184,7 @@ def test_flagship_inputs_identical(tmp_path):
     jbench.make_flagship(str(tmp_path / 'j'), nlayers=11, wl_low=1.1,
                          wl_high=1.15, wnstep=8.0)
     bench.make_flagship(str(tmp_path / 'p'), nlayers=11, wl_low=1.1,
-                        wl_high=1.15, wnstep=8.0)
+                        wl_high=1.15, wnstep=8.0, device='cpu')
     for name in ('flagship.atm', 'flagship_cia.dat'):
         with open(tmp_path / 'j' / name, 'rb') as fj, \
                 open(tmp_path / 'p' / name, 'rb') as fp:

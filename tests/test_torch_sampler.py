@@ -153,7 +153,8 @@ def retrieval(tmp_path_factory):
     """Flagship at test size with 30 ppm synthetic data."""
     workdir = str(tmp_path_factory.mktemp('torch_sampler'))
     model, obs, ret, forward, p0 = make_flagship(
-        workdir, nlayers=15, wl_low=1.1, wl_high=1.3, wnstep=8.0)
+        workdir, nlayers=15, wl_low=1.1, wl_high=1.3, wnstep=8.0,
+        device='cpu')
     band = forward(p0)['bandflux'].numpy()
     rng = np.random.default_rng(1)
     obs.data = band + rng.normal(0, 3e-5, len(band))

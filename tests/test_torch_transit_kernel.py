@@ -2,7 +2,10 @@
 Pallas kernels in interpret mode (K1 transit_spectrum_ensemble, K2
 transit_spectrum_fused) and the per-chain rt.transit_depth +
 transmission_spectrum, float64 on the CPU, rtol 1e-12 (the bound of
-tests/test_ensemble_pallas.py).
+tests/test_ensemble_pallas.py).  With the line-sample operands (ls_w,
+ls_tab) the plain version is held against the float64 einsum at 1e-12
+and against the Pallas kernel at 1e-5 where that runs in float32 (it
+does when no dense part gives it a type).
 
 The CUDA kernel itself runs only on a GPU: tests/test_torch_cuda.py
 holds it against this plain version there.
@@ -107,6 +110,134 @@ def test_plain_matches_pallas_ensemble(with_deck, maxdepth):
         stopped |= bool(np.any(ideep.numpy() < ibottom[b] - 1))
     # A finite maxdepth stops some wavelengths inside the column:
     assert stopped == bool(np.isfinite(maxdepth))
+
+
+def _line_sample(nb, nlayers, nwave, nk=8, seed=23):
+    """Two-hot weights [B, K2, l] (a temperature lerp times a density)
+    and a table [K2, l, W] that grows with depth."""
+    rng = np.random.default_rng(seed)
+    tlo = rng.integers(0, nk - 1, (nb, nlayers))
+    frac = rng.random((nb, nlayers))
+    dens = rng.lognormal(0.0, 1.0, (nb, nlayers))
+    b, j = np.meshgrid(np.arange(nb), np.arange(nlayers), indexing='ij')
+    ls_w = np.zeros((nb, nk, nlayers))
+    ls_w[b, tlo, j] = (1 - frac) * dens
+    ls_w[b, tlo + 1, j] = frac * dens
+    ls_tab = rng.lognormal(-2.0, 1.5, (nk, nlayers, nwave)) \
+        * np.exp(np.linspace(0, 6, nlayers))[None, :, None] * 1e-2
+    return ls_w, ls_tab
+
+
+@pytest.mark.parametrize('case', ['alone', 'with_everything'])
+def test_plain_line_sample_operands(case):
+    """ls_w / ls_tab in the plain version: equal to the einsum's dense
+    part (1e-12) and to the Pallas kernel's in-kernel contraction, run
+    as tests/test_ensemble_pallas.py runs it (interpret mode)."""
+    nb, nlayers, nwave = 5, 30, 200
+    radius, ec1, ec2, cia_tab, cia_w, r1c, r1r = _operands(
+        nb, nlayers, nwave, seed=7)
+    ls_w, ls_tab = _line_sample(nb, nlayers, nwave)
+    itop = np.array([0, 2, 0, 1, 0])
+    path = np.stack([np.asarray(transit_path_matrix(radius[b], itop[b]))
+                     for b in range(nb)])
+    if case == 'alone':
+        parts, extra, jextra = [], {}, {}
+        deck_itop = rsurf = None
+        ibottom = np.full(nb, nlayers)
+        rtol = 1e-5          # no dense part: the Pallas side is float32
+    else:
+        parts = [ec1, ec2]
+        deck_itop = np.array([25, 20, 29, 12, 27])
+        rsurf = _deck(radius, deck_itop)
+        ibottom = deck_itop + 1
+        extra = dict(cia_w=T(cia_w), cia_tab=T(cia_tab), r1_cols=T(r1c),
+                     r1_rows=T(r1r), deck_itop=T(deck_itop),
+                     deck_rsurf=T(rsurf))
+        jextra = dict(cia_w=jnp.asarray(cia_w), cia_tab=cia_tab,
+                      r1_cols=jnp.asarray(r1c[..., None]),
+                      r1_rows=jnp.asarray(r1r[:, :, None, :]),
+                      deck_itop=jnp.asarray(deck_itop),
+                      deck_rsurf=jnp.asarray(rsurf))
+        rtol = RTOL          # float64 parts: the Pallas side is float64
+    common = (T(path), T(radius), 12.0, T(itop), T(ibottom))
+    got = tk.transit_spectrum_ensemble(
+        [T(p) for p in parts], *common, ls_w=T(ls_w), ls_tab=T(ls_tab),
+        maxdepth=8.0, **extra).numpy()
+
+    dense = np.einsum('bkl,klw->blw', ls_w, ls_tab)
+    ref = tk.transit_spectrum_ensemble(
+        [T(p) for p in parts] + [T(dense)], *common, maxdepth=8.0,
+        **extra).numpy()
+    np.testing.assert_allclose(got, ref, rtol=RTOL)
+
+    pallas = np.asarray(jensemble(
+        [jnp.asarray(p) for p in parts], jnp.asarray(path),
+        jnp.asarray(radius), 12.0, jnp.asarray(itop), jnp.asarray(ibottom),
+        ls_w=jnp.asarray(ls_w[..., None]), ls_tab=ls_tab,
+        maxdepth=8.0, interpret=True, chain_block=2, **jextra))
+    np.testing.assert_allclose(got, pallas, rtol=rtol)
+
+
+def test_line_sample_size_rule():
+    """The static rule of the batched forward: the flagship's table
+    (10 temperatures x 51 layers) goes into the kernel, one whose
+    64-column slab would crowd out the warps' operands does not."""
+    assert tk.ls_in_kernel(10, 51)
+    assert tk.ls_in_kernel(2 * 4, 64)
+    assert not tk.ls_in_kernel(20, 51)
+    assert not tk.ls_in_kernel(10, 128)
+
+
+@pytest.mark.parametrize('nlayers', [12, 32, 51, 64])
+def test_chord_layout_reproduces_the_chord_product(nlayers):
+    """The packed chord matrix, read the way the kernel reads it (layer j
+    of chunk j // 4 adds packed[...] * ec[j] to the rows from 4 (j // 4)
+    on), gives path2 @ ec for a matrix that is zero above its diagonal;
+    the padded rows and layers hold zeros."""
+    rng = np.random.default_rng(nlayers)
+    radius = np.sort(rng.uniform(1.0, 1.1, (1, nlayers)), axis=1)[:, ::-1]
+    path = T(np.asarray(transit_path_matrix(radius[0].copy(), 1)))[None]
+    path2 = tk.prep_chains(path, T(radius.copy()), 10.0, T(np.array([1])),
+                           T(np.array([nlayers])))[0][0].numpy()
+    assert np.all(np.triu(path2, 1) == 0)
+    nl4, index = tk.chord_layout(nlayers)
+    assert 4 * nl4 >= nlayers and nl4 in (8, 13, 16)
+    packed = np.append(path2.ravel(), 0.0)[index]
+    assert len(packed) == 16 * (nl4 * nl4 - nl4 * (nl4 - 1) // 2)
+    ec = rng.lognormal(0.0, 1.0, nlayers)
+    depth = np.zeros(4 * nl4)
+    offset = 0
+    for j in range(4 * nl4):
+        first = 4 * (j // 4)
+        row = packed[offset:offset + 4 * nl4 - first]
+        offset += len(row)
+        if j < nlayers:
+            depth[first:] += row * ec[j]
+        else:
+            assert np.all(row == 0)
+    assert offset == len(packed)
+    np.testing.assert_allclose(depth[:nlayers], path2 @ ec, rtol=1e-13)
+    assert np.all(depth[nlayers:] == 0)
+    with pytest.raises(ValueError, match='2 to 64 layers'):
+        tk.chord_layout(65)
+
+
+def test_kernel_operand_layout():
+    """_pad_to lays a chain's weights out as the kernels copy them:
+    zero-padded, contiguous and 16-byte aligned, also from a view."""
+    base = torch.arange(2.0 * 5 * 3).reshape(2, 5, 3)
+    out = tk._pad_to(base, 8, 4)
+    assert out.shape == (2, 8, 4) and out.is_contiguous()
+    assert torch.equal(out[:, :5, :3], base)
+    assert float(out[:, 5:].abs().sum() + out[:, :, 3:].abs().sum()) == 0
+    # The line-sample weights arrive [B, K2, l] and go in as [B, l, K2P]:
+    out = tk._pad_to(base.transpose(1, 2), 4, 8)
+    assert out.shape == (2, 4, 8) and out.is_contiguous()
+    assert torch.equal(out[:, :3, :5], base.transpose(1, 2))
+    view = torch.arange(9.0)[1:]          # not 16-byte aligned
+    assert view.data_ptr() % 16 != 0
+    same = tk._pad_to(view, 8)
+    assert same.data_ptr() % 16 == 0 and torch.equal(same, view)
 
 
 def test_plain_matches_fused_at_one_chain():
