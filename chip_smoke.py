@@ -25,10 +25,15 @@ path:
 a synthetic 50,000-line HITRAN H2O list through runmode = tli (the
 driver), Model(cfg, device='cuda').compute_opacity(engine='direct') on
 the flagship grid (10 T x 51 layers x 3209 points), the table read back
-through io and LineSample; the wing (K4, K6) and core (K5) kernels
-against their plain versions on one main-path block, a production-width
-block (200,000 points) and a two-species case; the table against a CPU
-float64 tabulation of 3 T x 4 layers; and timings, including one
+through io and LineSample, with K4 and K5 reading per-line factors by
+line range (no factor tensor in the window layout is made); the wing
+(K4, K6) and core (K5) kernels against their plain versions on one
+main-path block, a production-width block (200,000 points), a
+two-species case and a ragged cell count, the window-layout kernels of
+K4 and K5 too; the table against a CPU float64 tabulation of 3 T x 4
+layers; and timings: K4 and K5 with their plain versions and bounds on a
+flagship and a production block, the per-line route against the
+window-layout route in turns, three wing sub-tile widths, and one
 species at the production width of the JAX bench's _production_table.
 The line before the last is the kernel table; the last line is the
 result.
@@ -84,19 +89,45 @@ PEAK_FP32 = 67e12
 # plus the set-up (~160).
 WING_PAIR_FLOPS = 30
 CORE_PAIR_FLOPS = 160
+# Instructions a lane issues for one pair and cell, counted from
+# csrc/lbl_voigt.cu (an FMA is one instruction but two operations): the
+# wing pair ~23; the core pair ~120 in the Weideman region.  A lane
+# issues at most one instruction a clock, PEAK_FP32 / 2 a second.
+WING_PAIR_INSTR = 23
+CORE_PAIR_INSTR = 120
 
 
+# The kernels of the table: K4 and K5 as the main path launches them
+# (per-line factors read by line range), K6 on its window layout.
+# earlier_ms are constants, not measurements of a run of this script:
+# the window-layout kernels that the main path launched before, one
+# 64-cell flagship block, NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md,
+# section 6); earlier_production_ms the same for a production block
+# (torch.profiler device time).
 LBL = {
-    'wing_grouped': dict(
-        name='lbl_wing_grouped', fn='wing_sigma_grouped',
-        replaces='pyratbay_tpu/opacity/lbl_pallas.py:462'),
-    'core': dict(
-        name='lbl_core', fn='core_sigma',
-        replaces='pyratbay_tpu/opacity/lbl_pallas.py:648'),
+    'wing_lines': dict(
+        name='lbl_wing_grouped', fn='wing_sigma_lines',
+        replaces='pyratbay_tpu/opacity/lbl_pallas.py:462',
+        earlier_ms=0.639, earlier_production_ms=21.5),
+    'core_lines': dict(
+        name='lbl_core', fn='core_sigma_lines',
+        replaces='pyratbay_tpu/opacity/lbl_pallas.py:648',
+        earlier_ms=0.203, earlier_production_ms=2.75),
     'wing': dict(
         name='lbl_wing', fn='wing_sigma',
         replaces='pyratbay_tpu/opacity/lbl_pallas.py:239'),
 }
+# The window-layout kernels of K4 and K5 (the JAX wrappers' operands):
+# off the main path, held against their plain versions all the same.
+LBL_WINDOWS = {
+    'wing_grouped': dict(name='lbl_wing_grouped_windows',
+                         fn='wing_sigma_grouped'),
+    'core': dict(name='lbl_core_windows', fn='core_sigma'),
+}
+WINDOWS_OF = {'wing_lines': 'wing_grouped', 'core_lines': 'core'}
+EARLIER_NOTE = ('constants from PERF.md, not measured in this run: the '
+                'window-layout kernels before the per-line route, NVIDIA '
+                'H100 80GB HBM3, 700.00 W')
 LBL_SOURCE = 'pyratbay_tpu_torch/csrc/lbl_voigt.cu'
 LBL_TOL = 2e-4          # lbl_pallas against XLA, tests/test_tpu_hw.py
 TABLE_TOL = 1e-4        # strong-line bound of tests/test_lbl_tpu.py
@@ -149,8 +180,9 @@ def paired_ms(fns, repeats=10):
 def device_ms(fn, kernel_name, reps=10):
     """Device milliseconds of one call fn() by torch.profiler: (the
     kernel whose name contains `kernel_name`, every device kernel and
-    copy the call launches).  CUDA events around a single call also
-    count the host's time between its launches; this does not."""
+    copy the call launches, the number of those launches).  CUDA events
+    around a single call also count the host's time between its
+    launches; this does not."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -162,12 +194,14 @@ def device_ms(fn, kernel_name, reps=10):
             fn()
         torch.cuda.synchronize()
     main = total = 0.0
+    launches = 0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CPU:
             total += evt.device_time_total
+            launches += evt.count
             if kernel_name in evt.key:
                 main += evt.device_time_total
-    return main / reps * 1e-3, total / reps * 1e-3
+    return main / reps * 1e-3, total / reps * 1e-3, launches / reps
 
 
 def rel_err(got, want):
@@ -551,7 +585,7 @@ def run_path(label, rt_path, workdir, dev, args, card):
                       'single calls, which also count host gaps',
          main_path_launches=launches,
          device_ms={name: {'kernel_alone': alone, 'whole_call': whole}
-                    for name, (alone, whole) in dev_ms.items()},
+                    for name, (alone, whole, _) in dev_ms.items()},
          times_note='*_ms: CUDA events around runs of 4 calls of the '
                     'wrapper (its layout operations included; at B = 1 '
                     'the host between the launches too); device_ms: '
@@ -608,14 +642,27 @@ def masked_rel(got, want, floor=1e-6):
 
 
 def lbl_operands(direct, cells, nspec):
-    """Operands of K4, K5 and K6 for the cells (temps, dens, pf) of a
-    DirectLBL engine: kernel -> (args, kwargs)."""
+    """Operands of K4 and K5 on per-line factors (the main path's), of
+    their window-layout kernels and of K6, for the cells (temps, dens,
+    pf) of a DirectLBL engine: kernel -> (args, kwargs)."""
     tables = direct.tables()
+    line = direct._line_factors(tables, *cells)
     fac = direct._cell_factors(tables, *cells, 'wf_')
     fac_w = direct._cell_factors(tables, *cells, 'w_')
     spec = lambda pre: tables[pre + 'spec'] if nspec > 1 else None
     wing_kw = dict(margin=direct.margin, cutoff=direct.cutoff, nspec=nspec)
+    core_kw = dict(margin=direct.margin, nspec=nspec)
+    lines = (tables['l_lwn_hi'], tables['l_lwn_lo'])
     return {
+        'wing_lines': ((
+            tables['wn_wf_hi'], tables['wn_wf_lo'], tables['starts_wf'],
+            *lines, line['c1'], line['y2'], line['inv_ad'], spec('l_')),
+            dict(lmax=direct.lmax_wf, **wing_kw)),
+        'core_lines': ((
+            tables['wn_core_hi'], tables['wn_core_lo'],
+            tables['starts_core'], *lines, line['scale'], line['y'],
+            line['inv_ad'], spec('l_')),
+            dict(lmax=direct.lmax_core, **core_kw)),
         'wing_grouped': ((
             tables['wn_wf_hi'], tables['wn_wf_lo'], tables['wf_lwn_hi'],
             tables['wf_lwn_lo'], fac['c1_w'], fac['y2_w'], fac['inv_ad_w'],
@@ -623,7 +670,7 @@ def lbl_operands(direct, cells, nspec):
         'core': ((
             tables['wn_core_hi'], tables['wn_core_lo'], tables['c_lwn_hi'],
             tables['c_lwn_lo'], fac['scale_c'], fac['y_c'], fac['inv_ad_c'],
-            spec('c_')), dict(margin=direct.margin, nspec=nspec)),
+            spec('c_')), core_kw),
         'wing': ((
             tables['wn_tiles_hi'], tables['wn_tiles_lo'], tables['w_lwn_hi'],
             tables['w_lwn_lo'], fac_w['c1_w'], fac_w['y2_w'],
@@ -632,24 +679,48 @@ def lbl_operands(direct, cells, nspec):
 
 
 def lbl_bound(key, operands, kw):
-    """Roofline bound of one line-by-line launch from its operands: the
-    tiles, windows and per-cell factors read once, the cross sections
-    written once, and the float32 operations of the pairs this data
-    needs: those inside the pass's mask (margin < |dnu| <= cutoff for
-    the wings, |dnu| <= margin for the cores), for every cell."""
+    """(roofline bound in ms, 'bytes' or 'operations', issue bound in
+    ms) of one line-by-line launch: the pairs this data needs, those
+    inside the pass's mask (margin < |dnu| <= cutoff for the wings,
+    |dnu| <= margin for the cores) for every cell, whatever the layout
+    of the operands; and the fewest bytes the function needs: the tiles,
+    the line arrays and each line's three factors per cell read once
+    (the window layout holds a line once per window it falls in: those
+    copies are not counted), the cross sections written once.  The issue
+    bound is the same pairs at the instructions a lane needs for one."""
     import torch
-    wn_hi, wn_lo, lwn_hi, lwn_lo, factor = operands[:5]
-    ncell, ntiles, _ = factor.shape
-    dnu = torch.abs((wn_hi[:, :, None] - lwn_hi[:, None, :])
-                    + (wn_lo[:, :, None] - lwn_lo[:, None, :]))
-    if key == 'core':
-        pairs, flops = int((dnu <= kw['margin']).sum()), CORE_PAIR_FLOPS
+    wn_hi, wn_lo = operands[:2]
+    ntiles, tile = wn_hi.shape
+    if key.endswith('_lines'):
+        starts, lwn_hi, lwn_lo, factor = operands[2:6]
+        idx = starts[:, None].long() + torch.arange(
+            kw['lmax'], device=starts.device)[None, :]
+        lwn_hi, lwn_lo = lwn_hi[idx], lwn_lo[idx]
+        ncell, nlines = factor.shape
     else:
-        pairs = int(((dnu > kw['margin']) & (dnu <= kw['cutoff'])).sum())
-        flops = WING_PAIR_FLOPS
-    out_bytes = 4 * ncell * kw['nspec'] * ntiles * wn_hi.shape[1]
-    return roofline(tensor_bytes(*operands) + out_bytes,
-                    ncell * pairs * flops)
+        lwn_hi, lwn_lo, factor = operands[2:5]
+        ncell = factor.shape[0]
+        # The lines under the windows, once each:
+        nlines = int(torch.unique(lwn_hi.double() + lwn_lo.double()).numel())
+    pairs = 0
+    for t0 in range(0, ntiles, 256):      # bounded temporaries
+        sl = slice(t0, t0 + 256)
+        dnu = torch.abs((wn_hi[sl, :, None] - lwn_hi[sl, None, :])
+                        + (wn_lo[sl, :, None] - lwn_lo[sl, None, :]))
+        if key.startswith('core'):
+            pairs += int((dnu <= kw['margin']).sum())
+        else:
+            pairs += int(((dnu > kw['margin'])
+                          & (dnu <= kw['cutoff'])).sum())
+    core = key.startswith('core')
+    flops = CORE_PAIR_FLOPS if core else WING_PAIR_FLOPS
+    instr = CORE_PAIR_INSTR if core else WING_PAIR_INSTR
+    nspec = kw['nspec']
+    nbytes = 4 * (2 * ntiles * tile + ntiles + 2 * nlines
+                  + 3 * ncell * nlines + (nlines if nspec > 1 else 0)
+                  + ncell * nspec * ntiles * tile)
+    bound_ms, bound_by = roofline(nbytes, ncell * pairs * flops)
+    return bound_ms, bound_by, ncell * pairs * instr / (PEAK_FP32 / 2) * 1e3
 
 
 def cells_of(direct, temps, press, vmr):
@@ -678,10 +749,11 @@ def run_opacity(workdir, dev, args, card):
     from pyratbay_tpu_torch.spectrum import emission_kernel as ek
     from pyratbay_tpu_torch.spectrum import transit_kernel as tk
 
+    every = {**LBL, **LBL_WINDOWS}
     kernels = {key: getattr(lk, spec['fn'] + '_cuda')
-               for key, spec in LBL.items()}
+               for key, spec in every.items()}
     plains = {key: getattr(lk, spec['fn'] + '_plain')
-              for key, spec in LBL.items()}
+              for key, spec in every.items()}
     counters = (*kernels.values(), tk.transit_rt_cuda, ek.emission_rt_cuda)
 
     # 1. The main path: line list -> TLI -> table -> LineSample.
@@ -697,10 +769,31 @@ def run_opacity(workdir, dev, args, card):
     lbl = model.opacity_models[0][1]
     for counter in counters:
         counter.launches = 0
+    # Every factor tensor the main path makes is recorded by shape: none
+    # may have the window layout [ncell, ntiles, lmax].
+    factor_shapes = set()
+    real_line, real_window = DirectLBL._line_factors, DirectLBL._window_factors
+
+    def line_factors(self, *a):
+        fac = real_line(self, *a)
+        factor_shapes.update(tuple(v.shape) for v in fac.values())
+        return fac
+
+    def window_factors(self, *a):
+        out = real_window(self, *a)
+        factor_shapes.update(tuple(v.shape) for v in out)
+        return out
+
+    DirectLBL._line_factors = line_factors
+    DirectLBL._window_factors = window_factors
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    call = record_call(DirectLBL, '_cross_section_batch',
-                       lambda: model.compute_opacity(engine='direct'))
+    try:
+        call = record_call(DirectLBL, '_cross_section_batch',
+                           lambda: model.compute_opacity(engine='direct'))
+    finally:
+        DirectLBL._line_factors = real_line
+        DirectLBL._window_factors = real_window
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {key: fn.launches for key, fn in kernels.items()}
@@ -724,22 +817,28 @@ def run_opacity(workdir, dev, args, card):
         'read_back': bool(np.array_equal(read, table)) and species == 'H2O',
         'line_sample': list(ec.shape) == [1, NLAYERS, NWAVE]
         and bool(torch.isfinite(ec).all()) and bool((ec >= 0).all()),
+        'factors_per_line_only': bool(factor_shapes) and all(
+            len(shape) <= 2 for shape in factor_shapes),
     }
     emit('main_path_opacity', seconds=main_s, inputs_seconds=inputs_s,
          tli_seconds=tli_s, model_setup_seconds=setup_s,
          tli_lines=int(summary[0]['n_lines']),
          lines_on_grid=int(lbl.ntransitions), table_shape=list(table.shape),
          blocks=nblocks, launches=all_launches, checks=checks,
+         factor_shapes=sorted(list(shape) for shape in factor_shapes),
+         nlines_pad=int(direct.tables()['l_lwn_hi'].shape[0]),
          margin=direct.margin, tile_wing=direct.tile_wing,
          wing_group=direct.wing_group, ntiles_wf=direct.ntiles_wf,
          lmax_wf=direct.lmax_wf, ntiles_core=direct.ntiles_core,
          lmax_core=direct.lmax_core, lmax_w=direct.lmax)
     if not all(v for k, v in checks.items() if k != 'positive_share'):
         fail(f'opacity main path: {checks}')
-    for key in ('wing_grouped', 'core'):
+    for key in ('wing_lines', 'core_lines'):
         if launches[key] < nblocks:
             fail(f'opacity: {launches[key]} {LBL[key]["name"]} launches '
                  f'< {nblocks} blocks')
+    if launches['wing_grouped'] or launches['core']:
+        fail('opacity: the main path launched a window-layout kernel')
 
     # 2. The kernels against their plain versions on the card.
     _, tables, t_blk, d_blk, pf_blk = call[0]
@@ -758,7 +857,10 @@ def run_opacity(workdir, dev, args, card):
                    (2, 1))
     cases['two_species'] = lbl_operands(two, cells_of(
         two, np.array([800.0, 2400.0]), np.array([1e-4, 10.0]), vmr2), 2)
-    max_abs = {key: 0.0 for key in LBL}
+    # 21 cells: no multiple of the kernels' cell tiles (16 and 2).
+    cases['ragged_cells'] = lbl_operands(
+        direct, (t_blk[:21], d_blk[:21], pf_blk[:21]), 1)
+    max_abs = {key: 0.0 for key in every}
     for case, ops in cases.items():
         for key, (operands, kw) in ops.items():
             got = kernels[key](*operands, **kw)
@@ -766,13 +868,13 @@ def run_opacity(workdir, dev, args, card):
             torch.cuda.synchronize()
             rel, absolute = masked_rel(got, want)
             max_abs[key] = max(max_abs[key], absolute)
-            emit('kernel_check', kernel=LBL[key]['name'], case=case,
+            emit('kernel_check', kernel=every[key]['name'], case=case,
                  shape=list(got.shape), max_rel_err=rel,
                  max_abs_err=absolute, tol=LBL_TOL,
                  tile=int(operands[0].shape[1]),
-                 lmax=int(operands[2].shape[1]))
+                 lmax=int(kw.get('lmax', operands[2].shape[-1])))
             if not rel < LBL_TOL:
-                fail(f'{LBL[key]["name"]} {case}: kernel disagrees with '
+                fail(f'{every[key]["name"]} {case}: kernel disagrees with '
                      f'plain ({rel})')
 
     # 3. GPU float32 table against a CPU float64 tabulation.
@@ -793,26 +895,81 @@ def run_opacity(workdir, dev, args, card):
     if not table_rel < TABLE_TOL:
         fail(f'opacity: GPU f32 table disagrees with CPU f64 ({table_rel})')
 
-    # 4. Times.
+    # 4. Times (CUDA events, medians, kernel and plain in turns).
+    def block_times(ops, repeats, plain_repeats):
+        """Kernel and plain ms and the bounds of each kernel in `ops`
+        (the plain versions alone take seconds at the production
+        width: they are timed `plain_repeats` times, the pairs in
+        turns otherwise)."""
+        ms, plain_ms, bounds = {}, {}, {}
+        for key, (operands, kw) in ops.items():
+            run_kernel = lambda: kernels[key](*operands, **kw)
+            run_plain = lambda: plains[key](*operands, **kw)
+            if plain_repeats:
+                ms[key] = float(np.median(cuda_times(run_kernel, repeats)))
+                plain_ms[key] = float(np.median(cuda_times(
+                    run_plain, plain_repeats, warmup=1, inner=1)))
+            else:
+                pair = paired_ms({'plain': run_plain, 'kernel': run_kernel},
+                                 repeats)
+                ms[key], plain_ms[key] = pair['kernel'], pair['plain']
+            bounds[key] = lbl_bound(key, operands, kw)
+        return ms, plain_ms, bounds
+
     ops = cases['flagship_block']
-    ms, plain_ms, bounds = {}, {}, {}
-    for key, (operands, kw) in ops.items():
-        pair = paired_ms({
-            'plain': lambda: plains[key](*operands, **kw),
-            'kernel': lambda: kernels[key](*operands, **kw),
-        }, repeats=5)
-        ms[key], plain_ms[key] = pair['kernel'], pair['plain']
-        bounds[key] = lbl_bound(key, operands, kw)
+    ms, plain_ms, bounds = block_times(ops, 5, 0)
+
+    # The two routes of one 64-cell flagship block in turns: factors in
+    # the window layout and the window kernels, against factors per line
+    # and the kernels that read them by line range (the main path).
+    cells_blk = (t_blk, d_blk, pf_blk)
+
+    def route_windows():
+        fac = direct._cell_factors(tables, *cells_blk, 'wf_')
+        kernels['wing_grouped'](*ops['wing_grouped'][0][:4], fac['c1_w'],
+                                fac['y2_w'], fac['inv_ad_w'], None,
+                                **ops['wing_grouped'][1])
+        kernels['core'](*ops['core'][0][:4], fac['scale_c'], fac['y_c'],
+                        fac['inv_ad_c'], None, **ops['core'][1])
+
+    routes = paired_ms({
+        'window_layout': route_windows,
+        'per_line': lambda: direct._cross_section_batch(tables, *cells_blk),
+    }, repeats=5)
+
+    # Wing sub-tile widths through the tile_wing argument (the default
+    # is _pick_wing_subtile's, the JAX package's):
+    tile_wing_ms = {}
+    for pts in (8, 16, 32):
+        eng = DirectLBL(lbl, device=dev, tile_wing=pts)
+        w_ops, w_kw = lbl_operands(eng, cells_blk, 1)['wing_lines']
+        tile_wing_ms[str(pts)] = float(np.median(cuda_times(
+            lambda: kernels['wing_lines'](*w_ops, **w_kw), 5)))
+        del eng, w_ops
+
     t0 = time.perf_counter()
     model.compute_opacity(engine='direct')
     torch.cuda.synchronize()
     tab_s = time.perf_counter() - t0
+    factor_profile = None
     if args.profile:
         profile('opacity', lambda _: model.compute_opacity(engine='direct'),
                 None, tab_s * 1e3)
+        # Device time and launches of the factors and of a whole block:
+        factor_profile = {}
+        for name, fn in {
+                'line_factors': lambda: direct._line_factors(
+                    tables, *cells_blk),
+                'window_factors': lambda: direct._cell_factors(
+                    tables, *cells_blk, 'wf_'),
+                'block_per_line': lambda: direct._cross_section_batch(
+                    tables, *cells_blk),
+                'block_window_layout': route_windows}.items():
+            _, total, count = device_ms(fn, 'lbl')
+            factor_profile[name] = {'device_ms': total, 'launches': count}
     # Pair counts of one 64-cell block, as bench.py::_lbl_rates counts
     # them (padded: the Pallas layout's lanes; effective: pairs inside
-    # the cutoff), and the pairs the CUDA kernels evaluate:
+    # the cutoff), and the pairs of the window layout:
     up = lambda v, m: -(-v // m) * m
     block = int(t_blk.shape[0])
     padded = block * (
@@ -820,30 +977,52 @@ def run_opacity(workdir, dev, args, card):
         * up(direct.lmax_wf, 128)
         + up(direct.ntiles_core, max(1, 128 // direct.tile_core))
         * direct.tile_core * up(direct.lmax_core, 128))
-    kernel_pairs = block * (
+    window_pairs = block * (
         direct.ntiles_wf * direct.tile_wing * direct.lmax_wf
         + direct.ntiles_core * direct.tile_core * direct.lmax_core)
     density = len(direct.lwn) / (direct.lwn[-1] - direct.lwn[0])
     effective = block * direct.nwave * 2.0 * direct.cutoff * density
-    block_s = (ms['wing_grouped'] + ms['core']) * 1e-3
+    block_s = (ms['wing_lines'] + ms['core_lines']) * 1e-3
+    named = lambda values, pick=lambda v: v: {
+        every[k]['name']: pick(v) for k, v in values.items()}
     emit('times_opacity', card=card, block_cells=block,
-         kernel_ms={LBL[k]['name']: v for k, v in ms.items()},
-         plain_ms={LBL[k]['name']: v for k, v in plain_ms.items()},
-         bound_ms={LBL[k]['name']: v[0] for k, v in bounds.items()},
-         bound_by={LBL[k]['name']: v[1] for k, v in bounds.items()},
+         kernel_ms=named(ms), plain_ms=named(plain_ms),
+         bound_ms=named(bounds, lambda v: v[0]),
+         bound_by=named(bounds, lambda v: v[1]),
+         issue_bound_ms=named(bounds, lambda v: v[2]),
+         issue_note=f'in-mask pairs x {WING_PAIR_INSTR} (wing) or '
+                    f'{CORE_PAIR_INSTR} (core) instructions a lane, at one '
+                    'instruction a lane and clock (half the float32 peak)',
+         earlier_ms={LBL[k]['name']: LBL[k]['earlier_ms']
+                     for k in ('wing_lines', 'core_lines')},
+         earlier_note=EARLIER_NOTE,
+         routes_ms={'window_factors_and_window_kernels':
+                    routes['window_layout'],
+                    'line_factors_and_line_kernels': routes['per_line']},
+         tile_wing_ms=tile_wing_ms, tile_wing_default=direct.tile_wing,
+         factor_profile=factor_profile,
          compute_opacity_seconds=tab_s, main_path_seconds=main_s,
          table_points_per_s=table.size / tab_s,
          padded_pairs_per_s=padded / block_s,
          effective_pairs_per_s=effective / block_s,
-         kernel_pairs_per_s=kernel_pairs / block_s,
+         window_pairs_per_s=window_pairs / block_s,
          pairs_note='per 64-cell block from the K4 + K5 times; padded '
-                    'and effective as bench.py::_lbl_rates defines them')
+                    'and effective as bench.py::_lbl_rates defines them, '
+                    'window: the pairs of the window layout')
+    if not routes['per_line'] <= routes['window_layout']:
+        fail('opacity: the main path reads per-line factors by line range '
+             f'({routes["per_line"]:.3f} ms a block), but the window-layout '
+             f'route is faster ({routes["window_layout"]:.3f} ms)')
 
     # One species at the production width (bench.py::_production_table):
     prod_press = model.press
     prod_temps = np.linspace(300.0, 3000.0, PROD_NTEMP)
     probe = cells_of(prod, prod_temps[:2], prod_press[:32],
                      model.base_vmr[:32])
+    prod_ops = lbl_operands(prod, probe, 1)
+    prod_ops = {k: prod_ops[k] for k in ('wing_lines', 'core_lines')}
+    prod_ms, prod_plain_ms, prod_bounds = block_times(prod_ops, 3, 1)
+    del prod_ops
     run_block = lambda: prod._cross_section_batch(prod.tables(), *probe)
     run_block()
     torch.cuda.synchronize()
@@ -873,6 +1052,13 @@ def run_opacity(workdir, dev, args, card):
          f'{probe_s:.3f} s', seconds=prod_s, setup_seconds=prod_setup_s,
          points_per_s=prod_table.size / prod_s,
          block_probe_seconds=probe_s,
+         block_kernel_ms=named(prod_ms), block_plain_ms=named(prod_plain_ms),
+         block_bound_ms=named(prod_bounds, lambda v: v[0]),
+         block_bound_by=named(prod_bounds, lambda v: v[1]),
+         block_issue_bound_ms=named(prod_bounds, lambda v: v[2]),
+         block_earlier_ms={LBL[k]['name']: LBL[k]['earlier_production_ms']
+                           for k in ('wing_lines', 'core_lines')},
+         earlier_note=EARLIER_NOTE,
          peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
          tile_wing=prod.tile_wing, wing_group=prod.wing_group,
          lmax_wf=prod.lmax_wf, lmax_core=prod.lmax_core, finite=prod_ok)
@@ -890,6 +1076,11 @@ def run_opacity(workdir, dev, args, card):
             entry['note'] = ('no production path of the JAX package reaches '
                              'wing_sigma; held against its plain version '
                              'only')
+        else:
+            entry['windows_ms'] = ms[WINDOWS_OF[key]]
+            entry['windows_note'] = (
+                'the window-layout kernel on the same block, off the main '
+                'path, timed in this run')
         entries.append(entry)
     return entries
 

@@ -124,6 +124,10 @@ def direct_lbl_tables(jax_direct, device=None):
     """The port's DirectLBL device tables from a JAX DirectLBL's host
     tables (`_tables`, a dict of numpy arrays): floats in the device's
     dtype, isotope ids as int64, and the species one-hots replaced by
-    the int32 species index of each window entry."""
-    from .opacity.lbl_direct import device_tables
-    return device_tables(jax_direct._tables, device)
+    the int32 species index of each window entry.  The per-line tables
+    and window starts that the port's main path reads (the JAX engine
+    keeps the window layout only) are made from the engine's host
+    attributes."""
+    from .opacity.lbl_direct import device_tables, line_tables
+    return device_tables(
+        {**jax_direct._tables, **line_tables(jax_direct)}, device)

@@ -9,6 +9,15 @@ per-cell maximum, Doppler and Lorentz widths), then the wing pass over
 fine sub-tiles (K4) and the core pass over 4-point tiles (K5) of
 opacity/lbl_kernel.py, which launch the CUDA kernels on CUDA tensors.
 
+A tile's window is a contiguous range [start, start + lmax) of the
+sorted line array, so the main path (_cross_section_batch) computes the
+per-cell factors once per line, as [ncell, nlines_pad] arrays
+(_line_factors), and hands the passes the window starts: no factor
+tensor in the window layout [ncell, ntiles, lmax] is made.  The
+window-layout factors (_cell_factors) stay for the lane-tiled route of
+_cross_section (K6's windows) and for the tests that hold the two
+layouts against each other.
+
 * Gather, not scatter: every output tile evaluates its static window of
   candidate lines (centers within the cutoff, or the margin for the
   core pass, of the tile).
@@ -31,10 +40,11 @@ import torch
 from .. import constants as pc
 from ..device import resolve
 from .lbl_kernel import (
-    core_sigma, core_sigma_plain, wing_sigma_grouped, wing_sigma_plain,
+    LINE_ALIGN, core_sigma_lines, core_sigma_plain, wing_sigma_lines,
+    wing_sigma_plain,
 )
 
-__all__ = ['DirectLBL', 'device_tables']
+__all__ = ['DirectLBL', 'device_tables', 'line_tables']
 
 _SQRTLN2 = 0.83255461115769775635
 _SQRT_PI = 1.7724538509055159
@@ -43,8 +53,10 @@ _SQRT_PI = 1.7724538509055159
 _ASYMPTOTIC_Z = 7.0
 # Table keys that hold integers: isotope ids index, species ids go to
 # the kernels as int32.
-_ISO_KEYS = ('w_iso', 'c_iso', 'wf_iso', 'iso_spec')
-_SPEC_KEYS = ('w_spec', 'c_spec', 'wf_spec')
+_ISO_KEYS = ('w_iso', 'c_iso', 'wf_iso', 'iso_spec', 'l_iso')
+_SPEC_KEYS = ('w_spec', 'c_spec', 'wf_spec', 'l_spec', 'starts_wf',
+              'starts_core')
+_BOOL_KEYS = ('l_kmask',)
 
 
 def _split_hi_lo(values):
@@ -74,11 +86,65 @@ def _tile_ranges(wn_tiles, lwn, window):
     return starts.astype(np.int32), lmax
 
 
+def _doppler_coeff(iso_mass):
+    """Static per-isotope Doppler coefficient: the Doppler width of a
+    line is k_iso * lwn * sqrt(T)."""
+    return (np.sqrt(2.0 * pc.KB_KERNEL / pc.AMU_KERNEL)
+            / pc.LS_KERNEL / np.sqrt(iso_mass))
+
+
+def line_tables(engine):
+    """Static per-line host tables over the sorted line array of a
+    DirectLBL engine (this package's or the JAX package's: only its host
+    attributes are read), for the passes that read line factors by line
+    range.
+
+    The array is padded to `nlines_pad` entries with the fake far lines
+    of the window layout (strength exp(-700), 1e9 cm-1 past the grid):
+    up to the longest window where the engine has fewer lines than one
+    window holds, then to a multiple of LINE_ALIGN, so that the kernels
+    copy 16 bytes at a time.  Index i of a window that starts at s is
+    entry s + i here.  `l_kmask` marks the entries inside any fine-wing
+    or core window: the set over which a cell's strongest line is taken.
+    """
+    lmax = max(engine.lmax_wf, engine.lmax_core)
+    nlines = engine.nlines
+    npad = -(-max(nlines, lmax) // LINE_ALIGN) * LINE_ALIGN
+    nfake = npad - nlines
+    iso_ratio = np.asarray(engine.iso_ratio, np.float64)
+    isoid = np.asarray(engine.isoid, np.int32)
+    log_kbase = np.log(
+        pc.SIGCTE * iso_ratio[isoid] * np.asarray(engine.gf, np.float64))
+    lwn = np.concatenate([engine.lwn, np.full(nfake, engine.wn[-1] + 1e9)])
+    isoid = np.concatenate([isoid, np.zeros(nfake, np.int32)])
+    lwn_hi, lwn_lo = _split_hi_lo(lwn)
+    k_iso = _doppler_coeff(np.asarray(engine.iso_mass, np.float64))
+    kmask = np.zeros(npad, bool)
+    for starts, width in ((engine.starts_wf, engine.lmax_wf),
+                          (engine.starts_core, engine.lmax_core)):
+        edges = np.zeros(npad + 1, np.int64)
+        np.add.at(edges, np.asarray(starts, np.int64), 1)
+        np.add.at(edges, np.asarray(starts, np.int64) + width, -1)
+        kmask |= np.cumsum(edges)[:-1] > 0
+    return {
+        'l_lwn_hi': lwn_hi,
+        'l_lwn_lo': lwn_lo,
+        'l_logkb': np.concatenate([log_kbase, np.full(nfake, -700.0)]),
+        'l_elow': np.concatenate([engine.elow, np.zeros(nfake)]),
+        'l_iso': isoid,
+        'l_inv_dop': 1.0 / (k_iso[isoid] * lwn),
+        'l_spec': np.asarray(engine.iso_spec, np.int32)[isoid],
+        'l_kmask': kmask,
+        'starts_wf': np.asarray(engine.starts_wf, np.int32),
+        'starts_core': np.asarray(engine.starts_core, np.int32),
+    }
+
+
 def device_tables(host_tables, device=None):
     """The engine's device tables from a host table dict (numpy):
-    floats in the device's dtype, isotope ids as int64, species ids as
-    int32.  A JAX DirectLBL._tables dict works too: its species one-hots
-    ('*_spec_oh') become species ids."""
+    floats in the device's dtype, isotope ids as int64, species ids and
+    window starts as int32.  A JAX DirectLBL._tables dict works too: its
+    species one-hots ('*_spec_oh') become species ids."""
     device, dtype = resolve(device)
     tables = {}
     for key, value in host_tables.items():
@@ -90,6 +156,9 @@ def device_tables(host_tables, device=None):
         elif key in _SPEC_KEYS:
             tables[key] = torch.as_tensor(
                 np.asarray(value), dtype=torch.int32, device=device)
+        elif key in _BOOL_KEYS:
+            tables[key] = torch.as_tensor(
+                np.asarray(value), dtype=torch.bool, device=device)
         else:
             tables[key] = torch.as_tensor(
                 np.asarray(value, np.float64), dtype=dtype, device=device)
@@ -244,7 +313,11 @@ class DirectLBL:
             # Species of each window entry (padded fake lines carry
             # strength 0, so their species contributes nothing):
             self._tables[pre + 'spec'] = self.iso_spec[pad['iso']]
+        # The same line data once per line, with the window starts (the
+        # main path's operands):
+        self._tables.update(line_tables(self))
         self._device_tables = None
+        self._imol = {}
 
     def _pick_wing_subtile(self):
         """Fine wing sub-tile width minimizing the estimated pass cost:
@@ -278,10 +351,7 @@ class DirectLBL:
         lwn_hi, lwn_lo = _split_hi_lo(lwn[idx])
         # Static per-entry Doppler coefficient: inv_ad = inv_dop /
         # sqrt(T) at run time:
-        k_iso = (
-            np.sqrt(2.0 * pc.KB_KERNEL / pc.AMU_KERNEL)
-            / pc.LS_KERNEL / np.sqrt(self.iso_mass)
-        )
+        k_iso = _doppler_coeff(self.iso_mass)
         inv_dop = 1.0 / (k_iso[isoid] * lwn)
         return {
             'lwn_hi': lwn_hi,
@@ -327,8 +397,11 @@ class DirectLBL:
         flor = torch.sqrt(
             2.0 * pc.KB_KERNEL * temp / np.pi / pc.AMU_KERNEL
         ) / pc.LS_KERNEL
-        imol = torch.as_tensor(self.iso_imol, dtype=torch.int64,
-                               device=mol_radius.device)
+        imol = self._imol.get(mol_radius.device)
+        if imol is None:
+            # Made once: a host-to-device copy per block stalls the sweep.
+            imol = self._imol[mol_radius.device] = torch.as_tensor(
+                self.iso_imol, dtype=torch.int64, device=mol_radius.device)
         coll = mol_radius[imol][:, None] + mol_radius[None, :]
         return flor[:, None] * torch.sum(
             densities[:, None, :] * coll**2
@@ -383,29 +456,58 @@ class DirectLBL:
             'scale_c': scale_c, 'y_c': y_c, 'inv_ad_c': inv_ad_c,
         }
 
+    def _line_factors(self, tables, temp, densities, iso_pf):
+        """Per-cell line factors of both passes once per line,
+        [ncell, nlines_pad] over the sorted and padded line array:
+        the quantities of _cell_factors(..., 'wf_'), whose window entry
+        [cell, tile, i] is entry [cell, start[tile] + i] here.  The
+        strengths are normalized by each cell's strongest line inside
+        any fine-wing or core window (`l_kmask`): the same set of entries
+        as the window layout's maximum."""
+        alphal_iso = self._layer_widths_t(tables, temp, densities)
+        log_pf = torch.log(iso_pf)
+        iso = tables['l_iso']
+        temp = temp[:, None]
+        log_k = (
+            tables['l_logkb']
+            - pc.EXPCTE * tables['l_elow'] / temp
+            + torch.log(-torch.expm1(-pc.EXPCTE * tables['l_lwn_hi'] / temp))
+            - log_pf[:, iso]
+        )
+        inv_ad = tables['l_inv_dop'] / torch.sqrt(temp)
+        y = alphal_iso[:, iso] * inv_ad
+        log_kmax = torch.amax(
+            log_k.masked_fill(~tables['l_kmask'], -np.inf), dim=1)
+        scale = torch.exp(log_k - log_kmax[:, None]) * inv_ad / _SQRT_PI
+        return {
+            'kmax': torch.exp(log_kmax),
+            'c1': y * scale * (1.0 / _SQRT_PI), 'y2': y * y,
+            'scale': scale, 'y': y, 'inv_ad': inv_ad,
+        }
+
     def _spec(self, tables, prefix):
         return tables[prefix + 'spec'] if self.nspec > 1 else None
 
     def _cross_section_batch(self, tables, temps, densities, iso_pfs):
         """sigma [ncell, nspec, nwave] over a batch of cells: temps
         [ncell], densities [ncell, nmol], iso_pfs [ncell, niso].  The
-        wing pass over the fine sub-tiles (K4) and the core pass (K5):
-        the CUDA kernels on CUDA tensors, their plain versions on the
-        CPU."""
-        fac = self._cell_factors(tables, temps, densities, iso_pfs, 'wf_')
+        wing pass over the fine sub-tiles (K4) and the core pass (K5),
+        both on per-line factors read by line range: the CUDA kernels
+        on CUDA tensors, their plain versions on the CPU."""
+        fac = self._line_factors(tables, temps, densities, iso_pfs)
         ncell = temps.shape[0]
-        wing = wing_sigma_grouped(
-            tables['wn_wf_hi'], tables['wn_wf_lo'],
-            tables['wf_lwn_hi'], tables['wf_lwn_lo'],
-            fac['c1_w'], fac['y2_w'], fac['inv_ad_w'],
-            self._spec(tables, 'wf_'), margin=self.margin,
-            cutoff=self.cutoff, nspec=self.nspec,
+        wing = wing_sigma_lines(
+            tables['wn_wf_hi'], tables['wn_wf_lo'], tables['starts_wf'],
+            tables['l_lwn_hi'], tables['l_lwn_lo'],
+            fac['c1'], fac['y2'], fac['inv_ad'], self._spec(tables, 'l_'),
+            lmax=self.lmax_wf, margin=self.margin, cutoff=self.cutoff,
+            nspec=self.nspec,
         )   # [ncell, (nspec,) ntiles_wf, tile_wing]
-        core = core_sigma(
+        core = core_sigma_lines(
             tables['wn_core_hi'], tables['wn_core_lo'],
-            tables['c_lwn_hi'], tables['c_lwn_lo'],
-            fac['scale_c'], fac['y_c'], fac['inv_ad_c'],
-            self._spec(tables, 'c_'), margin=self.margin, nspec=self.nspec,
+            tables['starts_core'], tables['l_lwn_hi'], tables['l_lwn_lo'],
+            fac['scale'], fac['y'], fac['inv_ad'], self._spec(tables, 'l_'),
+            lmax=self.lmax_core, margin=self.margin, nspec=self.nspec,
         )   # [ncell, (nspec,) ntiles_core, tile_core]
         sigma = (
             wing.reshape(ncell, self.nspec, -1)[:, :, :self.nwave]

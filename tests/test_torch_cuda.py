@@ -14,7 +14,12 @@ tests/test_tpu_hw.py, relative to the row maximum: 2e-5 for transit,
 the card, differing in the order of the sums and, for emission, in the
 exponentials' last bits, which exp(-depth/mu) amplifies); 2e-4 for the
 line-by-line passes, relative on entries above 1e-6 of the maximum
-(sequential float32 sums over windows of up to a few thousand lines).
+(float32 sums over windows of up to a few thousand lines, in another
+order than the plain version's: a thread walks its lines four at a time,
+a small launch splits a window over four warps; the wing kernels on
+per-line factors take the hardware's approximate reciprocal, within one
+ulp, and the core kernels share one reciprocal among the divisions of
+the Weideman function).
 """
 import numpy as np
 import pytest
@@ -365,15 +370,132 @@ def test_cuda_lbl_kernels_match_plain(cuda, kernel, nspec):
     assert _masked_rel(got, want) < LBL_TOL
 
 
+def _line_operands(direct, kind, ncell):
+    """Per-line operands and keywords of K4 ('wing') or K5 ('core')."""
+    tables = direct.tables()
+    fac = direct._line_factors(tables, *_lbl_cells(direct, ncell))
+    spec = tables['l_spec'] if direct.nspec > 1 else None
+    lines = [tables['l_lwn_hi'], tables['l_lwn_lo']]
+    if kind == 'wing':
+        args = [tables['wn_wf_hi'], tables['wn_wf_lo'], tables['starts_wf'],
+                *lines, fac['c1'], fac['y2'], fac['inv_ad'], spec]
+        kw = dict(lmax=direct.lmax_wf, margin=direct.margin,
+                  cutoff=direct.cutoff, nspec=direct.nspec)
+    else:
+        args = [tables['wn_core_hi'], tables['wn_core_lo'],
+                tables['starts_core'], *lines, fac['scale'], fac['y'],
+                fac['inv_ad'], spec]
+        kw = dict(lmax=direct.lmax_core, margin=direct.margin,
+                  nspec=direct.nspec)
+    return args, kw
+
+
+_LINE_KERNELS = {
+    'wing': ('wing_sigma_lines_cuda', 'wing_sigma_lines_plain'),
+    'core': ('core_sigma_lines_cuda', 'core_sigma_lines_plain'),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ncell', [4, 21])
+@pytest.mark.parametrize('nspec', [1, 2])
+@pytest.mark.parametrize('kind', ['wing', 'core'])
+def test_cuda_lbl_line_kernels_match_plain(cuda, kind, nspec, ncell):
+    """K4 and K5 on per-line factors read by line range, one and two
+    species, a cell count that is and one that is not a multiple of the
+    kernels' cell tiles."""
+    direct = DirectLBL(_lbl_lines(nspec), device=cuda)
+    args, kw = _line_operands(direct, kind, ncell)
+    cuda_fn, plain_fn = (getattr(lk, name) for name in _LINE_KERNELS[kind])
+    launches = cuda_fn.launches
+    got = cuda_fn(*args, **kw)
+    want = plain_fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_fn.launches == launches + 1
+    assert got.shape == want.shape and got.shape[0] == ncell
+    assert bool(torch.isfinite(got).all())
+    assert _masked_rel(got, want) < LBL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['fine_grid', 'tile_wing_8', 'three_lines'])
+def test_cuda_lbl_line_kernels_other_tilings(cuda, case):
+    """A fine grid (whole warps inside one window, many warps: no split
+    of the line range), 8-point sub-tiles (a warp spans two windows) and
+    a list of three lines (every window is the whole padded array)."""
+    if case == 'fine_grid':
+        wn = np.linspace(7000.0, 7040.0, 40_000)
+        direct = DirectLBL(synthetic_lines(wn, 1500, 0, 1), wn=wn,
+                           device=cuda)
+    elif case == 'tile_wing_8':
+        direct = DirectLBL(_lbl_lines(1), device=cuda, tile_wing=8)
+    else:
+        import copy
+        lines = copy.copy(_lbl_lines(1))
+        for key in ('lwn', 'gf', 'elow', 'isoid'):
+            setattr(lines, key, getattr(lines, key)[2000:2003])
+        direct = DirectLBL(lines, device=cuda, margin=0.5)
+    for kind in ('wing', 'core'):
+        args, kw = _line_operands(direct, kind, 5)
+        cuda_fn, plain_fn = (getattr(lk, n) for n in _LINE_KERNELS[kind])
+        got = cuda_fn(*args, **kw)
+        want = plain_fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert _masked_rel(got, want) < LBL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('fault', ['nlines', 'nspec', 'lmax', 'alignment',
+                                   'no_spec'])
+def test_cuda_lbl_line_wrappers_refuse_operands_beyond_limits(cuda, fault):
+    """Operands that no instantiation takes raise ValueError before any
+    launch: line arrays that are no multiple of LINE_ALIGN entries or
+    not aligned to 16 bytes, more than MAX_SPEC species, several species
+    without a species index, a window longer than the line array."""
+    direct = DirectLBL(_lbl_lines(1, nlines=500), device=cuda)
+    for kind in ('wing', 'core'):
+        args, kw = _line_operands(direct, kind, 3)
+        nlines = args[3].shape[0]
+        if fault == 'nlines':
+            args[3:8] = [t[..., :nlines - 1] for t in args[3:8]]
+            kw['lmax'] = min(kw['lmax'], nlines - 1)
+        elif fault == 'nspec':
+            kw['nspec'] = lk.MAX_SPEC + 1
+            args[8] = direct.tables()['l_spec']
+        elif fault == 'no_spec':
+            kw['nspec'] = 2
+        elif fault == 'lmax':
+            kw['lmax'] = nlines + 1
+        else:
+            cut = slice(1, nlines - lk.LINE_ALIGN + 1)
+            args[3:8] = [t[..., cut] for t in args[3:8]]
+            kw['lmax'] = min(kw['lmax'], nlines - lk.LINE_ALIGN)
+        cuda_fn = getattr(lk, _LINE_KERNELS[kind][0])
+        launches = cuda_fn.launches
+        with pytest.raises(ValueError):
+            cuda_fn(*args, **kw)
+        assert cuda_fn.launches == launches
+
+
 @pytest.mark.cuda
 def test_cuda_lbl_engine_routes_to_kernels(cuda):
-    """_cross_section_batch on CUDA launches K4 and K5 once each."""
+    """_cross_section_batch on CUDA launches K4 and K5 on per-line
+    factors once each, and no window-layout kernel."""
     direct = DirectLBL(_lbl_lines(1, nlines=500), device=cuda)
-    wing, core = lk.wing_sigma_grouped_cuda.launches, \
-        lk.core_sigma_cuda.launches
+    counters = (lk.wing_sigma_lines_cuda, lk.core_sigma_lines_cuda,
+                lk.wing_sigma_grouped_cuda, lk.core_sigma_cuda,
+                lk.wing_sigma_cuda)
+    before = [c.launches for c in counters]
     out = direct._cross_section_batch(direct.tables(), *_lbl_cells(direct, 2))
     torch.cuda.synchronize()
     assert out.is_cuda and out.shape == (2, 1, direct.nwave)
     assert bool(torch.all(out >= 0))
-    assert lk.wing_sigma_grouped_cuda.launches == wing + 1
-    assert lk.core_sigma_cuda.launches == core + 1
+    assert [c.launches for c in counters] == [
+        before[0] + 1, before[1] + 1, *before[2:]]
+    # The engine's result against the window-layout route's plain
+    # versions (float32 on the card):
+    want = direct._cross_section(
+        direct.tables(), *(a[0] for a in _lbl_cells(direct, 2)))
+    torch.cuda.synchronize()
+    assert _masked_rel(out[0], want) < LBL_TOL
