@@ -1,8 +1,10 @@
 """GPU smoke run of pyratbay_tpu_torch: the flagship transit and eclipse
 retrievals end to end on one CUDA device, through the hand-written
-transit and emission kernels, then the flagship opacity workflow (line
-list -> TLI file -> cross-section table) through the hand-written
-line-by-line wing and core kernels.
+transit and emission kernels, then forward spectra from configs
+(runmode = spectrum and atmosphere) through the same kernels at B = 1,
+then the flagship opacity workflow (line list -> TLI file ->
+cross-section table) through the hand-written line-by-line wing and
+core kernels.
 
     python3 chip_smoke.py              # one GPU; exits non-zero on any failure
     python3 chip_smoke.py --profile    # also print torch.profiler breakdowns
@@ -20,8 +22,23 @@ checked for finite results and kernel launches); float32-GPU against float64-CPU
 agreement; and timings: the kernel, its plain version and its roofline
 bound at B = 512 and B = 1, its recorded time before it was redesigned
 (a constant, labelled so), and the two line-sample routes in turns (einsum + contiguous copy + kernel on a
-dense part, against the kernel on weights and table).  Then the opacity
-path:
+dense part, against the kernel on weights and table).  Then the
+spectrum path: the flagship (51 x 3209) as runmode = spectrum configs
+with the bundled H2-H2 and H2-He CIA tables by basename (40 rows),
+Rayleigh, the haze and a gray cloud (5 rank-1 terms), the deck, and the
+specfile, through the CLI's driver on the default device: transit (one
+launch of the transit kernel at B = 1, the counterpart of the per-chain
+transit_spectrum_fused), eclipse (one emission launch), patchy transit
+(two launches), H- with Rayleigh of e- (6 rank-1 terms) on an
+atmosphere the script writes, and that atmosphere on 81 layers (the
+transit kernel's tall function); each spectrum read back from its file
+and held against a CPU float64 Model.run; runmode = atmosphere on the
+flagship; the kernels against their plain versions at B = 512 and B = 1
+on each of those operand sets, and at B = 512 on five dense parts (the
+kernel on what the size rule fitted, the plain version on every
+operand); and timings: Model.run, the
+kernels at B = 1, the tall function and the emission kernel at B = 512
+on 81 layers.  Then the opacity path:
 a synthetic 50,000-line HITRAN H2O list through runmode = tli (the
 driver), Model(cfg, device='cuda').compute_opacity(engine='direct') on
 the flagship grid (10 T x 51 layers x 3209 points), the table read back
@@ -79,6 +96,25 @@ SINGLE_CHAIN = dict(
     name='transit_rt_single_chain',
     source='pyratbay_tpu_torch/csrc/transit_rt.cu',
     replaces='pyratbay_tpu/spectrum/rt_pallas.py:221')
+# The transit kernel's function for more than 64 layers:
+TALL = dict(
+    name='transit_rt_tall',
+    source='pyratbay_tpu_torch/csrc/transit_rt.cu',
+    replaces='pyratbay_tpu/spectrum/ensemble_pallas.py:299')
+# The spectrum phase: the bundled H2-H2 and H2-He CIA tables by basename
+# (20 + 20 rows, more than the kernels' 32), Rayleigh of H2, He and H
+# with the haze and a gray cloud (5 rank-1 terms, more than their 4),
+# and the deck; variants with patchy clouds, with H- and Rayleigh of e-
+# (6 rank-1 terms) on an atmosphere with free electrons, and with that
+# atmosphere on 81 layers (the tall function).
+BUNDLED_CIA = ('CIA_Borysow_H2H2_0060-7000K_0.6-500um.npz',
+               'CIA_Borysow_H2He_0050-3000K_0.3-030um.npz')
+SPECTRUM_CLOUDS = ('deck 2.0', 'lecavelier 0.0 -4.0', 'ccsgray 0.0 -4.0 2.0')
+TALL_LAYERS = 81
+ELECTRONS = ['H2', 'He', 'H', 'Na', 'K', 'H2O', 'CH4', 'CO', 'CO2', 'e-']
+ELECTRON_VMR = [8.5e-1, 1.49e-1, 1e-6, 3e-6, 5e-8, 4e-4, 1e-4, 5e-4, 1e-7,
+                1e-6]
+MODEL_RUN_REPEATS = 5
 # Peaks of one NVIDIA H100 SXM (data sheet): HBM3 bytes/s, and float32
 # operations/s outside the tensor cores (an FMA counts two).
 PEAK_BYTES = 3.35e12
@@ -251,22 +287,24 @@ def write_retrieval_cfg(src_cfg, dst_cfg, data, uncert, filters, logfile):
         f.write('\n'.join(out) + '\n')
 
 
-def record_call(module, name, fn):
-    """Run fn() with module.<name> (or a class's method) wrapped; return
-    the (args, kwargs) of its last call."""
-    recorded = {}
-    real = getattr(module, name)
+def record_calls(pairs, fn):
+    """Run fn() with each (module or class, name) of `pairs` wrapped;
+    return the (args, kwargs) of each one's last call."""
+    recorded, reals = {}, {}
+    for module, name in pairs:
+        reals[name] = real = getattr(module, name)
 
-    def recorder(*a, **kw):
-        recorded['call'] = (a, kw)
-        return real(*a, **kw)
+        def recorder(*a, _name=name, _real=real, **kw):
+            recorded[_name] = (a, kw)
+            return _real(*a, **kw)
 
-    setattr(module, name, recorder)
+        setattr(module, name, recorder)
     try:
         fn()
     finally:
-        setattr(module, name, real)
-    return recorded['call']
+        for module, name in pairs:
+            setattr(module, name, reals[name])
+    return [recorded[name] for _, name in pairs]
 
 
 def roofline(nbytes, flops):
@@ -462,10 +500,11 @@ def run_path(label, rt_path, workdir, dev, args, card):
     # The kernel against its plain version on the operands the main
     # path hands it (recorded from one B = 512 forward, and from eight
     # chains of which the last is rejected: T_irr = 1e6):
-    call = record_call(model_mod, wrapper, lambda: forward_b(pb))
+    call, = record_calls(((model_mod, wrapper),), lambda: forward_b(pb))
     pb_rejected = pb[:8].copy()
     pb_rejected[-1, 1] = 1.0e6
-    rejected = record_call(model_mod, wrapper, lambda: forward_b(pb_rejected))
+    rejected, = record_calls(((model_mod, wrapper),),
+                             lambda: forward_b(pb_rejected))
     cases = kernel_cases(label, model, call, rejected)
     case_abs = check_kernel(spec['name'], kernel, plain, cases, spec['tol'])
     max_abs = max(case_abs.values())
@@ -629,6 +668,302 @@ def run_path(label, rt_path, workdir, dev, args, card):
     return entries
 
 
+def write_spectrum_cfg(workdir, name, rt_path, atmfile=None, nlayers=None,
+                       rayleigh=('H2', 'He', 'H'), extra=()):
+    """The flagship config (runmode = spectrum) with this phase's
+    sources, as <workdir>/<name>.cfg writing <workdir>/<name>.dat."""
+    with open(os.path.join(workdir, 'flagship.cfg')) as f:
+        lines = f.read().splitlines()
+    out, in_clouds = [], False
+    for line in lines:
+        if in_clouds and line.startswith(' '):
+            continue
+        in_clouds = False
+        key = line.split('=')[0].strip()
+        if key == 'clouds':
+            in_clouds = True
+            out += ['clouds =', *[f'    {c}' for c in SPECTRUM_CLOUDS]]
+            continue
+        line = {
+            'continuum_cross_sec':
+                'continuum_cross_sec = ' + ' '.join(BUNDLED_CIA),
+            'rt_path': f'rt_path = {rt_path}',
+            'logfile': f'logfile = {workdir}/{name}.log',
+            'atmfile': f'atmfile = {atmfile}' if atmfile else line,
+        }.get(key, line)
+        out.append(line)
+    out += [f'specfile = {workdir}/{name}.dat',
+            'rayleigh = ' + ' '.join(f'rayleigh_{m}' for m in rayleigh),
+            *extra]
+    if nlayers is not None:
+        out += ['ptop = 1e-6 bar', 'pbottom = 100 bar', f'nlayers = {nlayers}']
+    cfg = os.path.join(workdir, name + '.cfg')
+    with open(cfg, 'w') as f:
+        f.write('\n'.join(out) + '\n')
+    return cfg
+
+
+def fitted_cases(label, model, pre, post, tag):
+    """Kernel cases at B = 512 and B = 1 from one batched forward: the
+    kernel on the operands the size rule fitted (`post`, the wrapper's
+    call) against the plain version on every operand before the rule
+    (`pre`, fit_operands' call), with the wrapper's per-chain
+    preparation: name -> (kernel args, kernel kw, plain args, plain
+    kw)."""
+    from pyratbay_tpu_torch.spectrum import emission_kernel as ek
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+    per_chain = ('cia_w', 'r1_cols', 'r1_rows', 'ls_w')
+    (pre_parts,), pre_kw = pre
+    args, kw = post
+    post_parts = args[0]
+
+    def operands(parts, ops, sl):
+        ops = {k: (v[sl] if k in per_chain and v is not None else v)
+               for k, v in ops.items()
+               if k in (*per_chain, 'cia_tab', 'ls_tab')}
+        return [p[sl] for p in parts], dict(ops, maxdepth=kw['maxdepth'])
+
+    cases = {}
+    for case, sl in ((f'B512_{tag}', slice(None)), (f'B1_{tag}', slice(0, 1))):
+        if label == 'transit':
+            _, path, rr, rstar, itop, ibottom = args
+            prepared = tk.prep_chains(
+                path[sl], rr[sl], rstar, itop[sl], ibottom[sl],
+                kw['deck_itop'][sl], kw['deck_rsurf'][sl])
+        else:
+            _, radius, temp, wn, mu, weights, itop, ibottom = args
+            prepared = (*ek.prep_emission_chains(
+                radius[sl], temp[sl], itop[sl], ibottom[sl],
+                kw['deck_itop'][sl], kw['deck_tsurf'][sl]), wn, mu, weights)
+        k_parts, k_kw = operands(post_parts, kw, sl)
+        p_parts, p_kw = operands(pre_parts, pre_kw, sl)
+        cases[case] = ((k_parts, *prepared), k_kw, (p_parts, *prepared), p_kw)
+    return cases
+
+
+def run_spectrum(workdir, dev, args, card):
+    """runmode = spectrum and runmode = atmosphere on the flagship at
+    full width: Model.run through the RT kernels at B = 1 from the
+    CLI's driver, the kernels against their plain versions beyond their
+    operand limits (40 CIA rows, 6 rank-1 terms, 5 dense parts, 81
+    layers), GPU
+    against CPU float64, timings.  Returns the kernel entries' launches
+    and the tall function's entry."""
+    import torch
+    from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch.benchmark import make_flagship
+    from pyratbay_tpu_torch.driver import run
+    from pyratbay_tpu_torch.io import io as pio
+    from pyratbay_tpu_torch.model import Model
+    from pyratbay_tpu_torch.observation import Observation
+    from pyratbay_tpu_torch.retrieval import batched
+    from pyratbay_tpu_torch.retrieval.params import RetrievalParams
+    from pyratbay_tpu_torch.spectrum import emission_kernel as ek
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+
+    _, obs, _, _, _ = make_flagship(workdir, device=dev)
+    atm_e = os.path.join(workdir, 'electrons.atm')
+    nl = NLAYERS
+    pio.write_atm(atm_e, np.logspace(-6, 2, nl), np.full(nl, 1400.0),
+                  ELECTRONS, np.tile(ELECTRON_VMR, (nl, 1)), punits='bar')
+    with_e = dict(atmfile=atm_e, rayleigh=('H2', 'He', 'H', 'e-'),
+                  extra=('h_ion = h_ion_john1988',))
+    runs = {
+        # name: (rt_path, config options, K1, K1 at B = 1, tall, K3)
+        'transit': ('transit', {}, 1, 1, 0, 0),
+        'eclipse': ('eclipse', {}, 0, 0, 0, 1),
+        'transit_patchy': ('transit', dict(extra=('fpatchy = 0.4',)),
+                           2, 2, 0, 0),
+        'transit_h_ion': ('transit', with_e, 1, 1, 0, 0),
+        'eclipse_h_ion': ('eclipse', with_e, 0, 0, 0, 1),
+        'transit_tall': ('transit', dict(with_e, nlayers=TALL_LAYERS),
+                         1, 1, 1, 0),
+        'eclipse_tall': ('eclipse', dict(with_e, nlayers=TALL_LAYERS),
+                         0, 0, 0, 1),
+    }
+    counters = (tk.transit_rt_cuda, ek.emission_rt_cuda)
+    total = {'transit_rt': 0, 'transit_rt_single_chain': 0,
+             'transit_rt_tall': 0, 'emission_rt': 0}
+    cfgs, models = {}, {}
+    for name, (rt_path, opts, *expect) in runs.items():
+        cfgs[name] = cfg = write_spectrum_cfg(workdir, name, rt_path, **opts)
+        for counter in counters:
+            counter.launches = 0
+        tk.transit_rt_cuda.single_chain_launches = 0
+        tk.transit_rt_cuda.tall_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = run(cfg)              # the default device: the card
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {
+            'transit_rt': tk.transit_rt_cuda.launches,
+            'transit_rt_single_chain':
+                tk.transit_rt_cuda.single_chain_launches,
+            'transit_rt_tall': tk.transit_rt_cuda.tall_launches,
+            'emission_rt': ek.emission_rt_cuda.launches}
+        for key, value in launches.items():
+            total[key] += value
+        models[name] = model
+        wn, spec = pio.read_spectrum(os.path.join(workdir, name + '.dat'))
+        cpu = Model(cfg, device='cpu').run()['spectrum']
+        rel, absolute = rel_err(
+            torch.as_tensor(model.spectrum)[None], cpu[None])
+        checks = {
+            'on_the_card': model.device.type == 'cuda',
+            'launches': list(launches.values()) == expect,
+            'shape': spec.shape == (model.nwave,) == model.spectrum.shape,
+            'finite': bool(np.all(np.isfinite(spec))),
+            'read_back': bool(np.allclose(spec, model.spectrum, rtol=1e-8,
+                                          atol=0)),
+            'gpu_vs_cpu': rel < FORWARD_TOL,
+        }
+        emit('main_path_spectrum', run=name, rt_path=rt_path,
+             nlayers=model.nlayers, nwave=model.nwave, seconds=seconds,
+             launches=launches, expected=expect, gpu_vs_cpu_max_rel_err=rel,
+             gpu_vs_cpu_max_abs_err=absolute, tol=FORWARD_TOL, checks=checks,
+             opacity_models=[m.name for _, m, _ in model.opacity_models])
+        if not all(checks.values()):
+            fail(f'spectrum {name}: {checks}')
+
+    # runmode = atmosphere on the flagship:
+    atm_cfg = os.path.join(workdir, 'atmosphere.cfg')
+    atm_out = os.path.join(workdir, 'flagship_out.atm')
+    with open(cfgs['transit']) as f:
+        text = f.read().replace('runmode = spectrum', 'runmode = atmosphere')
+    with open(atm_cfg, 'w') as f:
+        f.write(text + f'output_atmfile = {atm_out}\n')
+    run(atm_cfg)
+    _, species, press, temp, vmr, radius = pio.read_atm(atm_out)
+    checks = {'layers': len(press) == NLAYERS,
+              'radius_finite': radius is not None
+              and bool(np.all(np.isfinite(radius))),
+              'temperature_finite': bool(np.all(np.isfinite(temp)))}
+    emit('main_path_atmosphere', species=list(species), layers=len(press),
+         radius_km=[float(radius[0]), float(radius[-1])],
+         temperature_k=[float(temp.min()), float(temp.max())],
+         checks=checks)
+    if not all(checks.values()):
+        fail(f'atmosphere: {checks}')
+
+    # The kernels beyond their operand limits, from batched forwards at
+    # B = 512 (the last call of each wrapper and of the size rule):
+    rng = np.random.default_rng(0)
+    case_abs = {}
+    all_cases = {}
+    for label, wrapper, kernel, plain, tol in (
+            ('transit', 'transit_spectrum_ensemble', tk.transit_rt_cuda,
+             tk.transit_rt_plain, KERNELS['transit']['tol']),
+            ('eclipse', 'emission_flux_ensemble', ek.emission_rt_cuda,
+             ek.emission_rt_plain, KERNELS['eclipse']['tol'])):
+        for tag, name in (('cia40_r1_5', label),
+                          ('r1_6_h_ion', f'{label}_h_ion'),
+                          ('layers81', f'{label}_tall')):
+            model = models[name]
+            mobs = Observation(obs_cfg(obs), model.wn)
+            ret = RetrievalParams(model, mobs)
+            pb = np.clip(ret.params + ret.pstep * rng.standard_normal(
+                (NCHAINS, len(ret.params))), ret.pmin, ret.pmax)
+            forward_b = batched.build_forward_batched(model, mobs, ret)
+            pre, post = record_calls(
+                ((batched, 'fit_operands'), (model_mod, wrapper)),
+                lambda: forward_b(pb))
+            cases = fitted_cases(label, model, pre, post, tag)
+            if tag == 'r1_6_h_ion':
+                # Five dense parts (the H- part split in five), through
+                # the size rule:
+                k_args, k_kw, p_args, p_kw = cases[f'B512_{tag}']
+                parts5 = [0.2 * p_args[0][0]] * 5
+                fit = tk.fit_operands(parts5, **{
+                    k: v for k, v in p_kw.items() if k != 'maxdepth'})
+                cases['B512_parts5'] = (
+                    (fit.pop('ec_parts'), *k_args[1:]),
+                    dict(fit, maxdepth=k_kw['maxdepth']),
+                    (parts5, *p_args[1:]), p_kw)
+            for case, (k_args, k_kw, p_args, p_kw) in cases.items():
+                got = kernel(*k_args, **k_kw)
+                want = plain(*p_args, **p_kw)
+                torch.cuda.synchronize()
+                rel, absolute = rel_err(got, want)
+                sizes = dict(
+                    dense_parts=[len(k_args[0]), len(p_args[0])],
+                    rank1=[int(k_kw['r1_cols'].shape[1]),
+                           int(p_kw['r1_cols'].shape[1])],
+                    cia_rows=[int(k_kw['cia_w'].shape[2]),
+                              int(p_kw['cia_w'].shape[2])])
+                emit('kernel_check', kernel=KERNELS[label]['name'],
+                     case=case, shape=list(got.shape),
+                     nlayers=model.nlayers, kernel_and_plain_operands=sizes,
+                     max_rel_err=rel, max_abs_err=absolute, tol=tol)
+                if not rel < tol:
+                    fail(f'{label} {case}: kernel disagrees with plain '
+                         f'({rel})')
+                case_abs[(label, case)] = absolute
+            all_cases[(label, tag)] = cases
+
+    # Times (NVIDIA card named in `card`): Model.run by the host clock
+    # (ending in a synchronize), K1 and K3 at B = 1 on Model.run's
+    # operands and the tall function at B = 512 on 81 layers by events,
+    # in turns with their plain versions.
+    run_s = {}
+    for name in ('transit', 'eclipse', 'transit_tall'):
+        model = models[name]
+        times = []
+        for _ in range(MODEL_RUN_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        run_s[name] = float(np.median(times))
+    timed = {}
+    for key, (label, tag, case) in {
+            'transit_b1': ('transit', 'cia40_r1_5', 'B1_cia40_r1_5'),
+            'emission_b1': ('eclipse', 'cia40_r1_5', 'B1_cia40_r1_5'),
+            'tall_b512': ('transit', 'layers81', 'B512_layers81'),
+            'tall_b1': ('transit', 'layers81', 'B1_layers81'),
+            'emission_81_b512': ('eclipse', 'layers81', 'B512_layers81'),
+    }.items():
+        k_args, k_kw, p_args, p_kw = all_cases[(label, tag)][case]
+        kernel = tk.transit_rt_cuda if label == 'transit' \
+            else ek.emission_rt_cuda
+        plain = tk.transit_rt_plain if label == 'transit' \
+            else ek.emission_rt_plain
+        ms = paired_ms({
+            'kernel': lambda: kernel(*k_args, **k_kw),
+            'plain': lambda: plain(*k_args, **k_kw)}, repeats=5)
+        bound_ms, bound_by = kernel_bound(
+            'transit' if label == 'transit' else 'eclipse', k_args, k_kw)
+        timed[key] = dict(kernel_ms=ms['kernel'], plain_ms=ms['plain'],
+                          bound_ms=bound_ms, bound_by=bound_by)
+    emit('times_spectrum', card=card, model_run_seconds=run_s,
+         model_run_note=f'host clock around Model.run ending in a '
+                        f'synchronize, median of {MODEL_RUN_REPEATS}',
+         kernels=timed,
+         kernels_note='CUDA events around runs of 4 calls of the kernel '
+                      'wrapper on the rule-fitted operands, medians, in '
+                      'turns with the plain version on the same operands')
+    if args.profile:
+        for name in ('transit', 'eclipse'):
+            profile(f'model_run_{name}', lambda _: models[name].run(), None,
+                    run_s[name] * 1e3)
+    tall_abs = max(v for (label, case), v in case_abs.items()
+                   if label == 'transit' and 'layers81' in case)
+    tall = timed['tall_b512']
+    entry = {**TALL, 'route': 'cuda', 'launches': total['transit_rt_tall'],
+             'max_abs_err': tall_abs, 'ms': tall['kernel_ms'],
+             'plain_ms': tall['plain_ms'], 'bound_ms': tall['bound_ms'],
+             'bound_by': tall['bound_by'], 'library_ms': None,
+             'note': f'B = {NCHAINS}, {TALL_LAYERS} layers x {NWAVE}; '
+                     'launched by Model.run at B = 1 in this phase'}
+    for key in ('transit_rt', 'transit_rt_single_chain', 'emission_rt'):
+        if total[key] < 1:
+            fail(f'spectrum: {key} launched no time')
+    if total['transit_rt_tall'] < 1:
+        fail('spectrum: the tall transit function launched no time')
+    return total, entry
+
+
 def masked_rel(got, want, floor=1e-6):
     """(max relative difference on the entries of `want` above `floor`
     of its maximum, max absolute difference); inf if not finite."""
@@ -789,8 +1124,9 @@ def run_opacity(workdir, dev, args, card):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        call = record_call(DirectLBL, '_cross_section_batch',
-                           lambda: model.compute_opacity(engine='direct'))
+        call, = record_calls(
+            ((DirectLBL, '_cross_section_batch'),),
+            lambda: model.compute_opacity(engine='direct'))
     finally:
         DirectLBL._line_factors = real_line
         DirectLBL._window_factors = real_window
@@ -1133,6 +1469,20 @@ def main():
             path_dir = os.path.join(workdir, label)
             os.makedirs(path_dir)
             kernels += run_path(label, rt_path, path_dir, dev, args, card)
+        path_dir = os.path.join(workdir, 'spectrum')
+        os.makedirs(path_dir)
+        spectrum_launches, tall = run_spectrum(path_dir, dev, args, card)
+        # Each kernel's launches on each path that runs it (the tall
+        # function's launches are single-chain ones of K1 too):
+        spectrum_launches['transit_rt'] -= spectrum_launches['transit_rt_tall']
+        spectrum_launches['transit_rt_single_chain'] -= \
+            spectrum_launches['transit_rt_tall']
+        for entry, path in zip(kernels, ('transit', 'transit', 'eclipse')):
+            more = spectrum_launches[entry['name']]
+            entry['launches_by_path'] = {path: entry['launches'],
+                                         'spectrum': more}
+            entry['launches'] += more
+        kernels.append(tall)
         path_dir = os.path.join(workdir, 'opacity')
         os.makedirs(path_dir)
         kernels += run_opacity(path_dir, dev, args, card)

@@ -11,8 +11,9 @@ import sys
 def build_parser():
     parser = argparse.ArgumentParser(
         prog='python -m pyratbay_tpu_torch',
-        description='Run a configuration (runmode = retrieval or tli) '
-                    'on PyTorch (CPU or CUDA)',
+        description='Run a configuration (runmode = tli, atmosphere, '
+                    'spectrum, opacity or retrieval) on PyTorch (CPU or '
+                    'CUDA)',
     )
     parser.add_argument('-c', '--cfile', metavar='CONFIG', required=True,
                         help='configuration file to run')

@@ -12,8 +12,8 @@ from .. import constants as pc
 from ..ops.special import e2
 
 __all__ = [
-    'pressure', 'isothermal_tp', 'guillot_tp', 'get_tmodel',
-    'TMODEL_PNAMES',
+    'pressure', 'isothermal_tp', 'guillot_tp', 'madhu_tp',
+    'gaussian_filter1d', 'get_tmodel', 'TMODEL_PNAMES',
 ]
 
 TMODEL_PNAMES = {
@@ -89,6 +89,56 @@ def guillot_tp(press):
     return temp_fn
 
 
+def _gaussian_kernel1d(sigma, radius):
+    x = np.arange(-radius, radius + 1)
+    phi = np.exp(-0.5 * (x / sigma) ** 2)
+    return phi / phi.sum()
+
+
+def gaussian_filter1d(y, sigma):
+    """scipy's gaussian_filter1d in mode 'nearest' along the last axis
+    of y [..., l], as a static convolution."""
+    radius = int(4.0 * sigma + 0.5)
+    kernel = torch.as_tensor(
+        _gaussian_kernel1d(sigma, radius), dtype=y.dtype, device=y.device)
+    edge = lambda v: v.expand(*v.shape[:-1], radius)
+    ypad = torch.cat([edge(y[..., :1]), y, edge(y[..., -1:])], dim=-1)
+    return ypad.unfold(-1, 2 * radius + 1, 1) @ kernel
+
+
+def madhu_tp(press):
+    """Madhusudhan & Seager (2009) three-zone profile model.
+
+    params = [log_p1, log_p2, log_p3, a1, a2, T0] (pressures in bar).
+    An invalid ordering (p1 > p3) gives an all-zero profile, which the
+    callers reject as out of bounds.
+    """
+    logp_np = np.log10(np.asarray(press))
+    logp0 = float(np.amin(logp_np))
+    dlogp = float(logp_np[1] - logp_np[0])
+    fsmooth = 0.33 / dlogp
+    loge = np.log10(np.e)
+
+    def temp_fn(params):
+        logp = torch.as_tensor(logp_np, dtype=params.dtype,
+                               device=params.device)
+        logp1, logp2, logp3, a1, a2, t0 = (
+            params[..., i:i + 1] for i in range(6))
+        t1 = t0 + ((logp1 - logp0) / (a1 * loge)) ** 2
+        t2 = t1 - ((logp1 - logp2) / (a2 * loge)) ** 2
+        t3 = t2 + ((logp3 - logp2) / (a2 * loge)) ** 2
+        temp = torch.where(
+            logp < logp1,
+            t0 + ((logp - logp0) / (a1 * loge)) ** 2,
+            torch.where(
+                logp < logp3,
+                t2 + ((logp - logp2) / (a2 * loge)) ** 2,
+                t3.expand_as(t0 + logp)))
+        temp = gaussian_filter1d(temp, fsmooth)
+        return torch.where(logp1 > logp3, torch.zeros_like(temp), temp)
+    return temp_fn
+
+
 def get_tmodel(name, press):
     """Temperature model factory by registry name."""
     if name == 'isothermal':
@@ -96,10 +146,7 @@ def get_tmodel(name, press):
     elif name in ('guillot', 'tcea'):
         fn = guillot_tp(press)
     elif name == 'madhu':
-        raise NotImplementedError(
-            "tmodel 'madhu' is not ported yet (ROADMAP.md A2: "
-            'madhu_tp with its gaussian_filter1d)'
-        )
+        fn = madhu_tp(press)
     else:
         raise ValueError(
             f"Invalid temperature model '{name}', select from {pc.TMODELS}"

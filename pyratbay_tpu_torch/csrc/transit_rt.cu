@@ -69,6 +69,22 @@
 // the epilogue 16%, staging 8%; ~39,000 with the SM to itself), and the
 // 130 KB slab leaves room for eight chains in flight on an SM.
 // PERF.md has the runs and the designs that were tried.
+//
+// Tall atmospheres (more than 64 layers: reference users run 81 and 100)
+// take a second function, transit_rt_tall_kernel, because a depth column
+// of that height no longer fits the registers.  It is the simple design of
+// the first version of this file: the team assembles its chain's
+// extinction (the same Assembler: dense parts, rank-1 terms, CIA; no line
+// sample, which the forward then hands over as a dense part) into a
+// [rows][64] column block in shared memory, each lane its own column, and
+// then walks the rows once: row i's depth is a dot product of the
+// broadcast row of the chord matrix, packed as its lower triangle
+// (j <= i, from itop on), with the lane's extinction column, followed by
+// the same epilogue step as above.  Two shared-memory loads an FMA bound
+// it, as they bounded the first version (4.8 TFLOP/s); its shared memory,
+// the triangle (l (l + 1) / 2 floats) and the column block of one chain a
+// team, sets the largest layer count, about 250 with the usual operands
+// (pbt_transit_rt_tall_warps returns 0 above it, and the wrapper raises).
 #include "rt_common.cuh"
 
 namespace {
@@ -287,10 +303,165 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1) transit_rt_kernel(
     }
 }
 
+// Floats of the packed lower triangle of an l-layer chord matrix (row i
+// holds columns 0 .. i from offset i (i + 1) / 2), and of a team's region
+// in the tall function: the triangle, the extinction columns [rows][TW],
+// then the assembly region without a line sample.
+__host__ __device__ inline int tri_floats(int L) {
+    return round4(L * (L + 1) / 2);
+}
+
+__host__ __device__ inline int tall_team_floats(
+        int L, int KP, int ncols, int n_parts) {
+    const int rows = round4(L);
+    return tri_floats(L) + rows * TW
+        + assembly_floats(rows, KP, 1, 0, ncols, n_parts);
+}
+
+template <int KP>
+__global__ void __launch_bounds__(32 * MAX_WARPS, 1) transit_rt_tall_kernel(
+        Parts parts, const float* __restrict__ r1_rows, int n_r1,
+        const float* __restrict__ cia_w, const float* __restrict__ cia_tab,
+        int n_cia, const float* __restrict__ tri,
+        const float* __restrict__ cols, const float* __restrict__ scal,
+        float* __restrict__ out, int nchains, int group, int nlayers,
+        int nwave, float maxdepth) {
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    const int L = nlayers;
+    const int rows = round4(L);
+    const int PT = tri_floats(L);
+    const int ncols = 3 + n_r1;
+    const int team = threadIdx.x / (32 * TEAM);
+    const int nteams = blockDim.x / (32 * TEAM);
+    const int tlane = threadIdx.x % (32 * TEAM);   // the column in the tile
+    const int w = blockIdx.x * TW + tlane;
+    const bool valid = w < nwave;
+
+    const int region = tall_team_floats(L, KP, ncols, parts.n);
+    float* s_tri = smem + team * region;                   // packed path2
+    float* s_ec = s_tri + PT;                              // [rows][TW]
+    float* s_ciaw = s_ec + rows * TW;                      // [rows][KP]
+    float* s_cols = s_ciaw + rows * KP;                    // [ncols][rows]
+    const float* s_rad = s_cols;
+    const float* s_h = s_cols + rows;
+    const float* s_hprev = s_cols + 2 * rows;
+    float* ring = s_cols + ncols * rows;                   // parts ring
+    for (int i = tlane; i < region; i += 32 * TEAM) s_tri[i] = 0.f;
+
+    Assembler<KP> as;
+    as.s_ciaw = s_ciaw;
+    as.s_lsw = nullptr;
+    as.s_mask = nullptr;
+    as.s_r1c = s_cols + 3 * rows;
+    as.s_tab = nullptr;
+    as.ring = ring;
+    as.n_parts = parts.n;
+    as.n_r1 = n_r1;
+    as.n_cia = n_cia;
+    as.K2P = 0;
+    as.L = L;
+    as.rows = rows;
+    as.col = tlane;
+    as.load_cia_table(cia_tab, nwave, w, valid);
+    __syncthreads();
+
+    for (int c = team; c < group; c += nteams) {
+        const int b = blockIdx.y * group + c;
+        if (b >= nchains) break;
+        team_sync(team);
+
+        copy_block(s_tri, tri + (size_t)b * PT, PT, tlane);
+        stage_chain(s_ciaw, nullptr, s_cols, cia_w, nullptr, cols, b, rows,
+                    KP, n_cia, 0, ncols, tlane);
+        cp_async_commit();
+        const size_t chain_off = (size_t)b * L * nwave;
+        for (int r = 0; r < RING; ++r)
+            ring_fetch(ring, parts, chain_off, r, L, nwave, tlane, w, valid);
+        as.load_r1_rows(r1_rows, b, nwave, w, valid);
+        const float* sc = scal + (size_t)b * 8;
+        const int itop = (int)sc[0];
+        const int ibottom = (int)sc[1];
+        const int deck_row = (int)sc[2];
+        const bool apply_deck = sc[3] > 0.5f;
+        const float w_surf = sc[4];
+        const float inv_rstar2 = sc[5];
+        const float r_itop2 = sc[6];
+        cp_async_wait<RING>();
+        team_sync(team);
+
+        // The extinction column, four layers at a time (each lane writes
+        // and later reads only its own column):
+        float poison = 0.f;
+#pragma unroll 1
+        for (int j0 = 0; j0 < L; j0 += 4) {
+            if (parts.n > 0) cp_async_wait<4>();
+            float e[4];
+            as.rows4(j0, e);
+            if (parts.n > 0) {
+#pragma unroll
+                for (int t = 0; t < 4; ++t)
+                    ring_fetch(ring, parts, chain_off, j0 + RING + t, L,
+                               nwave, tlane, w, valid);
+            }
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+                poison = fmaf(e[t], 0.f, poison);
+                s_ec[(j0 + t) * TW + tlane] = e[t];
+            }
+        }
+        cp_async_wait<0>();
+
+        // Down the rows: the depth of row i from the columns j in
+        // [itop, i] (the rest of the row is zero), then the epilogue step.
+        // itop is clamped before it bounds a loop, so that a rejected
+        // chain's garbage cannot address memory.
+        const int jlo = max(0, min(itop, L));
+        int ideep = ibottom - 1;
+        bool found = false;
+        float integral = 0.f;
+        float prev = 0.f;
+#pragma unroll 1
+        for (int i = 0; i < L; ++i) {
+            const float* prow = s_tri + i * (i + 1) / 2;
+            float di = 0.f;
+#pragma unroll 4
+            for (int j = jlo; j <= i; ++j)
+                di = fmaf(prow[j], s_ec[j * TW + tlane], di);
+            const bool in_range = i >= itop && i < ibottom;
+            if (!found && in_range && di > maxdepth) {
+                found = true;
+                ideep = i;
+            }
+            const float raw = expf(-di) * s_rad[i];
+            float integ = raw;
+            if (apply_deck && i == deck_row)
+                integ = prev * (1.f - w_surf) + raw * w_surf;
+            const float m = (in_range && i < ideep) ? 1.f : 0.f;
+            const float mp = (i >= itop + 1 && i <= ideep) ? 1.f : 0.f;
+            integral += integ * (0.5f * (s_h[i] * m + s_hprev[i] * mp));
+            prev = raw;
+        }
+        if (valid)
+            out[(size_t)b * nwave + w] =
+                (r_itop2 + 2.f * integral) * inv_rstar2 + poison;
+    }
+}
+
 typedef void (*Kernel)(
     Parts, const float*, int, const float*, const float*, int, const float*,
     const float*, int, const float*, const float*, const float*, float*,
     int, int, int, int, float);
+
+typedef void (*TallKernel)(
+    Parts, const float*, int, const float*, const float*, int, const float*,
+    const float*, const float*, float*, int, int, int, int, float);
+
+int tall_smem_bytes(int KP, int nlayers, int n_r1, int n_parts, int nwarps) {
+    const long floats = (long)(nwarps / TEAM)
+        * tall_team_floats(nlayers, KP, 3 + n_r1, n_parts);
+    return floats * 4 > (1L << 30) ? (1 << 30) : (int)(floats * 4);
+}
 
 // The instantiation for a padded layer count and CIA depth; null above the
 // largest.
@@ -366,5 +537,54 @@ extern "C" int pbt_transit_rt(
     kernel<<<grid, 32 * nwarps, smem, (cudaStream_t)stream>>>(
         parts, r1_rows, n_r1, cia_w, cia_tab, n_cia, ls_w, ls_tab, n_ls,
         packed, cols, scal, out, nchains, group, nlayers, nwave, maxdepth);
+    return (int)cudaGetLastError();
+}
+
+// The tall function (any layer count from 2; the wrapper takes it above
+// 64): warps of a block, the most up to 16 in teams of 2 whose regions fit
+// the shared memory; 0 if not even one team fits or an operand count
+// exceeds its limit.
+extern "C" int pbt_transit_rt_tall_warps(int nlayers, int n_r1, int n_cia,
+                                         int n_parts) {
+    if (nlayers < 2 || n_cia > 32 || n_r1 > pbt::MAX_R1
+            || n_parts > pbt::MAX_PARTS)
+        return 0;
+    const int KP = n_cia <= 16 ? 16 : 32;
+    for (int nwarps = MAX_WARPS; nwarps >= TEAM; nwarps -= TEAM)
+        if (tall_smem_bytes(KP, nlayers, n_r1, n_parts, nwarps)
+                <= pbt::SMEM_MAX)
+            return nwarps;
+    return 0;
+}
+
+// tri [B, tri_floats] (path2's lower triangles), cia_w [B, rows, KP] and
+// cols [B, ncols, rows] with rows = round4(nlayers) come laid out by the
+// wrapper (transit_kernel.py); tri_floats and ncols are checked against
+// this file's own layout.
+extern "C" int pbt_transit_rt_tall(
+        const float* part0, const float* part1, const float* part2,
+        const float* part3, int n_parts, const float* r1_rows, int n_r1,
+        const float* cia_w, const float* cia_tab, int n_cia,
+        const float* tri, const float* cols, const float* scal, float* out,
+        int nchains, int nlayers, int nwave, int tri_count, int ncols,
+        float maxdepth, void* stream) {
+    const int nwarps = pbt_transit_rt_tall_warps(nlayers, n_r1, n_cia,
+                                                 n_parts);
+    if (nwarps < 1 || n_parts < 0 || tri_count != tri_floats(nlayers)
+            || ncols != 3 + n_r1)
+        return (int)cudaErrorInvalidValue;
+    const int KP = n_cia <= 16 ? 16 : 32;
+    TallKernel kernel = KP == 16 ? transit_rt_tall_kernel<16>
+                                 : transit_rt_tall_kernel<32>;
+    const int smem = tall_smem_bytes(KP, nlayers, n_r1, n_parts, nwarps);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int group = 2 * (nwarps / pbt::TEAM);
+    Parts parts = {part0, part1, part2, part3, n_parts};
+    dim3 grid((nwave + pbt::TW - 1) / pbt::TW, (nchains + group - 1) / group);
+    kernel<<<grid, 32 * nwarps, smem, (cudaStream_t)stream>>>(
+        parts, r1_rows, n_r1, cia_w, cia_tab, n_cia, tri, cols, scal, out,
+        nchains, group, nlayers, nwave, maxdepth);
     return (int)cudaGetLastError();
 }

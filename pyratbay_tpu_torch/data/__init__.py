@@ -1,16 +1,18 @@
-"""Packaged physical data: species properties, isotope tables and
-TIPS-2021 partition functions.
+"""Packaged physical data: species properties, isotope tables,
+TIPS-2021 partition functions and the bundled CIA tables.
 
-The isotope and TIPS tables are the JAX package's bundled files
-(`pyratbay_tpu/data/*.npz`), read by path through TABLES_DIR rather
-than copied: a file read imports nothing of that package.
+The isotope, TIPS and CIA tables are the JAX package's bundled files
+(`pyratbay_tpu/data/*.npz`, `pyratbay_tpu/data/cia/*.npz`), read by path
+through TABLES_DIR rather than copied: a file read imports nothing of
+that package.
 """
 import functools
 import os
 
 import numpy as np
 
-__all__ = ['TABLES_DIR', 'isotopes_table', 'tips_table', 'get_iso']
+__all__ = ['TABLES_DIR', 'isotopes_table', 'tips_table', 'get_iso',
+           'list_cia', 'cia_file']
 
 TABLES_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
@@ -47,6 +49,35 @@ def tips_table():
     for i, mol in enumerate(mols):
         data.setdefault(str(mol), {})[str(isos[i])] = pf[i, :ntemp[i]]
     return data, temp, mol_ids
+
+
+def list_cia():
+    """Bundled collision-induced-absorption tables (Borysow data, as
+    npz), by name."""
+    cia_dir = os.path.join(TABLES_DIR, 'cia')
+    return sorted(
+        os.path.splitext(f)[0] for f in os.listdir(cia_dir)
+        if f.endswith('.npz')
+    )
+
+
+def cia_file(name):
+    """Path of a bundled CIA table.
+
+    `name` may be the full table name, a '.dat' reference-style
+    basename, or a species pair like 'H2H2' / 'H2He' (the first match
+    wins).
+    """
+    stem = os.path.splitext(os.path.basename(str(name)))[0]
+    available = list_cia()
+    if stem in available:
+        return os.path.join(TABLES_DIR, 'cia', stem + '.npz')
+    matches = [cia for cia in available if f'_{stem}_' in cia]
+    if matches:
+        return os.path.join(TABLES_DIR, 'cia', matches[0] + '.npz')
+    raise FileNotFoundError(
+        f"No bundled CIA table matching '{name}'; available: {available}"
+    )
 
 
 def get_iso(molname):

@@ -1,36 +1,45 @@
 """Top-level driver: run a configuration on a device.
 
 Port of pyratbay_tpu/driver.py for runmode = tli (line lists to a TLI
-file), opacity (the JAX default engine, whose port is pending) and
-retrieval; the other run modes are not ported yet (ROADMAP.md A7/A10).
+file), atmosphere (the atmospheric profiles to output_atmfile),
+spectrum (one forward spectrum, Model.run, to specfile), opacity (the
+JAX default engine, whose port is pending) and retrieval; radeq and the
+nested sampler are not ported yet (ROADMAP.md A10).
 """
 import os
 
+import numpy as np
+
 from . import constants as pc
+from .atmosphere import hydro
 from .config import parser as cfg_parser
+from .io import io as pio
 from .logger import Log
 from .model import Model
 from .version import __version__
 
 __all__ = ['run']
 
-_RUNMODES = ('tli', 'opacity', 'retrieval')
+_RUNMODES = ('tli', 'atmosphere', 'spectrum', 'opacity', 'retrieval')
 
 
 def run(cfile, device=None, root=None, seed=0):
     """Execute a configuration on `device`.
 
     Returns the TLI summary list (runmode = tli) or the Model (with the
-    retrieval results attached for runmode = retrieval).  runmode =
-    opacity calls Model.compute_opacity() with its default engine, the
-    parity engine, which raises NotImplementedError (ROADMAP.md A11):
-    tabulate with Model(cfg, device).compute_opacity(engine='direct').
+    spectrum of Model.run for runmode = spectrum, the retrieval results
+    for runmode = retrieval).  runmode = atmosphere writes the
+    temperature, VMR and radius profiles to output_atmfile; runmode =
+    spectrum writes the spectrum to specfile.  runmode = opacity calls
+    Model.compute_opacity() with its default engine, the parity engine,
+    which raises NotImplementedError (ROADMAP.md A11): tabulate with
+    Model(cfg, device).compute_opacity(engine='direct').
     """
     cfg = cfg_parser.parse(cfile, root=root)
     if cfg.runmode not in _RUNMODES:
         raise NotImplementedError(
             f'runmode = {cfg.runmode} is not ported to pyratbay_tpu_torch '
-            'yet (ROADMAP.md A7/A10)'
+            'yet (ROADMAP.md A10)'
         )
     log = Log(
         logname=cfg.logfile, verb=cfg.verb if cfg.verb is not None else 2)
@@ -49,6 +58,29 @@ def run(cfile, device=None, root=None, seed=0):
             cfg.wl_low / pc.u(wl_units), cfg.wl_high / pc.u(wl_units),
             wl_units,
         )
+    elif cfg.runmode == 'atmosphere':
+        result = Model(cfg, device=device, log=log)
+        temp = result.eval_temp()
+        radius = None
+        if result.rmodelname is not None and result.base_vmr is not None:
+            mm = hydro.mean_weight(result._base_vmr, result._mol_mass)
+            radius = result.eval_radius(temp, mm).cpu().numpy()
+        if cfg.output_atmfile is not None:
+            pio.write_atm(
+                cfg.output_atmfile, result.press, temp.cpu().numpy(),
+                result.species, result.base_vmr, radius, punits='bar')
+    elif cfg.runmode == 'spectrum':
+        result = Model(cfg, device=device, log=log)
+        result.run()
+        if cfg.specfile is not None:
+            if result.rt_path in pc.TRANSMISSION_RT:
+                spec_type = 'transit'
+            elif result.rt_path in pc.EMISSION_RT:
+                spec_type = 'emission'
+            else:
+                spec_type = 'eclipse'
+            pio.write_spectrum(1.0 / (np.asarray(result.wn) * pc.um),
+                               result.spectrum, cfg.specfile, spec_type)
     elif cfg.runmode == 'opacity':
         result = Model(cfg, device=device, log=log)
         result.compute_opacity()

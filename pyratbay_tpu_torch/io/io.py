@@ -1,6 +1,6 @@
-"""File formats: atmospheric profiles, opacity tables, CIA tables,
-observations, and species data (the subset the transit retrieval reads
-and writes).
+"""File formats: atmospheric profiles, spectra, opacity tables, CIA
+tables, observations, and species data (the subset the port's run modes
+read and write).
 
 Formats are byte-compatible with the reference framework
 (pyratbay/io/io.py) so users can exchange files between the two.
@@ -14,6 +14,7 @@ from .. import constants as pc
 
 __all__ = [
     'read_atm', 'write_atm',
+    'write_spectrum', 'read_spectrum',
     'read_cs', 'write_cs',
     'read_opacity', 'write_opacity',
     'read_molecs', 'species_properties',
@@ -116,6 +117,48 @@ def write_atm(
             if vmr is not None:
                 row += '  '.join(f'{q:.6e}' for q in vmr[i])
             f.write(row.rstrip() + '\n')
+
+
+# --------------------------------------------------------------------------
+# Spectra (two-column plain text)
+
+_SPEC_TYPES = {
+    'transit': ('(Rp/Rs)**2', 'unitless'),
+    'eclipse': ('Fp/Fs', 'unitless'),
+    'emission': ('Flux', 'erg s-1 cm-2 cm'),
+    'f_lambda': ('Flux', 'W m-2 um-1'),
+    'filter': ('transmission', 'unitless'),
+}
+
+
+def write_spectrum(wl, spectrum, filename, type):
+    """Write a spectrum file: wavelength (um) and signal columns (host
+    numpy arrays)."""
+    if filename is None:
+        return
+    if type not in _SPEC_TYPES:
+        raise ValueError(
+            "Input 'type' argument must be 'transit', 'eclipse', "
+            "'emission', 'f_lambda', or 'filter'"
+        )
+    spectype, specunits = _SPEC_TYPES[type]
+    precision = -np.floor(np.log10(np.amin(np.abs(np.ediff1d(wl)))))
+    precision = int(np.clip(precision + 1, 5, np.inf))
+    buff = precision + 5
+    with open(filename, 'w') as f:
+        f.write(f'# {"Wavelength":>{buff:d}s}   {spectype:>15s}\n')
+        f.write(f"# {'um':>{buff:d}s}   {specunits:>15s}\n")
+        for wave, flux in zip(wl, spectrum):
+            f.write(f'{wave:>{buff+2:d}.{precision:d}f}   {flux:.9e}\n')
+
+
+def read_spectrum(filename, wn=True):
+    """Read a two-column spectrum file; returns (wave, spectrum), the
+    wavelength column (um) as wavenumber (cm-1) if wn is True."""
+    wave, spectrum = np.loadtxt(filename, unpack=True)
+    if wn:
+        wave = 1.0 / (wave * pc.um)
+    return wave, spectrum
 
 
 # --------------------------------------------------------------------------

@@ -1,19 +1,23 @@
-"""Forward-model setup: configuration -> static tables on a device.
+"""Forward model: configuration -> static tables on a device -> spectra.
 
-Port of pyratbay_tpu/model.py for the options the flagship transit
-and eclipse retrievals use: transit and plane-parallel emission
+Port of pyratbay_tpu/model.py for: transit and plane-parallel emission
 geometry (rt_path transit, emission, eclipse, f_lambda) with a
-blackbody star and raygrid or Gauss quadrature, Guillot or isothermal
-T(p), free VMR models with bulk balancing, hydro_m/hydro_g radii, and
-the opacity types line_sample, cia, alkali and cloud (deck,
-lecavelier), and the line-by-line setup (tlifile) with the direct
-tabulation of runmode = opacity, compute_opacity(engine='direct').
-Other options raise NotImplementedError naming their ROADMAP.md item.
+blackbody star and raygrid or Gauss quadrature; isothermal, Guillot or
+Madhusudhan T(p); free VMR models with bulk balancing; hydro_m/hydro_g
+radii; input atmospheres, interpolated onto a calculated pressure grid;
+the opacity types line_sample, cia (files, or the bundled tables by
+basename), alkali, rayleigh (H, H2, He, e-), cloud (deck, ccsgray,
+lecavelier), h_ion and patchy clouds (fpatchy); the line-by-line setup
+(tlifile) with the direct tabulation of runmode = opacity,
+compute_opacity(engine='direct'); and the per-chain forward of runmode
+= spectrum, Model.run, whose spectrum comes from the RT kernels at
+B = 1.  Other options raise NotImplementedError naming their ROADMAP.md
+item.
 
 Setup is host-side numpy, as in the JAX package; `to(device)` turns
 the static tables into tensors (float64 on the CPU, float32 on CUDA).
-The evaluation itself lives in retrieval/forward.py and
-retrieval/batched.py.
+The ensemble evaluation lives in retrieval/forward.py and
+retrieval/batched.py, whose opacity assembly Model.run shares.
 """
 import os
 
@@ -29,9 +33,11 @@ from .ops.grids import wavenumber_grid, WavenumberGrid
 from .atmosphere import geometry, hydro, profiles, vmr as vmr_models
 from .opacity.alkali import get_alkali_model
 from .opacity.cia import CIA
-from .opacity.clouds import Deck, Lecavelier
+from .opacity.clouds import CCSgray, Deck, Lecavelier
+from .opacity.h_ion import HydrogenIon
 from .opacity.lbl import LineByLine
 from .opacity.line_sample import LineSample, wn_mask_tol
+from .opacity.rayleigh import Rayleigh
 from .spectrum import rt
 from .spectrum.emission_kernel import emission_flux_ensemble
 from .spectrum.starspec import bbflux
@@ -87,6 +93,14 @@ class Model:
             wnlow = 1.0 / cfg.wl_high
         if wnhigh is None and cfg.wl_low is not None:
             wnhigh = 1.0 / cfg.wl_low
+        # Atmosphere-only runs need no spectral grid
+        # (pyratbay_tpu/model.py:108-113):
+        if cfg.runmode == 'atmosphere' and wnlow is None \
+                and wnhigh is None and cfg.sampled_cs is None:
+            self.grid = None
+            self.wn = None
+            self.nwave = 0
+            return
         # Inherit the sampling of a cross-section table, except in
         # runmode = opacity, where sampled_cross_sec names the table to
         # be written (pyratbay_tpu/model.py:117-120):
@@ -139,11 +153,26 @@ class Model:
                 'profile (ptfile) or atmospheric file (atmfile)'
             )
         nlayers = len(press)
+        # Read profiles onto a calculated grid (pyratbay_tpu/model.py:
+        # 190-217): T and r slinear in ln p, VMR log-log.
         if calc_press and in_press is not None and (
                 len(in_press) != nlayers or not np.allclose(in_press, press)):
-            raise _not_ported(
-                'Interpolating an input atmosphere onto a calculated '
-                'pressure grid', 'A2')
+            from scipy.interpolate import interp1d
+            logp_in = np.log(in_press)
+            logp = np.log(press)
+            if in_temp is not None:
+                in_temp = interp1d(
+                    logp_in, in_temp, kind='slinear', bounds_error=False,
+                    fill_value=(in_temp[0], in_temp[-1]))(logp)
+            if in_vmr is not None:
+                log_vmr = np.log(in_vmr)
+                in_vmr = np.exp(interp1d(
+                    logp_in, log_vmr, axis=0, kind='slinear',
+                    bounds_error=False,
+                    fill_value=(log_vmr[0], log_vmr[-1]))(logp))
+            if in_radius is not None:
+                in_radius = interp1d(
+                    logp_in, in_radius, kind='slinear')(logp)
 
         species = in_species
         vmr = in_vmr
@@ -179,7 +208,11 @@ class Model:
         self.tpars = None if cfg.tpars is None else np.asarray(cfg.tpars)
         if cfg.tmodelname is not None:
             self.temp_model = profiles.get_tmodel(cfg.tmodelname, self.press)
-            if self.tpars is None and cfg.retrieval_params is None:
+            # runmode = atmosphere may read the profile instead:
+            reads_temp = (
+                cfg.runmode == 'atmosphere' and self.base_temp is not None)
+            if self.tpars is None and cfg.retrieval_params is None \
+                    and not reads_temp:
                 raise ValueError(
                     'Not all temperature parameters were defined (tpars)'
                 )
@@ -368,6 +401,14 @@ class Model:
         if cfg.continuum_cs is not None:
             tmins, tmaxs = [], []
             for cs_file in cfg.continuum_cs:
+                if not os.path.isfile(cs_file):
+                    # The bundled CIA library by basename
+                    # (pyratbay_tpu/model.py:609-617):
+                    from .data import cia_file as bundled_cia
+                    try:
+                        cs_file = bundled_cia(cs_file)
+                    except FileNotFoundError:
+                        pass
                 cia = CIA(cs_file, wn=wn)
                 imol = [species.index(mol) for mol in cia.species]
                 self.opacity_models.append(('cia', cia, imol))
@@ -376,16 +417,16 @@ class Model:
             self.tmin['cia'] = np.amax(tmins)
             self.tmax['cia'] = np.amin(tmaxs)
         if cfg.rayleigh is not None:
-            raise _not_ported('Rayleigh opacity', 'A3')
+            for name in cfg.rayleigh:
+                mol = name.split('_')[1]
+                model = Rayleigh(mol, wn)
+                self.opacity_models.append(
+                    ('rayleigh', model, species.index(mol)))
 
         cloud_names, cloud_pars = cfg_parser.parse_var_vals(cfg.clouds)
+        clouds = {'ccsgray': CCSgray, 'deck': Deck, 'lecavelier': Lecavelier}
         for name, pars in zip(cloud_names, cloud_pars):
-            if name == 'deck':
-                model = Deck(self.press, wn)
-            elif name == 'lecavelier':
-                model = Lecavelier(self.press, wn)
-            else:
-                raise _not_ported(f'Cloud model {name!r}', 'A3')
+            model = clouds[name](self.press, wn)
             if pars is None:
                 model.pars = [np.nan] * model.npars
             else:
@@ -397,9 +438,14 @@ class Model:
                 model.pars = list(np.asarray(pars, float))
             self.opacity_models.append(('cloud', model, None))
         if cfg.h_ion_model is not None:
-            raise _not_ported('H- opacity (h_ion)', 'A3')
-        if cfg.fpatchy is not None:
-            raise _not_ported('Patchy clouds (fpatchy)', 'A5')
+            model = HydrogenIon(wn)
+            imol = [species.index(mol) for mol in model.species]
+            self.opacity_models.append(('h_ion', model, imol))
+
+        self.fpatchy = cfg.fpatchy
+        self.is_patchy = self.fpatchy is not None
+        self.has_deck = any(
+            m.name == 'deck' for _, m, _ in self.opacity_models)
 
     # ------------------------------------------------------------------
     # Tensors
@@ -408,19 +454,16 @@ class Model:
         """Put the static tables on `device` (float64 on the CPU,
         float32 on CUDA); returns self."""
         self.device, self.dtype = resolve(device)
-        tensor = lambda a: torch.as_tensor(
+        tensor = lambda a: None if a is None else torch.as_tensor(
             np.asarray(a, float), dtype=self.dtype, device=self.device)
         self._press = tensor(self.press)
         self._mol_mass = tensor(self.mol_mass)
         self._base_vmr = tensor(self.base_vmr)
-        self._base_temp = (
-            None if self.base_temp is None else tensor(self.base_temp))
-        self._input_radius = (
-            None if self.input_radius is None else tensor(self.input_radius))
+        self._base_temp = tensor(self.base_temp)
+        self._input_radius = tensor(self.input_radius)
         self._log_press = tensor(np.log10(self.press))
         self._wn = tensor(self.wn)
-        self._starflux = (
-            None if self.starflux is None else tensor(self.starflux))
+        self._starflux = tensor(self.starflux)
         if self.bulk is not None:
             self._bulkratio = tensor(self.bulkratio)
             self._invsrat = tensor(self.invsrat)
@@ -507,7 +550,7 @@ class Model:
     # ------------------------------------------------------------------
     # Evaluation pieces shared by the forward builders
 
-    def eval_vmr(self, vmr_par_list, nchains):
+    def eval_vmr_batched(self, vmr_par_list, nchains):
         """Free-VMR evaluation with bulk balancing (the free branch of
         pyratbay_tpu Model._eval_vmr_pure): each entry of vmr_par_list
         is a [B, npars] tensor or None -> vmr [B, l, nspecies]."""
@@ -528,6 +571,198 @@ class Model:
             base, profiles_list, self.ifree, self.ibulk,
             self._bulkratio, self._invsrat,
         )
+
+    # ------------------------------------------------------------------
+    # The per-chain forward (runmode = spectrum), pyratbay_tpu/model.py:
+    # 758-1187, on tensors of the model's device.
+
+    def _tensor(self, a):
+        return torch.as_tensor(
+            np.asarray(a, float) if not torch.is_tensor(a) else a,
+            dtype=self.dtype, device=self.device)
+
+    def model_pars(self):
+        """Current parameters of each opacity model as [npars] tensors
+        (None for a model without parameters)."""
+        return [
+            self._tensor(m.pars) if getattr(m, 'npars', 0) > 0 else None
+            for _, m, _ in self.opacity_models
+        ]
+
+    def eval_temp(self, tpars=None):
+        """Temperature profile [l]: the T(p) model at tpars (or the
+        configured tpars), else the input profile."""
+        if tpars is None:
+            tpars = self.tpars
+        if tpars is not None and self.temp_model is not None:
+            return self.temp_model(self._tensor(tpars)[None])[0]
+        if self._base_temp is None:
+            raise ValueError('No temperature profile available')
+        return self._base_temp
+
+    def eval_vmr(self, vmr_pars=None, temp=None):
+        """Volume mixing ratios [l, nspecies] of the free VMR models at
+        vmr_pars (a list of per-variable parameters, or the configured
+        ones); temp is taken for the reference's signature (only its
+        equilibrium chemistry, not ported, reads it)."""
+        if vmr_pars is None:
+            vmr_pars = self.vmr_pars
+        par_list = None if vmr_pars is None else [
+            None if p is None else self._tensor(p).reshape(1, -1)
+            for p in vmr_pars]
+        return self.eval_vmr_batched(par_list, 1)[0]
+
+    def eval_radius(self, temp, mm, radius=None):
+        """Radius profile [l] (cm) of the radius model, or the input one
+        (None without either)."""
+        if radius is not None:
+            return self._tensor(radius)
+        if self.rmodelname == 'hydro_m':
+            return hydro.hydro_m(self._press, temp[None], mm[None],
+                                 self.mplanet, self.refpressure,
+                                 self.rplanet)[0]
+        if self.rmodelname == 'hydro_g':
+            return hydro.hydro_g(self._press, temp[None], mm[None],
+                                 self.gplanet, self.refpressure,
+                                 self.rplanet)[0]
+        return self._input_radius
+
+    def _operands(self, temp, radius, dens, pars_list, skip):
+        """One chain's extinction sources as the RT kernels' operands at
+        B = 1 (retrieval/batched.py assemble_opacity) and the line-sample
+        table they take."""
+        from .retrieval.batched import assemble_opacity, line_sample_table
+        if pars_list is None:
+            pars_list = self.model_pars()
+        pars = [None if p is None else self._tensor(p).reshape(1, -1)
+                for p in pars_list]
+        ls_tab = line_sample_table(self)
+        return assemble_opacity(self, temp[None], dens[None], radius[None],
+                                pars, ls_tab, skip), ls_tab
+
+    def extinction(self, temp, radius, dens, pars_list=None, skip=()):
+        """The summed extinction of one chain as dense tensors, the
+        reference's diagnostics: (ec [l, W] without the clouds of a
+        patchy model, ec_cloud [l, W] with them, the deck surface triple
+        (itop, rsurf, tsurf) or None).  temp, radius [l]; dens
+        [l, nspecies]."""
+        ops, ls_tab = self._operands(temp, radius, dens, pars_list, skip)
+        return self._summed(ops, ls_tab, temp)
+
+    def _summed(self, ops, ls_tab, temp):
+        from .retrieval.batched import summed_extinction
+        ec, ec_cloud = summed_extinction(self, ops, ls_tab, temp[None])
+        deck = ops['deck']
+        return ec[0], ec_cloud[0], None if deck is None else tuple(
+            v[0] for v in deck)
+
+    def check_temp_bounds(self, temp):
+        """Names of the opacity models whose temperature tables the
+        profile leaves."""
+        temp = torch.as_tensor(temp)
+        tmin, tmax = float(temp.min()), float(temp.max())
+        oob = [name for name, t in self.tmin.items() if tmin < t]
+        oob += [name for name, t in self.tmax.items() if tmax > t]
+        return sorted(set(oob))
+
+    def _rtop(self, radius):
+        """Index of the first layer below the Hill radius (0 without
+        one), a 0-d int64 tensor."""
+        if not np.isfinite(self.rhill):
+            return torch.zeros((), dtype=torch.int64, device=self.device)
+        inside = radius < self.rhill
+        return torch.where(
+            torch.any(inside), torch.argmax(inside.to(torch.int8)),
+            torch.zeros((), dtype=torch.int64, device=self.device))
+
+    def run(self, temp=None, vmr=None, radius=None, skip=(), tpars=None,
+            vmr_pars=None, pars_list=None, fpatchy=None):
+        """Evaluate the forward model of one atmosphere; returns a dict
+        of tensors and stores .spectrum, .depth, .ideep, .clear,
+        .cloudy, .temp, .radius and .vmr as pyratbay_tpu's Model.run.
+
+        The spectrum comes from the RT kernels at B = 1 (on the CPU their
+        plain versions), on the operands the batched forward assembles
+        (retrieval/batched.py assemble_opacity, spectra): one launch of
+        the transit kernel (the counterpart of pyratbay_tpu's
+        transit_spectrum_fused) or of the emission kernel, two for a
+        patchy model.  depth and ideep are diagnostics computed from the
+        summed dense extinction with spectrum/rt.py, as the reference
+        computes them beside its fused kernel.  An out-of-bounds
+        temperature gives a zero spectrum and 'out_of_bounds'.
+        """
+        from .retrieval.batched import spectra
+        temp = self.eval_temp(tpars) if temp is None else self._tensor(temp)
+        oob = self.check_temp_bounds(temp)
+        if oob or bool(torch.any(temp <= 0)):
+            self.spectrum = np.zeros(self.nwave)
+            return {
+                'spectrum': torch.zeros(self.nwave, dtype=self.dtype,
+                                        device=self.device),
+                'out_of_bounds': oob or ['temperature'],
+            }
+        vmr = self.eval_vmr(vmr_pars, temp) if vmr is None \
+            else self._tensor(vmr)
+        dens = hydro.ideal_gas_density(vmr, self._press, temp)
+        mm = hydro.mean_weight(vmr, self._mol_mass)
+        radius = self.eval_radius(temp, mm, radius)
+        rtop = self._rtop(radius)
+        if fpatchy is None:
+            fpatchy = self.fpatchy
+
+        # The spectrum, through the kernels at B = 1:
+        ops, ls_tab = self._operands(temp, radius, dens, pars_list, skip)
+        spectrum, cloudy, clear = spectra(
+            self, ops, temp[None], radius[None], rtop[None], ls_tab,
+            fpatchy)
+        result = {'spectrum': spectrum[0]}
+        if self.is_patchy:
+            result['cloudy'], result['clear'] = cloudy[0], clear[0]
+
+        # The diagnostics, from the same operands summed:
+        ec, ec_cloud, deck = self._summed(ops, ls_tab, temp)
+        ibottom = self.nlayers if deck is None else int(deck[0]) + 1
+        ec_total = ec + ec_cloud if self.is_patchy else ec
+        if self.rt_path in pc.TRANSMISSION_RT:
+            rscale = self._radius_scale
+            path = geometry.transit_path_matrix(
+                radius[None] / rscale, rtop)[0] * rscale
+            depth_fn = lambda e, bottom: rt.transit_depth(
+                e, path, self.maxdepth, rtop, bottom)
+        else:
+            depth_fn = lambda e, bottom: rt.plane_parallel_depth(
+                e, radius, self.maxdepth, rtop, bottom)
+        result['depth'], result['ideep'] = depth_fn(ec_total, ibottom)
+        if deck is not None and self.rt_path not in pc.TRANSMISSION_RT:
+            result['ideep'] = torch.clamp(result['ideep'], 0, int(deck[0]))
+        if self.is_patchy and self.rt_path in pc.TRANSMISSION_RT:
+            result['depth_clear'], result['ideep_clear'] = depth_fn(
+                ec, self.nlayers)
+
+        # Eclipse: Fp/Fs scaled by (Rp/Rs)^2 (pyratbay_tpu/model.py:
+        # 1142-1156):
+        if self.rt_path in pc.ECLIPSE_RT:
+            if self._starflux is None:
+                raise ValueError(
+                    'Undefined stellar flux model, required for eclipse')
+            fstar_rprs = (self.rplanet / self.rstar)**2 / self._starflux
+            result['fplanet'] = result['spectrum']
+            for key in ('spectrum', 'clear', 'cloudy'):
+                if key in result:
+                    result[key] = result[key] * fstar_rprs
+
+        host = lambda key: None if key not in result \
+            else result[key].cpu().numpy()
+        self.spectrum = host('spectrum')
+        self.clear = host('clear')
+        self.cloudy = host('cloudy')
+        self.depth = result['depth']
+        self.ideep = result['ideep']
+        self.temp = temp.cpu().numpy()
+        self.radius = None if radius is None else radius.cpu().numpy()
+        self.vmr = vmr.cpu().numpy()
+        self.log.msg(f'Forward model done on {self.device}')
+        return result
 
     def _run_emission(self, ec_parts, temp, radius, rtop, deck_surface=None,
                       cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None,

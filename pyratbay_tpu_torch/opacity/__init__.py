@@ -1,5 +1,7 @@
-"""Opacity sources of the transit slice: line-sampled cross sections,
-CIA, alkali (van der Waals) lines, and clouds (deck, Lecavelier haze).
+"""Opacity sources: line-sampled cross sections, CIA, alkali (van der
+Waals) lines, Rayleigh scattering, H- bound-free/free-free, clouds
+(deck, gray, Lecavelier haze), and the line-by-line engine of the
+opacity tables.
 
 Setup is host-side numpy (mirroring pyratbay_tpu.opacity); `to(device,
 dtype)` materializes the static tables as tensors for the forward.

@@ -1,8 +1,10 @@
-"""Cloud and haze models: opaque deck and power-law (Lecavelier) haze.
+"""Cloud and haze models: opaque deck, constant-gray cloud and
+power-law (Lecavelier) haze.
 
 Port of pyratbay_tpu/opacity/clouds.py.  Parameters arrive per chain
-([B, npars]); the haze ships to the transit kernel as a rank-1 (layer
-column, wave row) pair instead of a dense [B, l, nwave] buffer.
+([B, npars]); the haze and the gray cloud ship to the RT kernels as
+rank-1 (layer column, wave row) pairs instead of dense [B, l, nwave]
+buffers, except in a patchy model, whose clear spectrum leaves them out.
 """
 import numpy as np
 import torch
@@ -10,7 +12,7 @@ import torch
 from .. import constants as pc
 from ..ops.interp import interp
 
-__all__ = ['Lecavelier', 'Deck']
+__all__ = ['Lecavelier', 'CCSgray', 'Deck']
 
 _S0 = 5.31e-27   # H2 Rayleigh cross section at 0.35 um (cm2 molec-1)
 _L0 = 3.5e-5     # Nominal wavelength (cm)
@@ -49,6 +51,41 @@ class Lecavelier:
         """(layer column [B, l], wave row [B, nwave]) factors of the EC."""
         density = self._press * pc.bar / temperature / pc.k
         return density, self.cross_section(pars)
+
+
+class CCSgray:
+    """Constant (gray) cross-section cloud between two pressure levels.
+    pars = [log_k_gray, log_p_top, log_p_bot] (pressures in bar)."""
+
+    def __init__(self, pressure, wn):
+        self.name = 'ccsgray'
+        self.pressure = np.asarray(pressure)
+        self.wn = np.asarray(wn)
+        self.pars = [0.0, -4.0, 2.0]
+        self.npars = 3
+        self.pnames = ['log_k_gray', 'log_p_top', 'log_p_bot']
+        self.mol = None
+
+    def to(self, device, dtype):
+        self._press = torch.as_tensor(
+            self.pressure, dtype=dtype, device=device)
+        self._ones = torch.ones(len(self.wn), dtype=dtype, device=device)
+        return self
+
+    def extinction(self, temperature, pars):
+        """EC (cm-1) [B, l, nwave]."""
+        col, row = self.ec_rank1(temperature, pars)
+        return col[:, :, None] * row[:, None, :]
+
+    def ec_rank1(self, temperature, pars):
+        """(layer column [B, l], wave row [B, nwave] of ones) factors."""
+        press = self._press
+        in_cloud = (press >= 10.0 ** pars[:, 1:2]) \
+            & (press <= 10.0 ** pars[:, 2:3])
+        cs = torch.where(in_cloud, 10.0 ** pars[:, :1] * _S0,
+                         torch.zeros_like(temperature))
+        density = press * pc.bar / temperature / pc.k
+        return cs * density, self._ones.expand(temperature.shape[0], -1)
 
 
 class Deck:

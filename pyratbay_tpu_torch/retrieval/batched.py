@@ -4,22 +4,33 @@ Port of the transit and plane-parallel emission branches of
 pyratbay_tpu/retrieval/batched.py with one layout for the card: dense
 extinction parts are [B, l, W].
 
-* state (T, VMR, densities, radius) for the whole ensemble at once
-  (retrieval/forward.py build_state);
+* state (T, VMR, densities, radius, patchy fraction) for the whole
+  ensemble at once (retrieval/forward.py build_state);
 * line-sampled opacity: per-chain layer weights [B, K2, l] contracted
   in the kernel against the table [K2, l, W] when the table's wave-tile
   slab fits the kernel's shared memory (transit_kernel.ls_in_kernel, a
   static size rule), else one einsum that makes a dense part;
 * CIA: per-layer table weights [B, l, K], contracted in the kernel;
-* Lecavelier haze: a rank-1 (layer column, wave row) pair per chain;
-* alkali lines with no on-grid support are pruned statically;
+* Rayleigh (H, H2, He, e-), the Lecavelier haze and the gray cloud:
+  rank-1 (layer column, wave row) pairs per chain; in a patchy model
+  the clouds are dense parts kept apart from the gas;
+* H- and active alkali lines: one elementwise dense part; alkali lines
+  with no on-grid support are pruned statically;
 * deck: the surface triple that bounds the integration;
+* the size rule transit_kernel.fit_operands keeps the operands within
+  what the kernels take (rank-1 terms, CIA rows, dense parts);
 * transit RT: one launch of the ensemble kernel
   (spectrum/transit_kernel.py) on CUDA, its plain version on the CPU;
 * emission/eclipse RT: one launch of the emission kernel
   (spectrum/emission_kernel.py), then the post-scalings: f_dilution,
   the eclipse's / starflux * (Rp/Rs)^2 and the f_lambda flux at Earth;
+* patchy clouds: a second launch for the clear spectrum (no cloud
+  parts, no deck, bottom at nlayers), mixed as
+  f_patchy * cloudy + (1 - f_patchy) * clear;
 * band integration: one [B, W] x [W, nbands] product.
+
+Model.run takes the same assembly (assemble_opacity, spectra) at
+B = 1.
 
 Float32 CUDA matmuls run in full float32: the TF32 switch
 (torch.backends.cuda.matmul.allow_tf32) is set to False when a CUDA
@@ -32,9 +43,155 @@ from .forward import build_state
 from .. import constants as pc
 from ..atmosphere import vmr as vmr_models
 from ..ops.planck import blackbody_wn
-from ..spectrum.transit_kernel import ls_in_kernel
+from ..spectrum.transit_kernel import (
+    extinction_plain, fit_operands, ls_in_kernel,
+)
 
-__all__ = ['build_forward_batched', 'build_log_posterior_batched']
+__all__ = ['build_forward_batched', 'build_log_posterior_batched',
+           'line_sample_table', 'assemble_opacity', 'summed_extinction',
+           'spectra']
+
+
+def line_sample_table(model):
+    """The RT kernels' ls_tab operand [K2, l, W] when the line-sample
+    tables go into the kernels (ls_in_kernel, a static size rule on the
+    model's shapes), else None: all line-sample tables go in, or none."""
+    ls_models = [m for mtype, m, _ in model.opacity_models
+                 if mtype == 'line_sample']
+    if ls_models and ls_in_kernel(
+            sum(m.nspec * m.ntemp for m in ls_models), model.nlayers):
+        return torch.cat([m.kernel_table for m in ls_models])
+    return None
+
+
+def assemble_opacity(model, temp, dens, radius, pars_list, ls_tab,
+                     skip=()):
+    """The extinction sources of B chains as RT-kernel operands.
+
+    temp, radius [B, l]; dens [B, l, nspecies]; pars_list: per opacity
+    model [B, npars] or None; ls_tab from line_sample_table; skip: names
+    or types of the models to leave out, or species of a line-sample
+    table (pyratbay_tpu Model.extinction's skip).  Returns a dict of
+    operand lists: parts (dense gas parts: line-sample einsums, then the
+    elementwise sum of alkali and H-), r1_cols / r1_rows, cia_ws /
+    cia_tabs, ls_ws, cloud (a patchy model's clouds, summed into one
+    dense part) and deck (the surface triple, or None).
+    """
+    parts, cloud = [], []
+    r1_cols, r1_rows = [], []
+    cia_ws, cia_tabs = [], []
+    ls_ws = []
+    elem = None
+    deck = None
+    for (mtype, m, imol), pars in zip(model.opacity_models, pars_list):
+        if m.name in skip or mtype in skip:
+            continue
+        if m.name == 'deck':
+            deck = m.surface(radius, temp, pars)
+            continue
+        if mtype == 'line_sample':
+            density = dens[:, :, imol]
+            if skip:
+                keep = [mol not in skip for mol in m.species]
+                density = density * torch.as_tensor(
+                    keep, dtype=dens.dtype, device=dens.device)
+            if ls_tab is not None:
+                ls_ws.append(m.kernel_weights(temp, density, pars))
+            else:
+                parts.append(m.extinction(temp, density, pars))
+            continue
+        if mtype == 'cia':
+            cia_ws.append(m.kernel_weights(temp, dens[:, :, imol]))
+            cia_tabs.append(m._tab)
+            continue
+        if mtype == 'rayleigh':
+            col, row = m.ec_rank1(dens[:, :, imol])
+        elif mtype == 'cloud' and not model.is_patchy:
+            col, row = m.ec_rank1(temp, pars)
+        elif mtype == 'cloud':
+            cloud.append(m.extinction(temp, pars))
+            continue
+        elif mtype == 'alkali':
+            if not m.active_lines:
+                # Every line's cutoff window is off this grid: the
+                # contribution is exactly zero.
+                continue
+            contrib = m.extinction(temp, dens[:, :, imol])
+            elem = contrib if elem is None else elem + contrib
+            continue
+        elif mtype == 'h_ion':
+            contrib = m.extinction(
+                temp, dens[:, :, imol[0]], dens[:, :, imol[1]])
+            elem = contrib if elem is None else elem + contrib
+            continue
+        else:
+            raise ValueError(f'Unsupported opacity type {mtype}')
+        r1_cols.append(col)
+        r1_rows.append(row)
+    if elem is not None:
+        parts.append(elem)
+    if len(cloud) > 1:
+        total = cloud[0]
+        for extra in cloud[1:]:
+            total = total + extra
+        cloud = [total]
+    return dict(parts=parts, r1_cols=r1_cols, r1_rows=r1_rows,
+                cia_ws=cia_ws, cia_tabs=cia_tabs, ls_ws=ls_ws, cloud=cloud,
+                deck=deck)
+
+
+def _shared_operands(ops, ls_tab):
+    """The operands other than the dense parts, joined across sources."""
+    return dict(
+        cia_w=torch.cat(ops['cia_ws'], dim=2) if ops['cia_ws'] else None,
+        cia_tab=torch.cat(ops['cia_tabs'], dim=0) if ops['cia_tabs'] else None,
+        r1_cols=torch.stack(ops['r1_cols'], dim=1) if ops['r1_cols'] else None,
+        r1_rows=torch.stack(ops['r1_rows'], dim=1) if ops['r1_rows'] else None,
+        ls_w=torch.cat(ops['ls_ws'], dim=1) if ops['ls_ws'] else None,
+        ls_tab=ls_tab if ops['ls_ws'] else None,
+    )
+
+
+def summed_extinction(model, ops, ls_tab, like):
+    """The assembled operands summed into dense extinctions [B, l, W]
+    (transit_kernel.extinction_plain): the gas's, and the clouds' of a
+    patchy model (zero otherwise).  like [B, l] gives the batch, dtype
+    and device."""
+    zero = torch.zeros((*like.shape, model.nwave), dtype=like.dtype,
+                       device=like.device)
+    ec = extinction_plain(ops['parts'] or [zero], **_shared_operands(
+        ops, ls_tab), like=like)
+    return ec, ops['cloud'][0] if ops['cloud'] else zero
+
+
+def spectra(model, ops, temp, radius, rtop, ls_tab, fpatchy=None):
+    """The RT of B chains on assembled operands: one kernel launch, or
+    two for a patchy model (the clear spectrum has no cloud parts, no
+    deck and its bottom at nlayers).  Returns (spectrum, cloudy, clear)
+    [B, W], the last two None unless the model is patchy; emission
+    fluxes before their post-scalings."""
+    shared = _shared_operands(ops, ls_tab)
+
+    def launch(parts, deck):
+        if not parts and all(v is None for v in shared.values()):
+            parts = [torch.zeros((*temp.shape, model.nwave),
+                                 dtype=temp.dtype, device=temp.device)]
+        operands = fit_operands(parts, **shared)
+        if model.rt_path in pc.TRANSMISSION_RT:
+            return model._run_transit(
+                radius=radius, rtop=rtop, deck_surface=deck, **operands)
+        return model._run_emission(
+            temp=temp, radius=radius, rtop=rtop, deck_surface=deck,
+            **operands)
+
+    spectrum = launch(ops['parts'] + ops['cloud'], ops['deck'])
+    if not model.is_patchy:
+        return spectrum, None, None
+    cloudy = spectrum
+    clear = launch(ops['parts'], None)
+    fp = torch.as_tensor(0.0 if fpatchy is None else fpatchy,
+                         dtype=temp.dtype, device=temp.device).reshape(-1, 1)
+    return fp * cloudy + (1.0 - fp) * clear, cloudy, clear
 
 
 def build_forward_batched(model, obs=None, ret=None):
@@ -63,74 +220,18 @@ def build_forward_batched(model, obs=None, ret=None):
     has_bands = obs is not None and obs.nbands > 0
     if has_bands:
         obs.to(dev, dt)
-    # All line-sample tables go into the kernel, or none:
-    ls_models = [m for mtype, m, _ in model.opacity_models
-                 if mtype == 'line_sample']
-    ls_fused = bool(ls_models) and ls_in_kernel(
-        sum(m.nspec * m.ntemp for m in ls_models), model.nlayers)
-    ls_tab = torch.cat([m.kernel_table for m in ls_models]) \
-        if ls_fused else None
+    ls_tab = line_sample_table(model)
 
     def forward_b(params_b=None):
         if params_b is not None:
             params_b = torch.as_tensor(params_b, dtype=dt, device=dev)
         st = state(params_b)
         temp = st['temp']
-        dens = st['dens']
-        radius = st['radius']
-        nb = temp.shape[0]
-
-        parts = []
-        r1_cols, r1_rows = [], []
-        cia_ws, cia_tabs = [], []
-        ls_ws = []
-        elem = None
-        deck_surface = None
-        for (mtype, m, imol), pars in zip(
-                model.opacity_models, st['pars_list']):
-            if m.name == 'deck':
-                deck_surface = m.surface(radius, temp, pars)
-                continue
-            if mtype == 'line_sample':
-                if ls_fused:
-                    ls_ws.append(
-                        m.kernel_weights(temp, dens[:, :, imol], pars))
-                else:
-                    parts.append(m.extinction(temp, dens[:, :, imol], pars))
-            elif mtype == 'cia':
-                cia_ws.append(m.kernel_weights(temp, dens[:, :, imol]))
-                cia_tabs.append(m._tab)
-            elif mtype == 'alkali':
-                if not m.active_lines:
-                    # Every line's cutoff window is off this grid: the
-                    # contribution is exactly zero.
-                    continue
-                contrib = m.extinction(temp, dens[:, :, imol])
-                elem = contrib if elem is None else elem + contrib
-            elif mtype == 'cloud':
-                col, row = m.ec_rank1(temp, pars)
-                r1_cols.append(col)
-                r1_rows.append(row)
-            else:
-                raise ValueError(f'Unsupported opacity type {mtype}')
-        if elem is not None:
-            parts.append(elem)
-
-        kernel_operands = dict(
-            cia_w=torch.cat(cia_ws, dim=2) if cia_ws else None,
-            cia_tab=torch.cat(cia_tabs, dim=0) if cia_tabs else None,
-            r1_cols=torch.stack(r1_cols, dim=1) if r1_cols else None,
-            r1_rows=torch.stack(r1_rows, dim=1) if r1_rows else None,
-            ls_w=torch.cat(ls_ws, dim=1) if ls_ws else None,
-            ls_tab=ls_tab,
-        )
-        if is_transit:
-            spectrum = model._run_transit(
-                parts, radius, st['rtop'], deck_surface, **kernel_operands)
-        else:
-            spectrum = model._run_emission(
-                parts, temp, radius, st['rtop'], deck_surface,
-                **kernel_operands)
+        ops = assemble_opacity(
+            model, temp, st['dens'], st['radius'], st['pars_list'], ls_tab)
+        spectrum, _, _ = spectra(model, ops, temp, st['radius'], st['rtop'],
+                                 ls_tab, st['fpatchy'])
+        if not is_transit:
             spectrum = _emission_scalings(
                 model, spectrum, st, retrieve_tstar)
 

@@ -2,7 +2,9 @@
 -> batched posterior -> DEMC -> best-fit spectrum -> results .npz.
 
 Port of pyratbay_tpu/retrieval/driver.py::run_retrieval for the DEMC
-(snooker) sampler.  Checkpoint/resume, history thinning, the nested
+(snooker) sampler.  Like the reference, the posterior keeps every
+generation after the burn-in: `thinning` is read by neither.
+Checkpoint/resume, history thinning, the nested
 sampler and the post-processing plots and envelopes are not ported
 yet (ROADMAP.md A6).
 """
@@ -56,8 +58,7 @@ def run_retrieval(model, seed=0):
         results = sample_demc(
             log_post_b, ret.params, nsamples=nsamples, generator=generator,
             nchains=nchains, pstep=ret.pstep, pmin=ret.pmin, pmax=ret.pmax,
-            burnin=burnin_gens, thin=ret.thinning,
-            dtype=model.dtype, device=model.device,
+            burnin=burnin_gens, dtype=model.dtype, device=model.device,
         )
         forward = build_forward(model, obs, ret)
         best = forward(torch.as_tensor(results['bestp']))

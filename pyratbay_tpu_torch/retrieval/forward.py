@@ -19,8 +19,9 @@ def build_state(model, ret=None):
 
     Same mapping as pyratbay_tpu forward.state (forward.py:124-217):
     parameters overwrite the T(p), VMR and opacity-model slots, the
-    planet's radius, mass and reference pressure, the emission's
-    dilution factor and the star's temperature.
+    planet's radius, mass and reference pressure, the patchy-cloud
+    fraction, the emission's dilution factor and the star's
+    temperature.
     """
     if (ret is not None and ret.itstar is not None
             and model.rt_path in pc.ECLIPSE_RT
@@ -57,6 +58,7 @@ def build_state(model, ret=None):
         rplanet = model.rplanet
         mplanet = model.mplanet
         refpress = model.refpressure
+        fpatchy = model.fpatchy
         f_dilution = model.cfg.f_dilution
         tstar = model.tstar
 
@@ -85,23 +87,23 @@ def build_state(model, ret=None):
                 mplanet = params[:, ret.imass] * mass_units
             if ret.ipress is not None:
                 refpress = 10.0 ** params[:, ret.ipress]
+            if ret.ipatchy is not None:
+                fpatchy = params[:, ret.ipatchy]
             if ret.idilut is not None:
                 f_dilution = params[:, ret.idilut]
             if ret.itstar is not None:
                 tstar = params[:, ret.itstar]
-            for name, item in (('ipatchy', 'A5 (patchy clouds)'),
-                               ('irv', 'A8 (high-res channel)')):
-                if getattr(ret, name, None) is not None:
-                    raise NotImplementedError(
-                        f'Retrieval parameter slot {name} is not ported yet '
-                        f'(ROADMAP.md {item})'
-                    )
+            if getattr(ret, 'irv', None) is not None:
+                raise NotImplementedError(
+                    'Retrieval parameter slot irv is not ported yet '
+                    '(ROADMAP.md A8 (high-res channel))'
+                )
 
         if tpars is not None and model.temp_model is not None:
             temp = model.temp_model(tpars)
         else:
             temp = model._base_temp.expand(nb, -1)
-        vmr = model.eval_vmr(vmr_par_list, nb)
+        vmr = model.eval_vmr_batched(vmr_par_list, nb)
         press = model._press
         dens = hydro.ideal_gas_density(vmr, press, temp)
         mm = hydro.mean_weight(vmr, model._mol_mass)
@@ -124,7 +126,8 @@ def build_state(model, ret=None):
         return {
             'params': params, 'tpars': tpars, 'vmr_par_list': vmr_par_list,
             'pars_list': pars_list, 'rplanet': rplanet, 'mplanet': mplanet,
-            'refpress': refpress, 'f_dilution': f_dilution, 'tstar': tstar,
+            'refpress': refpress, 'fpatchy': fpatchy,
+            'f_dilution': f_dilution, 'tstar': tstar,
             'temp': temp, 'vmr': vmr, 'dens': dens,
             'mm': mm, 'radius': radius, 'rtop': rtop,
         }

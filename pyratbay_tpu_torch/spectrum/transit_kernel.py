@@ -13,7 +13,12 @@ Like the Pallas kernel it takes the line-sampled opacity either as a
 dense [B, l, W] part or as the operands ls_w [B, K2, l] and ls_tab
 [K2, l, W], contracted inside the kernel against a table slab held in
 shared memory; `ls_in_kernel` is the static size rule by which the
-batched forward picks between the two.
+forwards pick between the two, and `fit_operands` the one that keeps the
+other operands within what the kernels take (C5 of ROADMAP.md).
+
+Above 64 layers the kernel launched is a second function of the same
+file (transit_rt_tall_kernel, one lane a column with the chord matrix in
+shared memory), which takes no line sample.
 
 `transit_spectrum_ensemble` prepares the per-chain operands in torch
 (the pair-sum fold of the chord matrix and prep_chain's scalars and
@@ -36,14 +41,20 @@ import torch.nn.functional as F
 __all__ = [
     'transit_spectrum_ensemble', 'transit_spectrum_fused', 'prep_chains',
     'transit_rt_plain', 'transit_rt_cuda', 'build_library', 'ls_in_kernel',
-    'extinction_plain', 'assembly_operands', 'chord_layout',
+    'fit_operands', 'extinction_plain', 'assembly_operands', 'chord_layout',
+    'MAX_PARTS', 'MAX_R1', 'MAX_CIA', 'MAX_LAYERS',
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
 _BUILD = os.path.join(_PKG, '_build')
-_MAX_PARTS = 4
-_MAX_R1 = 4
+# What both RT kernels take (csrc/rt_common.cuh): dense parts, rank-1
+# terms, CIA table rows; and the layer count of the transit kernel's
+# register-held chord product (above it, the tall function).
+MAX_PARTS = 4
+MAX_R1 = 4
+MAX_CIA = 32
+MAX_LAYERS = 64
 # The kernels hold the line-sample table of one 64-column wave tile in
 # shared memory; a slab up to this size leaves room for the warps'
 # own operands beside it (232,448 bytes a block in all).
@@ -58,10 +69,51 @@ NVCC_FLAGS = [
 def ls_in_kernel(n_k, nlayers):
     """Whether a line-sample table of n_k (species x temperature) rows
     by nlayers goes into the RT kernels as ls_w / ls_tab (its wave-tile
-    slab fits the shared memory) or stays a dense part made by an
+    slab fits the shared memory, and the layers fit the transit kernel's
+    register-held chord product) or stays a dense part made by an
     einsum.  On an NVIDIA H100 the in-kernel route measured faster for
     both kernels (PERF.md), so it is taken whenever the slab fits."""
-    return n_k * nlayers * LS_TILE * 4 <= LS_SLAB_MAX
+    return (nlayers <= MAX_LAYERS
+            and n_k * nlayers * LS_TILE * 4 <= LS_SLAB_MAX)
+
+
+def fit_operands(ec_parts, cia_w=None, cia_tab=None, r1_cols=None,
+                 r1_rows=None, ls_w=None, ls_tab=None):
+    """The extinction operands as the RT kernels take them, by a static
+    rule on their shapes (which a model fixes when its forward is built;
+    no launch is tried):
+
+    * rank-1 terms beyond MAX_R1 are summed into the last dense part
+      (the elementwise one of the forwards), or become a dense part;
+    * CIA table rows beyond MAX_CIA become a dense [B, l, W] part
+      through one product, as the JAX package's XLA route makes its CIA
+      parts;
+    * dense parts beyond MAX_PARTS are summed in torch into the last.
+
+    The line sample is decided apart, by `ls_in_kernel`.  Returns the
+    keyword operands of transit_spectrum_ensemble and
+    emission_flux_ensemble (ec_parts, cia_w, cia_tab, r1_cols, r1_rows,
+    ls_w, ls_tab), whose sum equals that of the input.
+    """
+    parts = list(ec_parts)
+    if r1_cols is not None and r1_cols.shape[1] > MAX_R1:
+        extra = torch.einsum('brl,brw->blw', r1_cols[:, MAX_R1:],
+                             r1_rows[:, MAX_R1:])
+        if parts:
+            parts[-1] = parts[-1] + extra
+        else:
+            parts.append(extra)
+        r1_cols, r1_rows = r1_cols[:, :MAX_R1], r1_rows[:, :MAX_R1]
+    if cia_w is not None and cia_w.shape[2] > MAX_CIA:
+        parts.append(cia_w[:, :, MAX_CIA:] @ cia_tab[MAX_CIA:])
+        cia_w, cia_tab = cia_w[:, :, :MAX_CIA], cia_tab[:MAX_CIA]
+    if len(parts) > MAX_PARTS:
+        rest = parts[MAX_PARTS - 1]
+        for part in parts[MAX_PARTS:]:
+            rest = rest + part
+        parts = parts[:MAX_PARTS - 1] + [rest]
+    return dict(ec_parts=parts, cia_w=cia_w, cia_tab=cia_tab,
+                r1_cols=r1_cols, r1_rows=r1_rows, ls_w=ls_w, ls_tab=ls_tab)
 
 
 def _nvcc():
@@ -140,9 +192,15 @@ def _library():
         assembly + [ptr] * 3 + [fptr, fptr, cint, cfloat, cfloat, ptr]
         + [cint] * 5 + [cfloat, ptr])
     lib.pbt_emission_rt.restype = cint
+    lib.pbt_transit_rt_tall.argtypes = (
+        [ptr] * 4 + [cint] + [ptr, cint] + [ptr, ptr, cint] + [ptr] * 4
+        + [cint] * 5 + [cfloat, ptr])
+    lib.pbt_transit_rt_tall.restype = cint
     for fn in (lib.pbt_transit_rt_warps, lib.pbt_emission_rt_warps):
         fn.argtypes = [cint] * 5
         fn.restype = cint
+    lib.pbt_transit_rt_tall_warps.argtypes = [cint] * 4
+    lib.pbt_transit_rt_tall_warps.restype = cint
     lib.pbt_emission_rt_max_mu.argtypes = []
     lib.pbt_emission_rt_max_mu.restype = cint
     return lib
@@ -301,20 +359,20 @@ def assembly_operands(ec_parts, cia_w, cia_tab, r1_cols, r1_rows, ls_w,
     leading C arguments, rank-1 columns [B, n_r1, l] or None, nwave,
     (n_r1, n_cia, n_ls, n_parts))."""
     nwave = _nwave(ec_parts, r1_rows, cia_tab, ls_tab)
-    if len(ec_parts) > _MAX_PARTS:
-        raise ValueError(f'At most {_MAX_PARTS} dense extinction parts')
+    if len(ec_parts) > MAX_PARTS:
+        raise ValueError(f'At most {MAX_PARTS} dense extinction parts')
     parts = [_checked(p, 'ec_part', (nb, nlayers, nwave)) for p in ec_parts]
     n_r1 = n_cia = n_ls = 0
     if r1_cols is not None:
         n_r1 = r1_cols.shape[1]
-        if n_r1 > _MAX_R1:
-            raise ValueError(f'At most {_MAX_R1} rank-1 extinction terms')
+        if n_r1 > MAX_R1:
+            raise ValueError(f'At most {MAX_R1} rank-1 extinction terms')
         r1_cols = _checked(r1_cols, 'r1_cols', (nb, n_r1, nlayers))
         r1_rows = _checked(r1_rows, 'r1_rows', (nb, n_r1, nwave))
     if cia_w is not None:
         n_cia = cia_w.shape[2]
-        if n_cia > 32:
-            raise ValueError('At most 32 CIA table rows')
+        if n_cia > MAX_CIA:
+            raise ValueError(f'At most {MAX_CIA} CIA table rows')
         cia_w = _pad_to(_checked(cia_w, 'cia_w', (nb, nlayers, n_cia)),
                         rows, 16 if n_cia <= 16 else 32)
         cia_tab = _checked(cia_tab, 'cia_tab', (n_cia, nwave))
@@ -326,7 +384,7 @@ def assembly_operands(ec_parts, cia_w, cia_tab, r1_cols, r1_rows, ls_w,
         ls_tab = _checked(ls_tab, 'ls_tab', (n_ls, nlayers, nwave))
     ptr = lambda t: None if t is None else t.data_ptr()
     part_ptrs = [p.data_ptr() for p in parts] + [None] * (
-        _MAX_PARTS - len(parts))
+        MAX_PARTS - len(parts))
     args = [*part_ptrs, len(parts), ptr(r1_rows), n_r1,
             ptr(cia_w), ptr(cia_tab), n_cia, ptr(ls_w), ptr(ls_tab), n_ls]
     keep = (parts, r1_rows, cia_w, cia_tab, ls_w, ls_tab)
@@ -341,9 +399,10 @@ def chord_layout(nlayers):
     of layer j holds path2[i, j] for the rows i from the first of j's
     chunk to the padded last (the matrix is zero above its diagonal, so
     the rows above add nothing)."""
-    if not 2 <= nlayers <= 64:
+    if not 2 <= nlayers <= MAX_LAYERS:
         raise ValueError(
-            f'The transit kernel takes 2 to 64 layers, not {nlayers}')
+            f'The register-held chord product takes 2 to {MAX_LAYERS} '
+            f'layers, not {nlayers}')
     nl4 = 8 if nlayers <= 32 else 13 if nlayers <= 52 else 16
     index = []
     for j in range(4 * nl4):
@@ -364,9 +423,14 @@ def transit_rt_cuda(ec_parts, path2, scal, rad, h, hprev,
                     ls_w=None, ls_tab=None, maxdepth=np.inf):
     """Launch the CUDA kernel on prepared float32 CUDA operands (same
     signature and result as transit_rt_plain).  Each launch adds one
-    to `transit_rt_cuda.launches`, and one with a single chain also to
-    `transit_rt_cuda.single_chain_launches`."""
+    to `transit_rt_cuda.launches`, one with a single chain also to
+    `transit_rt_cuda.single_chain_launches`, and one of the tall
+    function (more than MAX_LAYERS layers) to
+    `transit_rt_cuda.tall_launches`."""
     nb, nlayers = rad.shape
+    if nlayers > MAX_LAYERS:
+        return _transit_rt_tall(ec_parts, path2, scal, rad, h, hprev, cia_w,
+                                cia_tab, r1_cols, r1_rows, ls_w, maxdepth)
     nl4, index = _chord_index(nlayers, rad.device)
     keep, assembly, r1_cols, nwave, sizes = assembly_operands(
         ec_parts, cia_w, cia_tab, r1_cols, r1_rows, ls_w, ls_tab, nb,
@@ -402,9 +466,80 @@ def transit_rt_cuda(ec_parts, path2, scal, rad, h, hprev,
     return out
 
 
+@functools.lru_cache(maxsize=8)
+def _tri_index(nlayers, device):
+    """The gather that packs path2 [l * l] as its lower triangle (row i:
+    columns 0 .. i), zero-padded by one trailing float to a multiple of
+    4, as the tall function stages it."""
+    index = [i * nlayers + j for i in range(nlayers) for j in range(i + 1)]
+    index += [nlayers * nlayers] * (-len(index) % 4)
+    return torch.as_tensor(index, device=device)
+
+
+def tall_max_layers(n_r1, n_cia, n_parts):
+    """The most layers the tall function takes with these operand
+    counts: one chain's triangle and columns must fit a block's shared
+    memory."""
+    lib = _library()
+    top = MAX_LAYERS
+    while lib.pbt_transit_rt_tall_warps(top + 1, n_r1, n_cia, n_parts) > 0:
+        top += 1
+    return top
+
+
+def _transit_rt_tall(ec_parts, path2, scal, rad, h, hprev, cia_w, cia_tab,
+                     r1_cols, r1_rows, ls_w, maxdepth):
+    """transit_rt_cuda above MAX_LAYERS layers: the tall function, the
+    chord matrix as a packed lower triangle in shared memory."""
+    nb, nlayers = rad.shape
+    if ls_w is not None:
+        raise ValueError(
+            f'Above {MAX_LAYERS} layers the transit kernel takes no '
+            'line-sample operands: pass the line sample as a dense part '
+            '(ls_in_kernel)')
+    rows = -(-nlayers // 4) * 4
+    keep, assembly, r1_cols, nwave, sizes = assembly_operands(
+        ec_parts, cia_w, cia_tab, r1_cols, r1_rows, None, None, nb,
+        nlayers, rows)
+    n_r1, n_cia, _, n_parts = sizes
+    lib = _library()
+    if lib.pbt_transit_rt_tall_warps(nlayers, n_r1, n_cia, n_parts) < 1:
+        raise ValueError(
+            f'The transit kernel takes at most '
+            f'{tall_max_layers(n_r1, n_cia, n_parts)} layers with {n_r1} '
+            f'rank-1 terms, {n_cia} CIA rows and {n_parts} dense parts, '
+            f'not {nlayers}: one chain\'s chord matrix and extinction '
+            'columns must fit the shared memory of one block')
+    path2 = _checked(path2, 'path2', (nb, nlayers, nlayers))
+    tri = F.pad(path2.reshape(nb, -1), (0, 1))[
+        :, _tri_index(nlayers, rad.device)].contiguous()
+    scal = _checked(scal, 'scal', (nb, 8))
+    cols = [_checked(t, name, (nb, nlayers))[:, None] for t, name in (
+        (rad, 'radius'), (h, 'h'), (hprev, 'hprev'))]
+    if r1_cols is not None:
+        cols.append(r1_cols)
+    cols = _pad_to(torch.cat(cols, dim=1), rows)
+    out = torch.empty((nb, nwave), dtype=torch.float32, device=rad.device)
+    err = lib.pbt_transit_rt_tall(
+        *assembly[:10], tri.data_ptr(), cols.data_ptr(), scal.data_ptr(),
+        out.data_ptr(), nb, nlayers, nwave, tri.shape[1], cols.shape[1],
+        float(maxdepth), torch.cuda.current_stream(rad.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f'transit_rt tall kernel launch failed: CUDA error {err}')
+    transit_rt_cuda.launches += 1
+    transit_rt_cuda.tall_launches += 1
+    if nb == 1:
+        transit_rt_cuda.single_chain_launches += 1
+    return out
+
+
 transit_rt_cuda.launches = 0
 # Launches with one chain, the per-chain transit_spectrum_fused case:
 transit_rt_cuda.single_chain_launches = 0
+# Launches of the tall function (more than MAX_LAYERS layers):
+transit_rt_cuda.tall_launches = 0
 
 
 def transit_spectrum_ensemble(

@@ -499,3 +499,167 @@ def test_cuda_lbl_engine_routes_to_kernels(cuda):
         direct.tables(), *(a[0] for a in _lbl_cells(direct, 2)))
     torch.cuda.synchronize()
     assert _masked_rel(out[0], want) < LBL_TOL
+
+
+def _overflow_operands(case, nb, nlayers, nwave, seed, emission=False):
+    """Operands beyond one of the kernels' limits (40 CIA rows, 6 rank-1
+    terms, 5 dense parts, or 81 layers with the line sample as a dense
+    part), as lists the forwards would make before the size rule."""
+    rng = np.random.default_rng(seed)
+    lo = -28.0 if emission else -3.0
+    scale = np.exp(np.linspace(0.0, 7.0, nlayers))[None, :, None]
+    n_cia = 40 if case == 'cia40' else 15
+    n_r1 = 6 if case == 'r1_6' else 2
+    n_parts = 5 if case == 'parts5' else 1
+    parts = [rng.lognormal(lo - 1.0, 1.5, (nb, nlayers, nwave)) * scale
+             for _ in range(n_parts)]
+    cia_w = rng.lognormal(lo, 0.5, (nb, nlayers, n_cia))
+    cia_tab = rng.lognormal(-1.0, 1.0, (n_cia, nwave))
+    r1c = rng.lognormal(lo, 1.0, (nb, n_r1, nlayers))
+    r1r = rng.lognormal(-1.0, 1.0, (nb, n_r1, nwave))
+    ls_w, ls_tab = _line_sample(nb, nlayers, nwave, 10, seed=seed + 1,
+                                scale=3e-10 if emission else 1.0)
+    return parts, cia_w, cia_tab, r1c, r1r, ls_w, ls_tab
+
+
+def _fitted(case, nlayers, f32, parts, cia_w, cia_tab, r1c, r1r, ls_w,
+            ls_tab):
+    """The plain version's operands (all of them, any count) and the
+    kernel's (through the forwards' size rule)."""
+    ls = dict(ls_w=f32(ls_w), ls_tab=f32(ls_tab))
+    if not tk.ls_in_kernel(ls_w.shape[1], nlayers):
+        assert case == 'layers81'
+        parts = parts + [np.einsum('bkl,klw->blw', ls_w, ls_tab)]
+        ls = dict(ls_w=None, ls_tab=None)
+    full = dict(cia_w=f32(cia_w), cia_tab=f32(cia_tab), r1_cols=f32(r1c),
+                r1_rows=f32(r1r), **ls)
+    ec = [f32(p) for p in parts]
+    fit = tk.fit_operands(ec, **full)
+    assert len(fit['ec_parts']) <= tk.MAX_PARTS
+    assert fit['r1_cols'].shape[1] <= tk.MAX_R1
+    assert fit['cia_w'].shape[2] <= tk.MAX_CIA
+    return (ec, full), (fit.pop('ec_parts'), fit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['cia40', 'r1_6', 'parts5', 'layers81'])
+def test_cuda_kernel_beyond_operand_limits(cuda, case):
+    """The transit kernel on operands that the size rule fitted, against
+    the plain version on all of them: 40 CIA rows, 6 rank-1 terms, 5
+    dense parts, and 81 layers (the tall function)."""
+    nb, nwave = 37, 1000
+    nlayers = 81 if case == 'layers81' else 51
+    radius, _, _, _, _, _ = _operands(nb, nlayers, nwave, 1, 1, seed=21)
+    raw = _overflow_operands(case, nb, nlayers, nwave, seed=22)
+    f32 = lambda a: torch.as_tensor(
+        np.asarray(a), dtype=torch.float32, device=cuda)
+    i64 = lambda a: torch.as_tensor(np.asarray(a), device=cuda)
+    itop = np.arange(nb) % 3
+    deck_itop = nlayers - 1 - np.arange(nb) % 9
+    rsurf = radius[np.arange(nb), deck_itop] + 0.4 * (
+        radius[np.arange(nb), deck_itop - 1]
+        - radius[np.arange(nb), deck_itop])
+    rr = f32(radius)
+    operands = tk.prep_chains(
+        transit_path_matrix(rr, i64(itop)), rr, 12.0, i64(itop),
+        i64(deck_itop + 1), i64(deck_itop), f32(rsurf))
+    (ec, full), (fit_ec, fit) = _fitted(case, nlayers, f32, *raw)
+    launches = tk.transit_rt_cuda.launches
+    tall = tk.transit_rt_cuda.tall_launches
+    got = tk.transit_rt_cuda(fit_ec, *operands, **fit, maxdepth=10.0)
+    want = tk.transit_rt_plain(ec, *operands, **full, maxdepth=10.0)
+    torch.cuda.synchronize()
+    assert tk.transit_rt_cuda.launches == launches + 1
+    assert tk.transit_rt_cuda.tall_launches == tall + (nlayers > 64)
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert np.all(np.isfinite(got))
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    assert np.max(np.abs(got - want) / scale) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['cia40', 'r1_6', 'parts5', 'layers81'])
+def test_cuda_emission_kernel_beyond_operand_limits(cuda, case):
+    """The emission kernel in the same four cases (it has no layer
+    limit of its own: 81 layers only fewer warps a block)."""
+    nb, nwave = 37, 1000
+    nlayers = 81 if case == 'layers81' else 51
+    radius, temp, _, wn, _, _, _, _ = _emission_operands(
+        nb, nlayers, nwave, seed=23)
+    raw = _overflow_operands(case, nb, nlayers, nwave, seed=24,
+                             emission=True)
+    f32 = lambda a: torch.as_tensor(
+        np.asarray(a), dtype=torch.float32, device=cuda)
+    i64 = lambda a: torch.as_tensor(np.asarray(a), device=cuda)
+    mu = np.cos(np.deg2rad([0.0, 20.0, 40.0, 60.0, 80.0]))
+    weights = np.full(5, np.pi / 5)
+    itop = np.arange(nb) % 3
+    deck_itop = nlayers - 1 - np.arange(nb) % 9
+    operands = ek.prep_emission_chains(
+        f32(radius), f32(temp), i64(itop), i64(deck_itop + 1),
+        i64(deck_itop), f32(np.full(nb, 1600.0)))
+    (ec, full), (fit_ec, fit) = _fitted(case, nlayers, f32, *raw)
+    launches = ek.emission_rt_cuda.launches
+    got = ek.emission_rt_cuda(fit_ec, *operands, f32(wn), mu, weights, **fit,
+                              maxdepth=10.0)
+    want = ek.emission_rt_plain(ec, *operands, f32(wn), mu, weights, **full,
+                                maxdepth=10.0)
+    torch.cuda.synchronize()
+    assert ek.emission_rt_cuda.launches == launches + 1
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert np.all(np.isfinite(got))
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    assert np.max(np.abs(got - want) / scale) < EMISSION_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_tall_kernel_refuses_beyond_shared_memory(cuda):
+    """Above the layer count whose triangle and columns fit a block's
+    shared memory the tall function raises, stating the limit, before
+    any launch."""
+    top = tk.tall_max_layers(1, 15, 1)
+    assert 200 < top < 400
+    nb, nlayers, nwave = 2, top + 1, 64
+    radius, parts, cia_tab, cia_w, r1c, r1r = _operands(
+        nb, nlayers, nwave, 15, 1, seed=25)
+    f32 = lambda a: torch.as_tensor(
+        np.asarray(a), dtype=torch.float32, device=cuda)
+    rr = f32(radius)
+    operands = tk.prep_chains(
+        transit_path_matrix(rr), rr, 12.0,
+        torch.zeros(nb, dtype=torch.int64, device=cuda),
+        torch.full((nb,), nlayers, device=cuda))
+    launches = tk.transit_rt_cuda.launches
+    with pytest.raises(ValueError, match=f'at most {top} layers'):
+        tk.transit_rt_cuda([f32(parts[0])], *operands, cia_w=f32(cia_w),
+                           cia_tab=f32(cia_tab), r1_cols=f32(r1c),
+                           r1_rows=f32(r1r))
+    assert tk.transit_rt_cuda.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rt_path', ['transit', 'eclipse'])
+def test_cuda_model_run_matches_plain_route(cuda, tmp_path, rt_path):
+    """Model.run on the card (float32, one kernel launch) against the
+    same model on the CPU (float64, the plain versions), the flagship at
+    test size with Rayleigh, a gray cloud and the deck."""
+    from pyratbay_tpu_torch.benchmark import make_flagship
+    from pyratbay_tpu_torch.model import Model
+    make_flagship(str(tmp_path), nlayers=21, wl_low=1.1, wl_high=1.3,
+                  wnstep=4.0, device='cpu', rt_path=rt_path)
+    cfg = tmp_path / 'flagship.cfg'
+    text = cfg.read_text().replace(
+        'clouds =', 'rayleigh = rayleigh_H2 rayleigh_He\nclouds =\n'
+        '    ccsgray 0.0 -3.0 1.0')
+    cfg.write_text(text)
+    counter = (tk.transit_rt_cuda if rt_path == 'transit'
+               else ek.emission_rt_cuda)
+    launches = counter.launches
+    gpu = Model(str(cfg), device='cuda').run()
+    torch.cuda.synchronize()
+    assert counter.launches == launches + 1
+    cpu = Model(str(cfg), device='cpu').run()
+    got = gpu['spectrum'].double().cpu().numpy()
+    want = cpu['spectrum'].numpy()
+    assert np.all(np.isfinite(got))
+    assert np.max(np.abs(got - want)) / np.abs(want).max() < 1e-4
