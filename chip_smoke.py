@@ -1,8 +1,9 @@
 """GPU smoke run of pyratbay_tpu_torch: the flagship transit and eclipse
 retrievals end to end on one CUDA device, through the hand-written
-transit and emission kernels, then forward spectra from configs
-(runmode = spectrum and atmosphere) through the same kernels at B = 1,
-then the flagship opacity workflow (line list -> TLI file ->
+transit and emission kernels, then the transit retrieval on 81 layers
+through the transit kernel's tall function, then forward spectra from
+configs (runmode = spectrum and atmosphere) through the same kernels at
+B = 1, then the flagship opacity workflow (line list -> TLI file ->
 cross-section table) through the hand-written line-by-line wing and
 core kernels.
 
@@ -21,9 +22,12 @@ pyratbay_tpu_torch on a flagship retrieval config with 512 chains,
 checked for finite results and kernel launches); float32-GPU against float64-CPU
 agreement; and timings: the kernel, its plain version and its roofline
 bound at B = 512 and B = 1, its recorded time before it was redesigned
-(a constant, labelled so), and the two line-sample routes in turns (einsum + contiguous copy + kernel on a
-dense part, against the kernel on weights and table).  Then the
-spectrum path: the flagship (51 x 3209) as runmode = spectrum configs
+(a constant, labelled so), and the two line-sample routes in turns
+(einsum + contiguous copy + kernel on a dense part, against the kernel
+on weights and table).  Then the same for the transit retrieval on the
+flagship written on 81 layers (81 x 3209, 512 chains x 20 generations), whose forwards launch the tall function with the line
+sample inside it; its `times` line adds the chains the function keeps
+in flight on an SM.  Then the spectrum path: the flagship (51 x 3209) as runmode = spectrum configs
 with the bundled H2-H2 and H2-He CIA tables by basename (40 rows),
 Rayleigh, the haze and a gray cloud (5 rank-1 terms), the deck, and the
 specfile, through the CLI's driver on the default device: transit (one
@@ -36,8 +40,10 @@ and held against a CPU float64 Model.run; runmode = atmosphere on the
 flagship; the kernels against their plain versions at B = 512 and B = 1
 on each of those operand sets, and at B = 512 on five dense parts (the
 kernel on what the size rule fitted, the plain version on every
-operand); and timings: Model.run, the
-kernels at B = 1, the tall function and the emission kernel at B = 512
+operand), the tall function also on the line sample made a dense part
+(3 dense parts, the operands of its earlier version); and timings:
+Model.run, the kernels at B = 1, the tall function (on both operand
+sets, with its profiler device time) and the emission kernel at B = 512
 on 81 layers.  Then the opacity path:
 a synthetic 50,000-line HITRAN H2O list through runmode = tli (the
 driver), Model(cfg, device='cuda').compute_opacity(engine='direct') on
@@ -84,23 +90,27 @@ KERNELS = {
         name='emission_rt', tol=1e-4,
         source='pyratbay_tpu_torch/csrc/emission_rt.cu',
         replaces='pyratbay_tpu/spectrum/emission_pallas.py:433'),
+    # The transit kernel's function for more than 64 layers:
+    'transit_81': dict(
+        name='transit_rt_tall', tol=2e-5,
+        source='pyratbay_tpu_torch/csrc/transit_rt.cu',
+        replaces='pyratbay_tpu/spectrum/ensemble_pallas.py:299'),
 }
 # Constants, not measurements of a run of this script: the times of the
 # one-thread-a-column kernels that the present ones replaced, B = 512 on a
 # dense part, CUDA events around single calls, NVIDIA H100 80GB HBM3 at
-# 700 W (PERF.md, section 6).  Only the `times` phase repeats them.
+# 700 W (PERF.md, section 6); and of the tall function before its
+# redesign, on the spectrum phase's 81-layer operands (3 dense parts, 4
+# rank-1 terms, 32 CIA rows), CUDA events in turns.  Only the `times`
+# and `times_spectrum` phases repeat them.
 EARLIER_MS = {'transit': 2.286, 'eclipse': 1.341}
+EARLIER_TALL_MS = 4.057
 # The per-chain interface (transit_spectrum_fused) is the transit kernel
 # launched with one chain:
 SINGLE_CHAIN = dict(
     name='transit_rt_single_chain',
     source='pyratbay_tpu_torch/csrc/transit_rt.cu',
     replaces='pyratbay_tpu/spectrum/rt_pallas.py:221')
-# The transit kernel's function for more than 64 layers:
-TALL = dict(
-    name='transit_rt_tall',
-    source='pyratbay_tpu_torch/csrc/transit_rt.cu',
-    replaces='pyratbay_tpu/spectrum/ensemble_pallas.py:299')
 # The spectrum phase: the bundled H2-H2 and H2-He CIA tables by basename
 # (20 + 20 rows, more than the kernels' 32), Rayleigh of H2, He and H
 # with the haze and a gray cloud (5 rank-1 terms, more than their 4),
@@ -115,10 +125,12 @@ ELECTRONS = ['H2', 'He', 'H', 'Na', 'K', 'H2O', 'CH4', 'CO', 'CO2', 'e-']
 ELECTRON_VMR = [8.5e-1, 1.49e-1, 1e-6, 3e-6, 5e-8, 4e-4, 1e-4, 5e-4, 1e-7,
                 1e-6]
 MODEL_RUN_REPEATS = 5
-# Peaks of one NVIDIA H100 SXM (data sheet): HBM3 bytes/s, and float32
-# operations/s outside the tensor cores (an FMA counts two).
+# Peaks of one NVIDIA H100 SXM (data sheet, dense): HBM3 bytes/s, float32
+# operations/s outside the tensor cores and TF32 operations/s on them (an
+# FMA counts two).
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 # Float32 operations of one line-window pair, from the kernels' formulas:
 # a wing pair is the hi/lo difference, u, a, the 5-term series and the
 # sum (~30); a core pair is 16 Weideman terms of a complex multiply-add
@@ -307,11 +319,13 @@ def record_calls(pairs, fn):
     return [recorded[name] for _, name in pairs]
 
 
-def roofline(nbytes, flops):
+def roofline(nbytes, flops, tf32_flops=0):
     """(bound in ms, 'bytes' or 'operations'): the larger of the bytes
-    over the card's memory rate and the float32 operations over its
-    peak rate."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32
+    over the card's memory rate, the float32 operations over the CUDA
+    cores' peak rate and the TF32 operations over the tensor cores'
+    (the two pipes run side by side)."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(flops / PEAK_FP32, tf32_flops / PEAK_TF32)
     return (max(t_bytes, t_ops) * 1e3,
             'bytes' if t_bytes >= t_ops else 'operations')
 
@@ -402,13 +416,16 @@ def kernel_cases(label, model, call, rejected):
 
 def kernel_bound(label, args, kw):
     """Roofline bound of one kernel call from its operands: every input
-    read once, the [B, W] result written once, and the float32
-    operations this data needs (an FMA counts two, a transcendental or a
-    division one).  Transit: the triangular chord product, the CIA and
-    rank-1 terms, the non-zero line-sample weights, ~10 operations a row
-    of the epilogue.  Emission: the same assembly, the depth step, one
-    Planck and an exponential with its FMA for each angle, for the rows
-    from the top to each column's ideep only (the walk stops there)."""
+    read once, the [B, W] result written once, and the operations this
+    data needs at the peak rate of the pipe that runs them (an FMA counts
+    two, a transcendental or a division one).  Transit: the triangular
+    chord product, the rank-1 terms, the non-zero CIA and line-sample
+    weights, ~10 operations a row of the epilogue, all float32 on the
+    CUDA cores; above 64 layers the tall function runs the chord product
+    on the tensor cores as three TF32 products, counted at their rate.
+    Emission: the same assembly, the depth step, one Planck and an
+    exponential with its FMA for each angle, for the rows from the top to
+    each column's ideep only (the walk stops there)."""
     import torch
     from pyratbay_tpu_torch.spectrum import rt
     from pyratbay_tpu_torch.spectrum import transit_kernel as tk
@@ -416,16 +433,20 @@ def kernel_bound(label, args, kw):
     like = args[3]      # the radius or the temperature column [B, l]
     nb, nlayers = like.shape
     nwave = tk._nwave(parts, kw['r1_rows'], kw['cia_tab'], kw['ls_tab'])
-    n_cia = 0 if kw['cia_w'] is None else kw['cia_w'].shape[2]
     n_r1 = 0 if kw['r1_cols'] is None else kw['r1_cols'].shape[1]
-    ls_terms = 0 if kw['ls_w'] is None else int(
-        torch.count_nonzero(kw['ls_w']))
+    # The weights' non-zero terms (line sample and CIA are two-hot in
+    # temperature):
+    terms = sum(int(torch.count_nonzero(kw[k])) for k in ('ls_w', 'cia_w')
+                if kw[k] is not None)
     nbytes = tensor_bytes(*parts, *args[1:], *kw.values()) + 4 * nb * nwave
-    assembly_row = 2 * n_cia + 2 * n_r1 + max(len(parts) - 1, 0)
+    assembly_row = 2 * n_r1 + max(len(parts) - 1, 0)
+    tf32 = 0
     if label == 'transit':
-        flops = nb * nwave * (
-            nlayers * (nlayers + 1) + nlayers * (assembly_row + 10)
-        ) + 2 * ls_terms * nwave
+        chord = nb * nwave * nlayers * (nlayers + 1)
+        if nlayers > tk.MAX_LAYERS:
+            chord, tf32 = 0, 3 * chord
+        flops = chord + nb * nwave * nlayers * (assembly_row + 10) \
+            + 2 * terms * nwave
     else:
         scal, dr = args[1], args[2]
         ec = tk.extinction_plain(
@@ -436,8 +457,8 @@ def kernel_bound(label, args, kw):
         rows = int(torch.clamp(ideep - itop[:, None] + 1, min=1).sum())
         nmu = len(args[5])
         flops = rows * (
-            assembly_row + 2 * ls_terms / (nb * nlayers) + 8 + 5 * nmu)
-    return roofline(nbytes, flops)
+            assembly_row + 2 * terms / (nb * nlayers) + 8 + 5 * nmu)
+    return roofline(nbytes, flops, tf32)
 
 
 def check_kernel(name, kernel, plain, cases, tol):
@@ -460,10 +481,10 @@ def check_kernel(name, kernel, plain, cases, tol):
     return max_abs
 
 
-def run_path(label, rt_path, workdir, dev, args, card):
-    """One path end to end: kernel checks, the main path through
-    pyratbay_tpu_torch's run(), GPU against CPU, and timings.  Returns the
-    kernel entries."""
+def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS):
+    """One path end to end on the flagship with `nlayers` layers: kernel
+    checks, the main path through pyratbay_tpu_torch's run(), GPU against
+    CPU, and timings.  Returns the kernel entries."""
     import torch
     from pyratbay_tpu_torch import model as model_mod
     from pyratbay_tpu_torch.benchmark import make_flagship
@@ -479,7 +500,9 @@ def run_path(label, rt_path, workdir, dev, args, card):
 
     spec = KERNELS[label]
     suffix = '' if label == 'transit' else f'_{label}'
-    if label == 'transit':
+    kind = 'transit' if rt_path == 'transit' else 'eclipse'
+    tall = kind == 'transit' and nlayers > tk.MAX_LAYERS
+    if kind == 'transit':
         wrapper = 'transit_spectrum_ensemble'
         kernel, plain = tk.transit_rt_cuda, tk.transit_rt_plain
     else:
@@ -489,8 +512,8 @@ def run_path(label, rt_path, workdir, dev, args, card):
 
     # Flagship at full width on the GPU:
     model, obs, ret, forward, p0 = make_flagship(
-        workdir, device=dev, rt_path=rt_path)
-    if (model.nlayers, model.nwave) != (NLAYERS, NWAVE):
+        workdir, nlayers=nlayers, device=dev, rt_path=rt_path)
+    if (model.nlayers, model.nwave) != (nlayers, NWAVE):
         fail(f'{label} flagship shape {(model.nlayers, model.nwave)}')
     rng = np.random.default_rng(0)
     pb = p0 + ret.pstep * rng.standard_normal((NCHAINS, len(p0)))
@@ -505,13 +528,13 @@ def run_path(label, rt_path, workdir, dev, args, card):
     pb_rejected[-1, 1] = 1.0e6
     rejected, = record_calls(((model_mod, wrapper),),
                              lambda: forward_b(pb_rejected))
-    cases = kernel_cases(label, model, call, rejected)
+    cases = kernel_cases(kind, model, call, rejected)
     case_abs = check_kernel(spec['name'], kernel, plain, cases, spec['tol'])
     max_abs = max(case_abs.values())
 
     # The main path, through the driver:
     band0 = forward(p0)['bandflux'].cpu().numpy()
-    if label == 'transit':
+    if kind == 'transit':
         uncert = np.full(len(band0), NOISE)
     else:
         uncert = np.maximum(np.abs(band0) * ECLIPSE_NOISE, 1e-12)
@@ -525,14 +548,17 @@ def run_path(label, rt_path, workdir, dev, args, card):
     for counter in counters:
         counter.launches = 0
     tk.transit_rt_cuda.single_chain_launches = 0
+    tk.transit_rt_cuda.tall_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rmodel = run(cfg_file, seed=0)       # the default device: the card
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = kernel.launches
+    tall_launches = tk.transit_rt_cuda.tall_launches
+    launches = tall_launches if tall else kernel.launches - tall_launches
     single_launches = tk.transit_rt_cuda.single_chain_launches
     all_launches = {c.__name__: c.launches for c in counters}
+    all_launches['transit_rt_tall'] = tall_launches
     if rmodel.device.type != 'cuda':
         fail(f'{label}: the retrieval ran on {rmodel.device}, not on the '
              'card')
@@ -553,6 +579,9 @@ def run_path(label, rt_path, workdir, dev, args, card):
         fail(f'{label}: spec_best shape {out["spec_best"].shape}')
     if launches < NGEN + 2:
         fail(f'{label}: {launches} {spec["name"]} launches < {NGEN + 2}')
+    if tall and tall_launches != kernel.launches:
+        fail(f'{label}: the register-held transit kernel ran at '
+             f'{nlayers} layers')
 
     # GPU float32 forward against the CPU float64 plain forward:
     cpu_model = model_mod.Model(
@@ -597,10 +626,10 @@ def run_path(label, rt_path, workdir, dev, args, card):
         'route_dense': route_dense,
         'kernel_b1': lambda: kernel(*one_args, **one_kw),
     }.items()}
-    bound_ms, bound_by = kernel_bound(label, ls_args, ls_kw)
+    bound_ms, bound_by = kernel_bound(kind, ls_args, ls_kw)
     dense_bound_ms, dense_bound_by = kernel_bound(
-        label, dense_args, dense_kw)
-    b1_bound_ms, b1_bound_by = kernel_bound(label, one_args, one_kw)
+        kind, dense_args, dense_kw)
+    b1_bound_ms, b1_bound_by = kernel_bound(kind, one_args, one_kw)
     pb_t = torch.as_tensor(pb, dtype=torch.float32, device=dev)
     with torch.no_grad():
         ms_forward = float(np.median(cuda_times(lambda: forward_b(pb_t))))
@@ -616,13 +645,24 @@ def run_path(label, rt_path, workdir, dev, args, card):
                     pmax=rmodel.ret.pmax, device=dev, dtype=rmodel.dtype)
         torch.cuda.synchronize()
         gen_times.append(time.perf_counter() - t0)
+    extra = {}
+    if tall:
+        # Chains in flight on an SM at this phase's operand counts:
+        n_cia = ls_kw['cia_w'].shape[2]
+        n_r1 = 0 if ls_kw['r1_cols'] is None else ls_kw['r1_cols'].shape[1]
+        extra['tall_chains_per_sm'] = tk.tall_chains_per_sm(
+            nlayers, n_r1, n_cia, ls_kw['ls_w'].shape[1], 0)
     emit('times', path=label, card=card, kernel=spec['name'],
+         nlayers=nlayers,
          kernel_ms=ms['kernel'], plain_ms=ms['plain'], bound_ms=bound_ms,
-         bound_by=bound_by, earlier_ms=EARLIER_MS[label],
+         bound_by=bound_by, earlier_ms=EARLIER_MS.get(label),
          earlier_note='a constant from PERF.md, not measured in this run: '
                       'the kernel before its redesign, events around '
-                      'single calls, which also count host gaps',
-         main_path_launches=launches,
+                      'single calls, which also count host gaps'
+                      if label in EARLIER_MS else
+                      'none: the function before its redesign took no '
+                      'line sample (times_spectrum has its successor)',
+         main_path_launches=launches, **extra,
          device_ms={name: {'kernel_alone': alone, 'whole_call': whole}
                     for name, (alone, whole, _) in dev_ms.items()},
          times_note='*_ms: CUDA events around runs of 4 calls of the '
@@ -654,7 +694,7 @@ def run_path(label, rt_path, workdir, dev, args, card):
              'plain_ms': ms['plain'], 'bound_ms': bound_ms,
              'bound_by': bound_by, 'library_ms': None}
     entries = [entry]
-    if label == 'transit':
+    if kind == 'transit' and not tall:
         if single_launches < 1:
             fail('transit: the main path launched the kernel with one '
                  'chain no time')
@@ -746,9 +786,8 @@ def run_spectrum(workdir, dev, args, card):
     full width: Model.run through the RT kernels at B = 1 from the
     CLI's driver, the kernels against their plain versions beyond their
     operand limits (40 CIA rows, 6 rank-1 terms, 5 dense parts, 81
-    layers), GPU
-    against CPU float64, timings.  Returns the kernel entries' launches
-    and the tall function's entry."""
+    layers), GPU against CPU float64, timings.  Returns the kernels'
+    launches and what the tall function's entry takes from the phase."""
     import torch
     from pyratbay_tpu_torch import model as model_mod
     from pyratbay_tpu_torch.benchmark import make_flagship
@@ -880,6 +919,19 @@ def run_spectrum(workdir, dev, args, card):
                     (fit.pop('ec_parts'), *k_args[1:]),
                     dict(fit, maxdepth=k_kw['maxdepth']),
                     (parts5, *p_args[1:]), p_kw)
+            if (label, tag) == ('transit', 'layers81'):
+                # The tall function on the operands it had before it took
+                # the line sample: the table as a dense part (3 dense
+                # parts in all), as the old 4.057 ms were measured on.
+                k_args, k_kw, p_args, p_kw = cases[f'B512_{tag}']
+                if k_kw['ls_w'] is None:
+                    fail('spectrum: the 81-layer transit forward made the '
+                         'line sample a dense part')
+                dense = torch.einsum('bkl,klw->blw', k_kw['ls_w'],
+                                     k_kw['ls_tab']).contiguous()
+                cases[f'B512_{tag}_dense_ls'] = (
+                    ([*k_args[0], dense], *k_args[1:]),
+                    dict(k_kw, ls_w=None, ls_tab=None), p_args, p_kw)
             for case, (k_args, k_kw, p_args, p_kw) in cases.items():
                 got = kernel(*k_args, **k_kw)
                 want = plain(*p_args, **p_kw)
@@ -890,7 +942,10 @@ def run_spectrum(workdir, dev, args, card):
                     rank1=[int(k_kw['r1_cols'].shape[1]),
                            int(p_kw['r1_cols'].shape[1])],
                     cia_rows=[int(k_kw['cia_w'].shape[2]),
-                              int(p_kw['cia_w'].shape[2])])
+                              int(p_kw['cia_w'].shape[2])],
+                    line_sample_rows=[
+                        0 if kw['ls_w'] is None else int(kw['ls_w'].shape[1])
+                        for kw in (k_kw, p_kw)])
                 emit('kernel_check', kernel=KERNELS[label]['name'],
                      case=case, shape=list(got.shape),
                      nlayers=model.nlayers, kernel_and_plain_operands=sizes,
@@ -903,8 +958,9 @@ def run_spectrum(workdir, dev, args, card):
 
     # Times (NVIDIA card named in `card`): Model.run by the host clock
     # (ending in a synchronize), K1 and K3 at B = 1 on Model.run's
-    # operands and the tall function at B = 512 on 81 layers by events,
-    # in turns with their plain versions.
+    # operands and the tall function at B = 512 on 81 layers (the line
+    # sample in it, and as a dense part) by events, in turns with their
+    # plain versions; the tall function's device time by the profiler.
     run_s = {}
     for name in ('transit', 'eclipse', 'transit_tall'):
         model = models[name]
@@ -921,6 +977,8 @@ def run_spectrum(workdir, dev, args, card):
             'transit_b1': ('transit', 'cia40_r1_5', 'B1_cia40_r1_5'),
             'emission_b1': ('eclipse', 'cia40_r1_5', 'B1_cia40_r1_5'),
             'tall_b512': ('transit', 'layers81', 'B512_layers81'),
+            'tall_b512_dense_ls': ('transit', 'layers81',
+                                   'B512_layers81_dense_ls'),
             'tall_b1': ('transit', 'layers81', 'B1_layers81'),
             'emission_81_b512': ('eclipse', 'layers81', 'B512_layers81'),
     }.items():
@@ -936,10 +994,19 @@ def run_spectrum(workdir, dev, args, card):
             'transit' if label == 'transit' else 'eclipse', k_args, k_kw)
         timed[key] = dict(kernel_ms=ms['kernel'], plain_ms=ms['plain'],
                           bound_ms=bound_ms, bound_by=bound_by)
+        if key.startswith('tall_b512'):
+            timed[key]['device_ms'] = device_ms(
+                lambda: kernel(*k_args, **k_kw), 'transit_rt_tall_kernel')[0]
+            timed[key]['dense_parts'] = len(k_args[0])
+    earlier = dict(
+        timed['tall_b512_dense_ls'], earlier_ms=EARLIER_TALL_MS,
+        earlier_note='a constant from PERF.md, not measured in this run: '
+                     'the tall function before its redesign on these '
+                     'operands')
     emit('times_spectrum', card=card, model_run_seconds=run_s,
          model_run_note=f'host clock around Model.run ending in a '
                         f'synchronize, median of {MODEL_RUN_REPEATS}',
-         kernels=timed,
+         kernels=dict(timed, tall_b512_dense_ls=earlier),
          kernels_note='CUDA events around runs of 4 calls of the kernel '
                       'wrapper on the rule-fitted operands, medians, in '
                       'turns with the plain version on the same operands')
@@ -949,19 +1016,16 @@ def run_spectrum(workdir, dev, args, card):
                     run_s[name] * 1e3)
     tall_abs = max(v for (label, case), v in case_abs.items()
                    if label == 'transit' and 'layers81' in case)
-    tall = timed['tall_b512']
-    entry = {**TALL, 'route': 'cuda', 'launches': total['transit_rt_tall'],
-             'max_abs_err': tall_abs, 'ms': tall['kernel_ms'],
-             'plain_ms': tall['plain_ms'], 'bound_ms': tall['bound_ms'],
-             'bound_by': tall['bound_by'], 'library_ms': None,
-             'note': f'B = {NCHAINS}, {TALL_LAYERS} layers x {NWAVE}; '
-                     'launched by Model.run at B = 1 in this phase'}
+    # What the tall function's kernel entry takes from this phase (its
+    # launches here are Model.run's, at B = 1):
+    tall = {'max_abs_err': tall_abs, 'spectrum_operands': {
+        key: timed[key] for key in ('tall_b512', 'tall_b512_dense_ls')}}
     for key in ('transit_rt', 'transit_rt_single_chain', 'emission_rt'):
         if total[key] < 1:
             fail(f'spectrum: {key} launched no time')
     if total['transit_rt_tall'] < 1:
         fail('spectrum: the tall transit function launched no time')
-    return total, entry
+    return total, tall
 
 
 def masked_rel(got, want, floor=1e-6):
@@ -1465,10 +1529,14 @@ def main():
     workdir = tempfile.mkdtemp(prefix='pbt_chip_smoke_')
     try:
         kernels = []
-        for label, rt_path in (('transit', 'transit'), ('eclipse', 'eclipse')):
+        for label, rt_path, nlayers in (
+                ('transit', 'transit', NLAYERS),
+                ('eclipse', 'eclipse', NLAYERS),
+                ('transit_81', 'transit', TALL_LAYERS)):
             path_dir = os.path.join(workdir, label)
             os.makedirs(path_dir)
-            kernels += run_path(label, rt_path, path_dir, dev, args, card)
+            kernels += run_path(label, rt_path, path_dir, dev, args, card,
+                                nlayers)
         path_dir = os.path.join(workdir, 'spectrum')
         os.makedirs(path_dir)
         spectrum_launches, tall = run_spectrum(path_dir, dev, args, card)
@@ -1477,12 +1545,15 @@ def main():
         spectrum_launches['transit_rt'] -= spectrum_launches['transit_rt_tall']
         spectrum_launches['transit_rt_single_chain'] -= \
             spectrum_launches['transit_rt_tall']
-        for entry, path in zip(kernels, ('transit', 'transit', 'eclipse')):
+        for entry, path in zip(kernels, ('transit', 'transit', 'eclipse',
+                                         'transit_81')):
             more = spectrum_launches[entry['name']]
             entry['launches_by_path'] = {path: entry['launches'],
                                          'spectrum': more}
             entry['launches'] += more
-        kernels.append(tall)
+        kernels[3]['max_abs_err'] = max(kernels[3]['max_abs_err'],
+                                        tall['max_abs_err'])
+        kernels[3]['spectrum_operands'] = tall['spectrum_operands']
         path_dir = os.path.join(workdir, 'opacity')
         os.makedirs(path_dir)
         kernels += run_opacity(path_dir, dev, args, card)

@@ -33,6 +33,9 @@
 //     (K2 * l * 64 floats: 130,560 bytes at K2 = 10, l = 51);
 //   * the tile's CIA table rows, KP (16 or 32, zero padded), in each
 //     thread's registers.
+// (The transit kernel's tall function, above 64 layers, keeps neither:
+// it streams the live line-sample rows through its ring and holds the
+// CIA table tile in shared memory; transit_rt.cu says why.)
 // Per chain, a team copies its weights into its own shared-memory region:
 // CIA [rows, KP], line sample [rows, K2P] and the layer columns (rank-1
 // columns among them), which the wrapper has already padded and laid out
@@ -149,6 +152,46 @@ __device__ __forceinline__ void ring_fetch(
     cp_async_commit();
 }
 
+// The first two set bits of a mask word (k0, k1; one, two say whether
+// they exist), and the word without them.
+__device__ __forceinline__ unsigned first_two(
+        unsigned live, bool& one, bool& two, int& k0, int& k1) {
+    one = live != 0;
+    k0 = one ? __ffs(live) - 1 : 0;
+    live &= live - 1;
+    two = live != 0;
+    k1 = two ? __ffs(live) - 1 : k0;
+    return live & (live - 1);
+}
+
+// Chain b's rank-1 rows of column w, zero past n_r1 or an invalid column.
+__device__ __forceinline__ void load_r1_rows(
+        float (&r1r)[MAX_R1], const float* __restrict__ r1_rows, int n_r1,
+        int b, int nwave, int w, bool valid) {
+#pragma unroll
+    for (int r = 0; r < MAX_R1; ++r)
+        r1r[r] = r < n_r1 && valid
+            ? r1_rows[((size_t)b * n_r1 + r) * nwave + w] : 0.f;
+}
+
+// e[t] += the rank-1 terms of layer j0 + t (j0 a multiple of 4; s_r1c the
+// rank-1 columns [n_r1][rows], r1r the column's rank-1 rows).
+__device__ __forceinline__ void add_rank1(
+        float (&e)[4], const float* s_r1c, int rows, int j0,
+        const float (&r1r)[MAX_R1], int n_r1) {
+#pragma unroll
+    for (int r = 0; r < MAX_R1; ++r) {
+        if (r < n_r1) {
+            const float4 c =
+                *reinterpret_cast<const float4*>(s_r1c + r * rows + j0);
+            e[0] += c.x * r1r[r];
+            e[1] += c.y * r1r[r];
+            e[2] += c.z * r1r[r];
+            e[3] += c.w * r1r[r];
+        }
+    }
+}
+
 // What a thread needs to assemble the extinction of its column.
 template <int KP>
 struct Assembler {
@@ -176,10 +219,7 @@ struct Assembler {
     __device__ __forceinline__ void load_r1_rows(
             const float* __restrict__ r1_rows, int b, int nwave, int w,
             bool valid) {
-#pragma unroll
-        for (int r = 0; r < MAX_R1; ++r)
-            r1r[r] = r < n_r1 && valid
-                ? r1_rows[((size_t)b * n_r1 + r) * nwave + w] : 0.f;
+        pbt::load_r1_rows(r1r, r1_rows, n_r1, b, nwave, w, valid);
     }
 
     // Extinction of the layers j0 .. j0 + 3 (j0 a multiple of 4) in the
@@ -202,17 +242,7 @@ struct Assembler {
                 }
             }
         }
-#pragma unroll
-        for (int r = 0; r < MAX_R1; ++r) {
-            if (r < n_r1) {
-                const float4 c =
-                    *reinterpret_cast<const float4*>(s_r1c + r * rows + j0);
-                e[0] += c.x * r1r[r];
-                e[1] += c.y * r1r[r];
-                e[2] += c.z * r1r[r];
-                e[3] += c.w * r1r[r];
-            }
-        }
+        add_rank1(e, s_r1c, rows, j0, r1r, n_r1);
         if (n_cia > 0) {
             float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -239,13 +269,9 @@ struct Assembler {
                 const float* tab = s_tab + j * TW + col;
                 // The first two non-zero weights without a branch (the
                 // two-hot case is over after them):
-                unsigned live = s_mask[j * words];
-                const bool one = live != 0;
-                const int k0 = one ? __ffs(live) - 1 : 0;
-                live &= live - 1;
-                const bool two = live != 0;
-                const int k1 = two ? __ffs(live) - 1 : k0;
-                live &= live - 1;
+                bool one, two;
+                int k0, k1;
+                unsigned live = first_two(s_mask[j * words], one, two, k0, k1);
                 const float wa = one ? wrow[k0] : 0.f;
                 const float wb = two ? wrow[k1] : 0.f;
                 const float ta = one ? tab[k0 * L * TW] : 0.f;

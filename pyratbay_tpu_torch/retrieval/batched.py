@@ -7,9 +7,10 @@ extinction parts are [B, l, W].
 * state (T, VMR, densities, radius, patchy fraction) for the whole
   ensemble at once (retrieval/forward.py build_state);
 * line-sampled opacity: per-chain layer weights [B, K2, l] contracted
-  in the kernel against the table [K2, l, W] when the table's wave-tile
-  slab fits the kernel's shared memory (transit_kernel.ls_in_kernel, a
-  static size rule), else one einsum that makes a dense part;
+  in the kernel against the table [K2, l, W] when the RT path's kernel
+  takes the table (transit_kernel.ls_in_kernel, a static size rule per
+  RT path: at any layer count for transit, up to 64 layers for
+  emission), else one einsum that makes a dense part;
 * CIA: per-layer table weights [B, l, K], contracted in the kernel;
 * Rayleigh (H, H2, He, e-), the Lecavelier haze and the gray cloud:
   rank-1 (layer column, wave row) pairs per chain; in a patchy model
@@ -53,13 +54,15 @@ __all__ = ['build_forward_batched', 'build_log_posterior_batched',
 
 
 def line_sample_table(model):
-    """The RT kernels' ls_tab operand [K2, l, W] when the line-sample
-    tables go into the kernels (ls_in_kernel, a static size rule on the
-    model's shapes), else None: all line-sample tables go in, or none."""
+    """The RT kernel's ls_tab operand [K2, l, W] when the line-sample
+    tables go into the kernel of the model's RT path (ls_in_kernel, a
+    static size rule on the model's shapes), else None: all line-sample
+    tables go in, or none."""
     ls_models = [m for mtype, m, _ in model.opacity_models
                  if mtype == 'line_sample']
     if ls_models and ls_in_kernel(
-            sum(m.nspec * m.ntemp for m in ls_models), model.nlayers):
+            sum(m.nspec * m.ntemp for m in ls_models), model.nlayers,
+            model.rt_path):
         return torch.cat([m.kernel_table for m in ls_models])
     return None
 

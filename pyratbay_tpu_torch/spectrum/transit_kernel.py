@@ -11,14 +11,17 @@ ctypes.  Importing this module needs neither nvcc nor a GPU.
 
 Like the Pallas kernel it takes the line-sampled opacity either as a
 dense [B, l, W] part or as the operands ls_w [B, K2, l] and ls_tab
-[K2, l, W], contracted inside the kernel against a table slab held in
-shared memory; `ls_in_kernel` is the static size rule by which the
-forwards pick between the two, and `fit_operands` the one that keeps the
-other operands within what the kernels take (C5 of ROADMAP.md).
+[K2, l, W], contracted inside the kernel; `ls_in_kernel` is the static
+size rule, per RT path, by which the forwards pick between the two, and
+`fit_operands` the one that keeps the other operands within what the
+kernels take (C5 of ROADMAP.md).
 
-Above 64 layers the kernel launched is a second function of the same
-file (transit_rt_tall_kernel, one lane a column with the chord matrix in
-shared memory), which takes no line sample.
+Up to 64 layers the kernel holds a table slab in shared memory.  Above
+64 layers the kernel launched is a second function of the same file
+(transit_rt_tall_kernel: the chord product of a pass of TALL_ROWS rows
+on the tensor cores, three TF32 products a step; the chord rows and the
+live line-sample table rows streamed through a ring in shared memory;
+`tall_layout` packs its chord matrix).
 
 `transit_spectrum_ensemble` prepares the per-chain operands in torch
 (the pair-sum fold of the chord matrix and prep_chain's scalars and
@@ -38,11 +41,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import constants as pc
+
 __all__ = [
     'transit_spectrum_ensemble', 'transit_spectrum_fused', 'prep_chains',
     'transit_rt_plain', 'transit_rt_cuda', 'build_library', 'ls_in_kernel',
     'fit_operands', 'extinction_plain', 'assembly_operands', 'chord_layout',
-    'MAX_PARTS', 'MAX_R1', 'MAX_CIA', 'MAX_LAYERS',
+    'tall_layout', 'tall_max_layers', 'tall_chains_per_sm', 'MAX_PARTS',
+    'MAX_R1', 'MAX_CIA', 'MAX_LAYERS',
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,26 +61,50 @@ MAX_PARTS = 4
 MAX_R1 = 4
 MAX_CIA = 32
 MAX_LAYERS = 64
+# Rows of a pass of the tall function (above MAX_LAYERS), whose depths it
+# keeps in registers: six m-tiles of the tensor cores' 16 rows.
+TALL_ROWS = 96
 # The kernels hold the line-sample table of one 64-column wave tile in
 # shared memory; a slab up to this size leaves room for the warps'
 # own operands beside it (232,448 bytes a block in all).
 LS_TILE = 64
 LS_SLAB_MAX = 147456
+# Above MAX_LAYERS the transit kernel reads the live rows of the table
+# from device memory; a team stages the chain's weights [rows, K2], which
+# up to this size leave room for the other operands beside them.
+TALL_LS_WEIGHTS_MAX = 32768
 NVCC_FLAGS = [
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-Xcompiler', '-fPIC', '-Xptxas', '-v',
 ]
 
 
-def ls_in_kernel(n_k, nlayers):
+def ls_in_kernel(n_k, nlayers, rt_path):
     """Whether a line-sample table of n_k (species x temperature) rows
-    by nlayers goes into the RT kernels as ls_w / ls_tab (its wave-tile
-    slab fits the shared memory, and the layers fit the transit kernel's
-    register-held chord product) or stays a dense part made by an
-    einsum.  On an NVIDIA H100 the in-kernel route measured faster for
-    both kernels (PERF.md), so it is taken whenever the slab fits."""
+    by nlayers goes into the RT kernel of `rt_path` as ls_w / ls_tab or
+    stays a dense part made by an einsum.  On an NVIDIA H100 the
+    in-kernel route measured faster (PERF.md), so it is taken whenever
+    the kernel takes the table:
+
+    * transit up to MAX_LAYERS layers, and emission up to MAX_LAYERS
+      layers: the table's wave-tile slab fits the shared memory beside
+      the warps' operands;
+    * transit above MAX_LAYERS layers (the tall function, which streams
+      the live table rows): a chain's weights fit TALL_LS_WEIGHTS_MAX;
+    * emission above MAX_LAYERS layers: never.
+    """
+    if rt_path in pc.TRANSMISSION_RT and nlayers > MAX_LAYERS:
+        return _round4(n_k) * _round4(nlayers) * 4 <= TALL_LS_WEIGHTS_MAX
     return (nlayers <= MAX_LAYERS
             and n_k * nlayers * LS_TILE * 4 <= LS_SLAB_MAX)
+
+
+def _round4(n):
+    return -(-n // 4) * 4
+
+
+def _round8(n):
+    return -(-n // 8) * 8
 
 
 def fit_operands(ec_parts, cia_w=None, cia_tab=None, r1_cols=None,
@@ -192,15 +222,13 @@ def _library():
         assembly + [ptr] * 3 + [fptr, fptr, cint, cfloat, cfloat, ptr]
         + [cint] * 5 + [cfloat, ptr])
     lib.pbt_emission_rt.restype = cint
-    lib.pbt_transit_rt_tall.argtypes = (
-        [ptr] * 4 + [cint] + [ptr, cint] + [ptr, ptr, cint] + [ptr] * 4
-        + [cint] * 5 + [cfloat, ptr])
+    lib.pbt_transit_rt_tall.argtypes = lib.pbt_transit_rt.argtypes
     lib.pbt_transit_rt_tall.restype = cint
-    for fn in (lib.pbt_transit_rt_warps, lib.pbt_emission_rt_warps):
+    for fn in (lib.pbt_transit_rt_warps, lib.pbt_emission_rt_warps,
+               lib.pbt_transit_rt_tall_warps,
+               lib.pbt_transit_rt_tall_chains_per_sm):
         fn.argtypes = [cint] * 5
         fn.restype = cint
-    lib.pbt_transit_rt_tall_warps.argtypes = [cint] * 4
-    lib.pbt_transit_rt_tall_warps.restype = cint
     lib.pbt_emission_rt_max_mu.argtypes = []
     lib.pbt_emission_rt_max_mu.restype = cint
     return lib
@@ -430,7 +458,8 @@ def transit_rt_cuda(ec_parts, path2, scal, rad, h, hprev,
     nb, nlayers = rad.shape
     if nlayers > MAX_LAYERS:
         return _transit_rt_tall(ec_parts, path2, scal, rad, h, hprev, cia_w,
-                                cia_tab, r1_cols, r1_rows, ls_w, maxdepth)
+                                cia_tab, r1_cols, r1_rows, ls_w, ls_tab,
+                                maxdepth)
     nl4, index = _chord_index(nlayers, rad.device)
     keep, assembly, r1_cols, nwave, sizes = assembly_operands(
         ec_parts, cia_w, cia_tab, r1_cols, r1_rows, ls_w, ls_tab, nb,
@@ -466,53 +495,79 @@ def transit_rt_cuda(ec_parts, path2, scal, rad, h, hprev,
     return out
 
 
+def tall_layout(nlayers):
+    """How the tall function holds a chain's chord matrix: the gather
+    that packs path2 [l * l] (plus one trailing zero) for it.  The rows
+    go in passes of TALL_ROWS, whose depths the kernel keeps in
+    registers; pass p holds, for each layer j below min(round8(l),
+    TALL_ROWS (p + 1)), the TALL_ROWS values path2[TALL_ROWS p + r, j]
+    (zero past the last row or layer; the matrix is zero above its
+    diagonal, so a pass needs no layer below its last row)."""
+    if nlayers < 2:
+        raise ValueError(f'The tall function takes 2 layers or more, not '
+                         f'{nlayers}')
+    pieces = []
+    for r0 in range(0, nlayers, TALL_ROWS):
+        j = np.arange(min(_round8(nlayers), r0 + TALL_ROWS))[:, None]
+        i = r0 + np.arange(TALL_ROWS)[None, :]
+        pieces.append(np.where((i < nlayers) & (j < nlayers),
+                               i * nlayers + j, nlayers * nlayers).ravel())
+    return np.concatenate(pieces)
+
+
 @functools.lru_cache(maxsize=8)
-def _tri_index(nlayers, device):
-    """The gather that packs path2 [l * l] as its lower triangle (row i:
-    columns 0 .. i), zero-padded by one trailing float to a multiple of
-    4, as the tall function stages it."""
-    index = [i * nlayers + j for i in range(nlayers) for j in range(i + 1)]
-    index += [nlayers * nlayers] * (-len(index) % 4)
-    return torch.as_tensor(index, device=device)
+def _tall_index(nlayers, device):
+    return torch.as_tensor(tall_layout(nlayers), device=device)
 
 
-def tall_max_layers(n_r1, n_cia, n_parts):
+def tall_max_layers(n_r1, n_cia, n_ls, n_parts):
     """The most layers the tall function takes with these operand
-    counts: one chain's triangle and columns must fit a block's shared
-    memory."""
+    counts: one chain's weights, layer columns and ring must fit a
+    block's shared memory."""
     lib = _library()
     top = MAX_LAYERS
-    while lib.pbt_transit_rt_tall_warps(top + 1, n_r1, n_cia, n_parts) > 0:
+    while lib.pbt_transit_rt_tall_warps(
+            top + 1, n_r1, n_cia, n_ls, n_parts) > 0:
         top += 1
     return top
 
 
+def tall_chains_per_sm(nlayers, n_r1, n_cia, n_ls, n_parts):
+    """Chains the tall function keeps in flight on one SM with these
+    operand counts (blocks an SM by the CUDA runtime's occupancy rule,
+    times the teams of two warps a block)."""
+    return _library().pbt_transit_rt_tall_chains_per_sm(
+        nlayers, n_r1, n_cia, n_ls, n_parts)
+
+
 def _transit_rt_tall(ec_parts, path2, scal, rad, h, hprev, cia_w, cia_tab,
-                     r1_cols, r1_rows, ls_w, maxdepth):
+                     r1_cols, r1_rows, ls_w, ls_tab, maxdepth):
     """transit_rt_cuda above MAX_LAYERS layers: the tall function, the
-    chord matrix as a packed lower triangle in shared memory."""
+    chord matrix packed by passes of rows (tall_layout), the line-sample
+    table's rows padded to a multiple of four floats."""
     nb, nlayers = rad.shape
-    if ls_w is not None:
-        raise ValueError(
-            f'Above {MAX_LAYERS} layers the transit kernel takes no '
-            'line-sample operands: pass the line sample as a dense part '
-            '(ls_in_kernel)')
-    rows = -(-nlayers // 4) * 4
+    rows = _round8(nlayers)
     keep, assembly, r1_cols, nwave, sizes = assembly_operands(
-        ec_parts, cia_w, cia_tab, r1_cols, r1_rows, None, None, nb,
+        ec_parts, cia_w, cia_tab, r1_cols, r1_rows, ls_w, ls_tab, nb,
         nlayers, rows)
-    n_r1, n_cia, _, n_parts = sizes
     lib = _library()
-    if lib.pbt_transit_rt_tall_warps(nlayers, n_r1, n_cia, n_parts) < 1:
+    if lib.pbt_transit_rt_tall_warps(nlayers, *sizes) < 1:
+        n_r1, n_cia, n_ls, n_parts = sizes
         raise ValueError(
             f'The transit kernel takes at most '
-            f'{tall_max_layers(n_r1, n_cia, n_parts)} layers with {n_r1} '
-            f'rank-1 terms, {n_cia} CIA rows and {n_parts} dense parts, '
-            f'not {nlayers}: one chain\'s chord matrix and extinction '
-            'columns must fit the shared memory of one block')
+            f'{tall_max_layers(*sizes)} layers with {n_r1} rank-1 terms, '
+            f'{n_cia} CIA rows, {n_ls} line-sample rows and {n_parts} '
+            f'dense parts, not {nlayers}: one chain\'s weights, layer '
+            'columns and ring must fit the shared memory of one block')
+    # The kernel copies the table's rows 16 bytes at a time, padded to a
+    # multiple of four floats:
+    ls_stride = _round4(nwave)
+    if ls_tab is not None:
+        ls_tab = _pad_to(keep[5], ls_stride)
+        assembly[11] = ls_tab.data_ptr()
     path2 = _checked(path2, 'path2', (nb, nlayers, nlayers))
-    tri = F.pad(path2.reshape(nb, -1), (0, 1))[
-        :, _tri_index(nlayers, rad.device)].contiguous()
+    packed = F.pad(path2.reshape(nb, -1), (0, 1))[
+        :, _tall_index(nlayers, rad.device)]
     scal = _checked(scal, 'scal', (nb, 8))
     cols = [_checked(t, name, (nb, nlayers))[:, None] for t, name in (
         (rad, 'radius'), (h, 'h'), (hprev, 'hprev'))]
@@ -521,9 +576,10 @@ def _transit_rt_tall(ec_parts, path2, scal, rad, h, hprev, cia_w, cia_tab,
     cols = _pad_to(torch.cat(cols, dim=1), rows)
     out = torch.empty((nb, nwave), dtype=torch.float32, device=rad.device)
     err = lib.pbt_transit_rt_tall(
-        *assembly[:10], tri.data_ptr(), cols.data_ptr(), scal.data_ptr(),
-        out.data_ptr(), nb, nlayers, nwave, tri.shape[1], cols.shape[1],
-        float(maxdepth), torch.cuda.current_stream(rad.device).cuda_stream,
+        *assembly, packed.data_ptr(), cols.data_ptr(), scal.data_ptr(),
+        out.data_ptr(), nb, nlayers, nwave, ls_stride, packed.shape[1],
+        cols.shape[1], float(maxdepth),
+        torch.cuda.current_stream(rad.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(

@@ -169,7 +169,7 @@ def test_cuda_kernel_refuses_a_slab_beyond_shared_memory(cuda):
     nb, nlayers, nwave = 2, 51, 128
     radius, _, _, _, _, _ = _operands(nb, nlayers, nwave, 1, 1, seed=3)
     ls_w, ls_tab = _line_sample(nb, nlayers, nwave, 20, seed=4)
-    assert not tk.ls_in_kernel(20, nlayers)
+    assert not tk.ls_in_kernel(20, nlayers, 'transit')
     f32 = lambda a: torch.as_tensor(
         np.asarray(a), dtype=torch.float32, device=cuda)
     rr = f32(radius)
@@ -503,8 +503,8 @@ def test_cuda_lbl_engine_routes_to_kernels(cuda):
 
 def _overflow_operands(case, nb, nlayers, nwave, seed, emission=False):
     """Operands beyond one of the kernels' limits (40 CIA rows, 6 rank-1
-    terms, 5 dense parts, or 81 layers with the line sample as a dense
-    part), as lists the forwards would make before the size rule."""
+    terms, 5 dense parts, or 81 layers), as lists the forwards would
+    make before the size rule."""
     rng = np.random.default_rng(seed)
     lo = -28.0 if emission else -3.0
     scale = np.exp(np.linspace(0.0, 7.0, nlayers))[None, :, None]
@@ -522,13 +522,14 @@ def _overflow_operands(case, nb, nlayers, nwave, seed, emission=False):
     return parts, cia_w, cia_tab, r1c, r1r, ls_w, ls_tab
 
 
-def _fitted(case, nlayers, f32, parts, cia_w, cia_tab, r1c, r1r, ls_w,
-            ls_tab):
+def _fitted(case, nlayers, rt_path, f32, parts, cia_w, cia_tab, r1c, r1r,
+            ls_w, ls_tab):
     """The plain version's operands (all of them, any count) and the
-    kernel's (through the forwards' size rule)."""
+    kernel's (through the forwards' size rule for `rt_path`: above 64
+    layers the emission kernel takes the line sample as a dense part)."""
     ls = dict(ls_w=f32(ls_w), ls_tab=f32(ls_tab))
-    if not tk.ls_in_kernel(ls_w.shape[1], nlayers):
-        assert case == 'layers81'
+    if not tk.ls_in_kernel(ls_w.shape[1], nlayers, rt_path):
+        assert case == 'layers81' and rt_path == 'eclipse'
         parts = parts + [np.einsum('bkl,klw->blw', ls_w, ls_tab)]
         ls = dict(ls_w=None, ls_tab=None)
     full = dict(cia_w=f32(cia_w), cia_tab=f32(cia_tab), r1_cols=f32(r1c),
@@ -546,7 +547,8 @@ def _fitted(case, nlayers, f32, parts, cia_w, cia_tab, r1c, r1r, ls_w,
 def test_cuda_kernel_beyond_operand_limits(cuda, case):
     """The transit kernel on operands that the size rule fitted, against
     the plain version on all of them: 40 CIA rows, 6 rank-1 terms, 5
-    dense parts, and 81 layers (the tall function)."""
+    dense parts, and 81 layers (the tall function, the line sample in
+    it)."""
     nb, nwave = 37, 1000
     nlayers = 81 if case == 'layers81' else 51
     radius, _, _, _, _, _ = _operands(nb, nlayers, nwave, 1, 1, seed=21)
@@ -563,7 +565,9 @@ def test_cuda_kernel_beyond_operand_limits(cuda, case):
     operands = tk.prep_chains(
         transit_path_matrix(rr, i64(itop)), rr, 12.0, i64(itop),
         i64(deck_itop + 1), i64(deck_itop), f32(rsurf))
-    (ec, full), (fit_ec, fit) = _fitted(case, nlayers, f32, *raw)
+    (ec, full), (fit_ec, fit) = _fitted(case, nlayers, 'transit', f32,
+                                        *raw)
+    assert fit['ls_w'] is not None
     launches = tk.transit_rt_cuda.launches
     tall = tk.transit_rt_cuda.tall_launches
     got = tk.transit_rt_cuda(fit_ec, *operands, **fit, maxdepth=10.0)
@@ -598,7 +602,8 @@ def test_cuda_emission_kernel_beyond_operand_limits(cuda, case):
     operands = ek.prep_emission_chains(
         f32(radius), f32(temp), i64(itop), i64(deck_itop + 1),
         i64(deck_itop), f32(np.full(nb, 1600.0)))
-    (ec, full), (fit_ec, fit) = _fitted(case, nlayers, f32, *raw)
+    (ec, full), (fit_ec, fit) = _fitted(case, nlayers, 'eclipse', f32,
+                                        *raw)
     launches = ek.emission_rt_cuda.launches
     got = ek.emission_rt_cuda(fit_ec, *operands, f32(wn), mu, weights, **fit,
                               maxdepth=10.0)
@@ -612,13 +617,144 @@ def test_cuda_emission_kernel_beyond_operand_limits(cuda, case):
     assert np.max(np.abs(got - want) / scale) < EMISSION_TOL
 
 
+def _tall_case(cuda, nlayers, line_sample, nb=6, nwave=200, seed=31):
+    """Operands of the tall function and of its plain version: chain 0
+    plain, 1 with a NaN and an inf in its dense part, 2 rejected (its top
+    beyond the layers), 3 weak (depths below maxdepth, so that every row
+    and the deck splice count), 4 without a deck, 5 with its top lowered
+    by four layers; CIA, two rank-1 terms and, if `line_sample`, ls_w /
+    ls_tab; the dense part not 16-byte aligned."""
+    radius, parts, cia_tab, cia_w, r1c, r1r = _operands(
+        nb, nlayers, nwave, ncia=15, nr1=2, seed=seed)
+    parts = [parts[0]]
+    ls_w, ls_tab = _line_sample(nb, nlayers, nwave, 10, seed=seed + 1)
+    for weights in (parts[0], cia_w, r1c, ls_w):
+        weights[3] *= 1e-4
+    parts[0][1, 5, 17] = np.nan
+    parts[0][1, nlayers - 9, 40] = np.inf
+    f32 = lambda a: torch.as_tensor(
+        np.asarray(a), dtype=torch.float32, device=cuda)
+    i64 = lambda a: torch.as_tensor(np.asarray(a), device=cuda)
+    itop = np.array([0, 1, 10**6, 0, 2, 4])[:nb]
+    deck_itop = nlayers - 1 - 5 * np.arange(nb)
+    deck_itop[3] = nlayers // 3
+    ibottom = deck_itop + 1
+    ibottom[4] = nlayers
+    rsurf = radius[np.arange(nb), deck_itop] + 0.4 * (
+        radius[np.arange(nb), deck_itop - 1]
+        - radius[np.arange(nb), deck_itop])
+    rr = f32(radius)
+    path = transit_path_matrix(rr, i64(np.clip(itop, 0, nlayers - 1)))
+    operands = tk.prep_chains(path, rr, 12.0, i64(itop), i64(ibottom),
+                              i64(deck_itop), f32(rsurf))
+    kw = dict(cia_w=f32(cia_w), cia_tab=f32(cia_tab), r1_cols=f32(r1c),
+              r1_rows=f32(r1r), maxdepth=10.0)
+    if line_sample:
+        kw.update(ls_w=f32(ls_w), ls_tab=f32(ls_tab))
+    # The dense part as a view 4 bytes into its storage (the kernel copies
+    # it 4 bytes a lane, at any alignment):
+    part = f32(parts[0])
+    store = torch.empty(part.numel() + 1, dtype=part.dtype, device=cuda)
+    store[1:] = part.reshape(-1)
+    part = store[1:].view(part.shape)
+    assert part.data_ptr() % 16 != 0
+    return [part], operands, kw
+
+
+def _rows_agree(got, want, tol):
+    """Same non-finite entries, and the finite rows within `tol` of
+    their maximum."""
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    fine = np.where(np.isfinite(want), want, 0.0)
+    scale = np.abs(fine).max(axis=1, keepdims=True)
+    err = np.abs(np.where(np.isfinite(got), got, 0.0) - fine) / scale
+    assert np.max(err) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('line_sample', [True, False])
+@pytest.mark.parametrize('nlayers', [65, 81, 100, 'largest'])
+def test_cuda_tall_kernel_matches_plain(cuda, nlayers, line_sample):
+    """The tall function against the plain version at 65, 81 and 100
+    layers and at the most it takes with these operands, with the line
+    sample in the kernel or none: a NaN and an inf in one chain's dense
+    part stay in its columns, a rejected chain computes without
+    faulting, and the deck splice of a weakly absorbing chain holds."""
+    nwave = 200
+    if nlayers == 'largest':
+        nlayers = tk.tall_max_layers(2, 15, 10 if line_sample else 0, 1)
+        assert nlayers > 1000
+        nwave = 64
+    ec, operands, kw = _tall_case(cuda, nlayers, line_sample, nwave=nwave)
+    launches = tk.transit_rt_cuda.tall_launches
+    got = tk.transit_rt_cuda(ec, *operands, **kw)
+    want = tk.transit_rt_plain(ec, *operands, **kw)
+    torch.cuda.synchronize()
+    assert tk.transit_rt_cuda.tall_launches == launches + 1
+    assert not bool(torch.isfinite(got[1]).all())
+    assert bool(torch.isfinite(got[[0, 2, 3, 4, 5]]).all())
+    _rows_agree(got, want, TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('nlayers', [81, 100, 'largest'])
+def test_cuda_tall_kernel_keeps_float32_on_wide_range_operands(cuda,
+                                                               nlayers):
+    """The tall function's chord product runs on the tensor cores as three
+    TF32 products a step, summed into the depths in float32 outside
+    them.  On operands whose extinction grows e^7 down the layers, with
+    the line sample made a dense part beside two others (3 dense parts,
+    4 rank-1 terms, 32 CIA rows), at 81 and 100 layers and at the most
+    the function takes with these operands, it stays within a tenth of
+    the bound: as close to the plain version as float32 sums in another
+    order come, not the ~1e-3 of one TF32 product."""
+    nb, nwave = 8, 640
+    if nlayers == 'largest':
+        nlayers = tk.tall_max_layers(4, 32, 0, 3)
+        assert nlayers > 1000
+        nwave = 64
+    radius, parts, cia_tab, cia_w, r1c, r1r = _operands(
+        nb, nlayers, nwave, ncia=32, nr1=4, seed=41)
+    ls_w, ls_tab = _line_sample(nb, nlayers, nwave, 10, seed=42)
+    parts.append(np.einsum('bkl,klw->blw', ls_w, ls_tab))
+    f32 = lambda a: torch.as_tensor(
+        np.asarray(a), dtype=torch.float32, device=cuda)
+    i64 = lambda a: torch.as_tensor(np.asarray(a), device=cuda)
+    itop = np.arange(nb) % 3
+    deck_itop = nlayers - 1 - 3 * np.arange(nb)
+    rsurf = radius[np.arange(nb), deck_itop] + 0.4 * (
+        radius[np.arange(nb), deck_itop - 1]
+        - radius[np.arange(nb), deck_itop])
+    rr = f32(radius)
+    operands = tk.prep_chains(
+        transit_path_matrix(rr, i64(itop)), rr, 12.0, i64(itop),
+        i64(deck_itop + 1), i64(deck_itop), f32(rsurf))
+    kw = dict(cia_w=f32(cia_w), cia_tab=f32(cia_tab), r1_cols=f32(r1c),
+              r1_rows=f32(r1r), maxdepth=10.0)
+    ec = [f32(p) for p in parts]
+    launches = tk.transit_rt_cuda.tall_launches
+    got = tk.transit_rt_cuda(ec, *operands, **kw)
+    want = tk.transit_rt_plain(ec, *operands, **kw)
+    torch.cuda.synchronize()
+    assert tk.transit_rt_cuda.tall_launches == launches + 1
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert np.all(np.isfinite(got))
+    err = np.max(np.abs(got - want) / np.abs(want).max(axis=1, keepdims=True))
+    print(f'tall function, {nlayers} layers, wide-range operands: '
+          f'{err:.3g} of the row maximum')
+    assert err < TOL / 10
+
+
 @pytest.mark.cuda
 def test_cuda_tall_kernel_refuses_beyond_shared_memory(cuda):
-    """Above the layer count whose triangle and columns fit a block's
-    shared memory the tall function raises, stating the limit, before
-    any launch."""
-    top = tk.tall_max_layers(1, 15, 1)
-    assert 200 < top < 400
+    """Above the layer count whose weights, layer columns and ring fit a
+    block's shared memory the tall function raises, stating the limit,
+    before any launch; the limit lies far above the 81 and 100 layers
+    reference users run."""
+    top = tk.tall_max_layers(1, 15, 0, 1)
+    assert top > 1000
+    assert tk.tall_max_layers(1, 15, 10, 1) < top
     nb, nlayers, nwave = 2, top + 1, 64
     radius, parts, cia_tab, cia_w, r1c, r1r = _operands(
         nb, nlayers, nwave, 15, 1, seed=25)
@@ -635,6 +771,17 @@ def test_cuda_tall_kernel_refuses_beyond_shared_memory(cuda):
                            cia_tab=f32(cia_tab), r1_cols=f32(r1c),
                            r1_rows=f32(r1r))
     assert tk.transit_rt_cuda.launches == launches
+
+
+@pytest.mark.cuda
+def test_cuda_tall_kernel_chains_in_flight(cuda):
+    """The tall function's occupancy at the 81-layer retrieval's operand
+    counts (no dense part, one rank-1 term, 15 CIA rows, 10 line-sample
+    rows): three blocks of two teams an SM, six chains; and at the
+    spectrum path's (3 dense parts, 4 rank-1 terms, 32 CIA rows), whose
+    larger ring leaves room for two blocks."""
+    assert tk.tall_chains_per_sm(81, 1, 15, 10, 0) >= 6
+    assert tk.tall_chains_per_sm(81, 4, 32, 0, 3) >= 4
 
 
 @pytest.mark.cuda

@@ -415,7 +415,8 @@ def test_eclipse_forward_line_sample_routes(eclipse, monkeypatch, route):
     from pyratbay_tpu_torch.retrieval import batched
     _, (jmodel, jobs, jret, p0), (model, obs, ret) = eclipse
     if route == 'dense_part':
-        monkeypatch.setattr(batched, 'ls_in_kernel', lambda n_k, nl: False)
+        monkeypatch.setattr(batched, 'ls_in_kernel',
+                            lambda n_k, nl, rt_path: False)
     seen = {}
     real = model_mod.emission_flux_ensemble
 

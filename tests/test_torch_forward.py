@@ -115,7 +115,8 @@ def test_batched_forward_line_sample_routes(flagship, monkeypatch, route):
     from pyratbay_tpu_torch.retrieval import batched
     _, (jmodel, jobs, jret, _, p0), (model, obs, ret) = flagship
     if route == 'dense_part':
-        monkeypatch.setattr(batched, 'ls_in_kernel', lambda n_k, nl: False)
+        monkeypatch.setattr(batched, 'ls_in_kernel',
+                            lambda n_k, nl, rt_path: False)
     seen = {}
     real = model_mod.transit_spectrum_ensemble
 

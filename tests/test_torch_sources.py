@@ -217,12 +217,15 @@ def test_size_rule_fits_operands(case, parts, r1, cia):
 
 
 def test_size_rule_above_64_layers(workdir):
-    """At 81 layers the line sample goes to the kernels as a dense
-    part (the tall transit function takes no line-sample operands), and
-    Model.run's spectrum from the kernel's operands equals the one of
-    the summed dense extinction (rt.py on its depth and ideep)."""
+    """At 81 layers the line sample goes to the transit kernel as
+    ls_w / ls_tab (the tall function streams the table; the emission
+    kernel would take a dense part), and Model.run's spectrum from the
+    kernel's operands equals the one of the summed dense extinction
+    (rt.py on its depth and ideep)."""
     from pyratbay_tpu_torch.spectrum import rt
-    assert tk.ls_in_kernel(8, 64) and not tk.ls_in_kernel(8, 65)
+    assert tk.ls_in_kernel(8, 64, 'transit')
+    assert tk.ls_in_kernel(8, 65, 'transit')
+    assert not tk.ls_in_kernel(8, 65, 'eclipse')
     with open(os.path.join(workdir, 'flagship.cfg')) as f:
         text = f.read()
     cfg = os.path.join(workdir, 'tall.cfg')
@@ -232,7 +235,8 @@ def test_size_rule_above_64_layers(workdir):
             'maxdepth = 10.0\nptop = 1e-6 bar\npbottom = 100 bar\n'
             'nlayers = 81'))
     model = Model(cfg, device='cpu')
-    assert model.nlayers == 81 and line_sample_table(model) is None
+    assert model.nlayers == 81
+    assert line_sample_table(model).shape == (10, 81, model.nwave)
     seen = {}
     real = model_mod.transit_spectrum_ensemble
 
@@ -245,8 +249,9 @@ def test_size_rule_above_64_layers(workdir):
         got = model.run()
     finally:
         model_mod.transit_spectrum_ensemble = real
-    assert seen['kw']['ls_w'] is None and len(seen['parts']) == 1
-    assert seen['parts'][0].shape == (1, 81, model.nwave)
+    assert not seen['parts']
+    assert seen['kw']['ls_w'].shape == (1, 10, 81)
+    assert seen['kw']['ls_tab'].shape == (10, 81, model.nwave)
     rscale = model._radius_scale
     radius = torch.as_tensor(model.radius) / rscale
     deck = seen['kw']['deck_itop'][0]

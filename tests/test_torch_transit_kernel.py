@@ -181,11 +181,14 @@ def test_plain_line_sample_operands(case):
 def test_line_sample_size_rule():
     """The static rule of the batched forward: the flagship's table
     (10 temperatures x 51 layers) goes into the kernel, one whose
-    64-column slab would crowd out the warps' operands does not."""
-    assert tk.ls_in_kernel(10, 51)
-    assert tk.ls_in_kernel(2 * 4, 64)
-    assert not tk.ls_in_kernel(20, 51)
-    assert not tk.ls_in_kernel(10, 128)
+    64-column slab would crowd out the warps' operands does not; above
+    64 layers the transit kernel streams the table (it takes it), the
+    emission kernel does not."""
+    assert tk.ls_in_kernel(10, 51, 'transit')
+    assert tk.ls_in_kernel(2 * 4, 64, 'transit')
+    assert not tk.ls_in_kernel(20, 51, 'transit')
+    assert tk.ls_in_kernel(10, 128, 'transit')
+    assert not tk.ls_in_kernel(10, 128, 'eclipse')
 
 
 @pytest.mark.parametrize('nlayers', [12, 32, 51, 64])
