@@ -3,8 +3,10 @@ retrievals end to end on one CUDA device, through the hand-written
 transit and emission kernels, then the transit retrieval on 81 layers
 through the transit kernel's tall function, then forward spectra from
 configs (runmode = spectrum and atmosphere) through the same kernels at
-B = 1, then the flagship opacity workflow (line list -> TLI file ->
-cross-section table) through the hand-written line-by-line wing and
+B = 1, then retrievals as users run them (passbands from filter files
+and the bundled library, checkpoints and resume, the post-processing
+and --post), then the flagship opacity workflow (line list -> TLI file
+-> cross-section table) through the hand-written line-by-line wing and
 core kernels.
 
     python3 chip_smoke.py              # one GPU; exits non-zero on any failure
@@ -44,7 +46,20 @@ operand), the tall function also on the line sample made a dense part
 (3 dense parts, the operands of its earlier version); and timings:
 Model.run, the kernels at B = 1, the tall function (on both operand
 sets, with its profiler device time) and the emission kernel at B = 512
-on 81 layers.  Then the opacity path:
+on 81 layers.  Then the retrieval_post phase: the transit flagship's
+data in 12 bands whose passbands are filter files the script writes,
+run through the driver with a checkpoint after every chunk for 10
+generations of 512 chains and resumed to 20 (the checkpoint's
+generation and history checked), every numeric post-processing file
+(temperature and spectrum envelopes, median atmosphere, band
+contributions) held against the CPU in float64, the envelope's K1
+launch at B = 128 against its plain version, `python -m
+pyratbay_tpu_torch --post` in a process of its own, history_thin = 3
+against an unthinned run, and generations/s with and without the
+checkpoint in turns; then the eclipse flagship over 3.0-5.3 um with the
+bundled Spitzer IRAC 1 and 2 passbands by name and two filter files,
+10 generations and its post-processing (the emission band contributions)
+against the CPU.  Then the opacity path:
 a synthetic 50,000-line HITRAN H2O list through runmode = tli (the
 driver), Model(cfg, device='cuda').compute_opacity(engine='direct') on
 the flagship grid (10 T x 51 layers x 3209 points), the table read back
@@ -274,9 +289,10 @@ def rel_err(got, want):
     return float(np.max(diff / scale[rows, None])), float(np.max(diff))
 
 
-def write_retrieval_cfg(src_cfg, dst_cfg, data, uncert, filters, logfile):
+def write_retrieval_cfg(src_cfg, dst_cfg, data, uncert, filters, logfile,
+                        ngen=NGEN, extra=()):
     """The flagship config as a retrieval run with data and sampler
-    settings."""
+    settings (`ngen` generations of NCHAINS chains, `extra` lines)."""
     with open(src_cfg) as f:
         lines = f.read().splitlines()
     out = []
@@ -292,8 +308,9 @@ def write_retrieval_cfg(src_cfg, dst_cfg, data, uncert, filters, logfile):
         'filters =',
         *[f'    {entry}' for entry in filters],
         f'nchains = {NCHAINS}',
-        f'nsamples = {NCHAINS * NGEN}',
+        f'nsamples = {NCHAINS * ngen}',
         'burnin = 2',
+        *extra,
     ]
     with open(dst_cfg, 'w') as f:
         f.write('\n'.join(out) + '\n')
@@ -336,27 +353,29 @@ def tensor_bytes(*tensors):
                if torch.is_tensor(t))
 
 
-def kernel_cases(label, model, call, rejected):
-    """Kernel operands at the flagship's width from a recorded B = 512
-    call of the main path's wrapper and a recorded call with a rejected
-    chain: name -> (args, kwargs) of the kernel and its plain version.
-    Cases named *_ls_* carry the line sample as ls_w / ls_tab, cases
-    named *_dense_* as a dense part."""
+_PER_CHAIN = ('cia_w', 'r1_cols', 'r1_rows', 'ls_w')
+
+
+def _common(kw, sl, **over):
+    """The keyword operands of a recorded wrapper call for the chains
+    `sl`, with `over` in place."""
+    out = {k: kw[k] for k in (*_PER_CHAIN, 'cia_tab', 'ls_tab', 'maxdepth')}
+    out = {k: (v[sl] if k in _PER_CHAIN and v is not None else v)
+           for k, v in out.items()}
+    out.update(over)
+    return out
+
+
+def _prep(label, model, args, kw, sl, deck=True, lower_top=0):
+    """The kernel's positional operands after the dense parts, from a
+    recorded call of the wrapper of `label`'s RT path, for the chains
+    `sl` (with the deck, or without it; the top lowered by
+    `lower_top` layers)."""
     import torch
     from pyratbay_tpu_torch.atmosphere import geometry
     from pyratbay_tpu_torch.spectrum import emission_kernel as ek
     from pyratbay_tpu_torch.spectrum import transit_kernel as tk
-    per_chain = ('cia_w', 'r1_cols', 'r1_rows', 'ls_w')
-
-    def common(kw, sl, **over):
-        out = {k: kw[k] for k in (*per_chain, 'cia_tab', 'ls_tab',
-                                  'maxdepth')}
-        out = {k: (v[sl] if k in per_chain and v is not None else v)
-               for k, v in out.items()}
-        out.update(over)
-        return out
-
-    def prep_transit(args, kw, sl, deck=True, lower_top=0):
+    if label == 'transit':
         _, path, rr, rstar, itop, ibottom = args
         itop, path = itop[sl], path[sl]
         if lower_top:
@@ -369,20 +388,39 @@ def kernel_cases(label, model, call, rejected):
                 kw['deck_rsurf'][sl])
         return tk.prep_chains(path, rr[sl], rstar, itop,
                               torch.full_like(ibottom[sl], model.nlayers))
+    _, radius, temp, wn, mu, weights, itop, ibottom = args
+    itop = itop[sl] + lower_top
+    if deck:
+        operands = ek.prep_emission_chains(
+            radius[sl], temp[sl], itop, ibottom[sl], kw['deck_itop'][sl],
+            kw['deck_tsurf'][sl])
+    else:
+        operands = ek.prep_emission_chains(
+            radius[sl], temp[sl], itop, model.nlayers)
+    return (*operands, wn, mu, weights)
 
-    def prep_emission(args, kw, sl, deck=True, lower_top=0):
-        _, radius, temp, wn, mu, weights, itop, ibottom = args
-        itop = itop[sl] + lower_top
-        if deck:
-            operands = ek.prep_emission_chains(
-                radius[sl], temp[sl], itop, ibottom[sl], kw['deck_itop'][sl],
-                kw['deck_tsurf'][sl])
-        else:
-            operands = ek.prep_emission_chains(
-                radius[sl], temp[sl], itop, model.nlayers)
-        return (*operands, wn, mu, weights)
 
-    prep = prep_transit if label == 'transit' else prep_emission
+def wrapper_case(label, model, call):
+    """The kernel's (args, kwargs) for every chain of one recorded
+    wrapper call, as the wrapper hands them to the kernel."""
+    args, kw = call
+    every = slice(None)
+    return ((list(args[0]), *_prep(label, model, args, kw, every)),
+            _common(kw, every))
+
+
+def kernel_cases(label, model, call, rejected):
+    """Kernel operands at the flagship's width from a recorded B = 512
+    call of the main path's wrapper and a recorded call with a rejected
+    chain: name -> (args, kwargs) of the kernel and its plain version.
+    Cases named *_ls_* carry the line sample as ls_w / ls_tab, cases
+    named *_dense_* as a dense part."""
+    import torch
+    common = _common
+
+    def prep(args, kw, sl, deck=True, lower_top=0):
+        return _prep(label, model, args, kw, sl, deck, lower_top)
+
     args, kw = call
     if args[0] or kw['ls_w'] is None:
         fail(f'{label}: the main path did not hand the kernel the line '
@@ -793,6 +831,7 @@ def run_spectrum(workdir, dev, args, card):
     from pyratbay_tpu_torch.benchmark import make_flagship
     from pyratbay_tpu_torch.driver import run
     from pyratbay_tpu_torch.io import io as pio
+    phase_t0 = time.perf_counter()
     from pyratbay_tpu_torch.model import Model
     from pyratbay_tpu_torch.observation import Observation
     from pyratbay_tpu_torch.retrieval import batched
@@ -1485,6 +1524,395 @@ def run_opacity(workdir, dev, args, card):
     return entries
 
 
+# The retrieval_post phase: a retrieval as users run it.  The transit
+# flagship's data in 12 bands whose passbands are filter files the script
+# writes (WFC3 G141-like trapezoids); the eclipse flagship written over
+# 3.0-5.3 um (K3) with the bundled Spitzer IRAC 1 and 2 passbands by name
+# and two filter files.  POST_GENS generations, then a resume to twice
+# as many, with a checkpoint after every chunk (dt_retrieval_snapshot =
+# 0); the post-processing on the card held against the CPU in float64.
+POST_GENS = 10
+POST_TOL = FORWARD_TOL
+ENVELOPE_DRAWS = 128
+POST_FILES = ('_temperature_posterior.npz', '_spectrum_posterior.npz',
+              '_band_contribution.npz', '_median.atm')
+POST_PLOTS = ('_bestfit_spectrum.png', '_posteriors.png', '_temperature.png',
+              '_band_contribution.png', '_abundance.png')
+ECLIPSE_WL = (3.0, 5.3)
+
+
+def write_filter_file(path, wl0, half_width, ramp):
+    """A two-column passband file (wavelength in um, response), the
+    reference's format: a trapezoid, flat within wl0 +- (half_width -
+    ramp)."""
+    wl = np.linspace(wl0 - half_width - 0.002, wl0 + half_width + 0.002, 101)
+    resp = np.clip((half_width - np.abs(wl - wl0)) / ramp, 0.0, 1.0)
+    np.savetxt(path, np.column_stack([wl, resp]), fmt='%.6f',
+               header='wavelength (um)   response')
+    return path
+
+
+def _rel_to_max(got, want):
+    """max |got - want| over each row's max |want| (a 1-D array is one
+    row; a 2-D one's columns are its rows: bands, species)."""
+    got = np.atleast_2d(np.asarray(got, float).T)
+    want = np.atleast_2d(np.asarray(want, float).T)
+    if got.shape != want.shape or not np.all(np.isfinite(got)):
+        return np.inf
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    return float(np.max(np.abs(got - want)
+                        / np.where(scale > 0, scale, 1.0)))
+
+
+def post_file_errors(got_base, want_base):
+    """Each numeric post-processing file of one run against another's:
+    file -> the largest _rel_to_max over its arrays."""
+    from pyratbay_tpu_torch.io import io as pio
+    errs = {}
+    for suffix in POST_FILES[:3]:
+        with np.load(got_base + suffix) as got, \
+                np.load(want_base + suffix) as want:
+            errs[suffix] = max(_rel_to_max(got[k], want[k])
+                               for k in want.files)
+    got = pio.read_atm(got_base + '_median.atm')
+    want = pio.read_atm(want_base + '_median.atm')
+    errs['_median.atm'] = max(_rel_to_max(g, w)
+                              for g, w in zip(got[2:], want[2:])
+                              if w is not None)
+    return errs
+
+
+def timed_calls(pairs, fn):
+    """Run fn() with each (module or class, name) of `pairs` wrapped in
+    a timer that ends in a synchronize; return the seconds spent in
+    each."""
+    import torch
+    seconds, reals = {name: 0.0 for _, name in pairs}, {}
+    for owner, name in pairs:
+        reals[name] = real = getattr(owner, name)
+
+        def timer(*a, _name=name, _real=real, **kw):
+            t0 = time.perf_counter()
+            out = _real(*a, **kw)
+            torch.cuda.synchronize()
+            seconds[_name] += time.perf_counter() - t0
+            return out
+
+        setattr(owner, name, timer)
+    try:
+        fn()
+    finally:
+        for owner, name in pairs:
+            setattr(owner, name, reals[name])
+    return seconds
+
+
+def run_retrieval_post(workdir, dev, args, card):
+    """The retrieval_post phase (see POST_GENS).  Returns each kernel's
+    launches in the phase's driver runs and the envelope launch's
+    largest difference from its plain version."""
+    import torch
+    from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch.benchmark import make_flagship
+    from pyratbay_tpu_torch.driver import run
+    from pyratbay_tpu_torch.io import io as pio
+    phase_t0 = time.perf_counter()
+    from pyratbay_tpu_torch.observation import Observation
+    from pyratbay_tpu_torch.retrieval import driver as rdriver
+    from pyratbay_tpu_torch.retrieval import posterior as rposterior
+    from pyratbay_tpu_torch.retrieval.batched import (
+        build_forward_batched, build_log_posterior_batched,
+    )
+    from pyratbay_tpu_torch.retrieval.forward import build_forward
+    from pyratbay_tpu_torch.retrieval.params import RetrievalParams
+    from pyratbay_tpu_torch.retrieval.samplers import sample_demc
+    from pyratbay_tpu_torch.spectrum import emission_kernel as ek
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+
+    def setup(label, rt_path, filters_of, noise, **size):
+        """The flagship with `rt_path` in its own directory, data in the
+        bands `filters_of(dir)` names, and its retrieval config."""
+        pdir = os.path.join(workdir, label)
+        os.makedirs(pdir)
+        model, _, _, _, p0 = make_flagship(pdir, device=dev, rt_path=rt_path,
+                                           **size)
+        filters = filters_of(pdir)
+
+        class _Cfg:
+            data = uncert = obsfile = dunits = None
+            offset_inst = uncert_scaling = None
+
+        _Cfg.filters = filters
+        obs = Observation(_Cfg, model.wn)
+        ret = RetrievalParams(model, obs)
+        band0 = build_forward(model, obs, ret)(p0)['bandflux'].cpu().numpy()
+        uncert = noise(band0)
+        data = band0 + np.random.default_rng(1).normal(0, uncert)
+        cfg_file = os.path.join(pdir, 'retrieval.cfg')
+        write_retrieval_cfg(
+            os.path.join(pdir, 'flagship.cfg'), cfg_file, data, uncert,
+            filters, os.path.join(pdir, 'retrieval.log'), ngen=POST_GENS,
+            extra=['dt_retrieval_snapshot = 0'])
+        return model, cfg_file, os.path.join(pdir, 'retrieval'), obs
+
+    def zero_counts():
+        tk.transit_rt_cuda.launches = 0
+        tk.transit_rt_cuda.single_chain_launches = 0
+        tk.transit_rt_cuda.tall_launches = 0
+        ek.emission_rt_cuda.launches = 0
+
+    def counts():
+        return {'transit_rt': (tk.transit_rt_cuda.launches
+                               - tk.transit_rt_cuda.tall_launches),
+                'transit_rt_single_chain':
+                    tk.transit_rt_cuda.single_chain_launches,
+                'emission_rt': ek.emission_rt_cuda.launches}
+
+    post_s = []
+
+    def driven(cfg_file):
+        """run() of a retrieval config on the card, timed, with its
+        post-processing timed apart."""
+        real = rdriver.post_process
+
+        def post(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real(*a, **kw)
+            torch.cuda.synchronize()
+            post_s.append(time.perf_counter() - t0)
+
+        rdriver.post_process = post
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = run(cfg_file, seed=0)
+            torch.cuda.synchronize()
+        finally:
+            rdriver.post_process = real
+        if model.device.type != 'cuda':
+            fail(f'retrieval_post: the retrieval ran on {model.device}')
+        return model, time.perf_counter() - t0
+
+    def outputs(base, label):
+        missing = [s for s in POST_FILES if not os.path.isfile(base + s)]
+        if missing:
+            fail(f'retrieval_post {label}: no {missing}')
+        return all(os.path.isfile(base + s) for s in POST_PLOTS)
+
+    def against_cpu(cfg_file, base, label):
+        t0 = time.perf_counter()
+        rdriver.posterior_post_processing(cfg_file, suffix='_cpu',
+                                          device='cpu')
+        cpu_s = time.perf_counter() - t0
+        errs = post_file_errors(base, base + '_cpu')
+        if not max(errs.values()) < POST_TOL:
+            fail(f'retrieval_post {label}: the post-processing on the card '
+                 f'disagrees with the CPU in float64: {errs}')
+        return errs, cpu_s
+
+    # Transit: 12 filter files, 10 generations, then resumed to 20:
+    def transit_filters(pdir):
+        return [write_filter_file(os.path.join(pdir, f'g141_bin{i:02d}.dat'),
+                                  wl0, 0.02, 0.005)
+                for i, wl0 in enumerate(np.linspace(1.13, 1.67, 12))]
+
+    _, cfg_file, base, _ = setup('post_transit', 'transit', transit_filters,
+                                 lambda b: np.full(len(b), NOISE))
+    ckpt_file = base + '_checkpoint.npz'
+    zero_counts()
+    _, first_s = driven(cfg_file)
+    with np.load(ckpt_file) as f:
+        ckpt1 = {k: f[k] for k in f.files}
+    with open(cfg_file) as f:
+        text = f.read().replace(f'nsamples = {NCHAINS * POST_GENS}',
+                                f'nsamples = {NCHAINS * 2 * POST_GENS}')
+    with open(cfg_file, 'w') as f:
+        f.write(text + 'resume = True\n')
+    rmodel, second_s = driven(cfg_file)
+    transit_launches = counts()
+    with np.load(ckpt_file) as f:
+        ckpt2 = {k: f[k] for k in f.files}
+    igens = [int(ckpt1['igen']), int(ckpt2['igen'])]
+    if igens != [POST_GENS, 2 * POST_GENS]:
+        fail(f'retrieval_post: checkpoint generations {igens}')
+    if not np.array_equal(ckpt2['hist_chains'][:POST_GENS],
+                          ckpt1['hist_chains']):
+        fail('retrieval_post: the resumed history does not start with the '
+             'first run\'s')
+    with np.load(base + '.npz') as out:
+        posterior = out['posterior']
+        if posterior.shape != ((2 * POST_GENS - 2) * NCHAINS, 7) \
+                or not np.all(np.isfinite(posterior)):
+            fail(f'retrieval_post: posterior {posterior.shape}')
+    transit_plots = outputs(base, 'transit')
+    min_launches = 2 * (POST_GENS + 1) + 1
+    if transit_launches['transit_rt'] < min_launches \
+            or transit_launches['transit_rt_single_chain'] < 2:
+        fail(f'retrieval_post: transit launches {transit_launches}')
+    transit_errs, transit_cpu_s = against_cpu(cfg_file, base, 'transit')
+
+    # The envelope's K1 launch at B = 128 against its plain version, and
+    # its batched forward by CUDA events:
+    forward_b = build_forward_batched(rmodel, rmodel.obs, rmodel.ret)
+    thinned = rmodel.posterior[::max(1, len(rmodel.posterior) // 256)]
+    call, = record_calls(
+        ((model_mod, 'transit_spectrum_ensemble'),),
+        lambda: rposterior.spectrum_posterior(
+            thinned, lambda p: forward_b(p)['spectrum'],
+            max_draws=ENVELOPE_DRAWS))
+    case = wrapper_case('transit', rmodel, call)
+    if case[0][1].shape[0] != ENVELOPE_DRAWS:
+        fail(f'retrieval_post: the envelope launched K1 at B = '
+             f'{case[0][1].shape[0]}')
+    envelope_abs = check_kernel(
+        KERNELS['transit']['name'], tk.transit_rt_cuda, tk.transit_rt_plain,
+        {f'envelope_B{ENVELOPE_DRAWS}': case}, KERNELS['transit']['tol'])
+    draws = thinned[np.random.default_rng(0).choice(
+        len(thinned), ENVELOPE_DRAWS, replace=False)]
+    draws_t = torch.as_tensor(draws, dtype=rmodel.dtype, device=dev)
+    with torch.no_grad():
+        envelope_ms = float(np.median(cuda_times(lambda: forward_b(draws_t))))
+
+    # --post in a process of its own:
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'pyratbay_tpu_torch', '--post', cfg_file,
+         '--suffix', '_post'], cwd=HERE, capture_output=True, text=True,
+        timeout=600)
+    post_cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f'retrieval_post: --post exited {proc.returncode}: '
+             f'{proc.stderr[-2000:]}')
+    outputs(base + '_post', '--post')
+    post_cli_errs = post_file_errors(base + '_post', base)
+    if not max(post_cli_errs.values()) < KERNELS['transit']['tol']:
+        fail(f'retrieval_post: --post wrote other numbers {post_cli_errs}')
+
+    # history_thin = 3 against every third state of an unthinned run from
+    # the same generator seed; generations/s with a checkpoint file
+    # written after the chunk (checkpoint_dt = 0) and without, in turns:
+    log_post_b = build_log_posterior_batched(rmodel, rmodel.obs, rmodel.ret)
+    ret = rmodel.ret
+
+    def demc(gens, **kw):
+        with torch.no_grad():
+            return sample_demc(
+                log_post_b, ret.params, nsamples=NCHAINS * gens,
+                nchains=NCHAINS,
+                generator=torch.Generator(device=dev).manual_seed(5),
+                pstep=ret.pstep, pmin=ret.pmin, pmax=ret.pmax, device=dev,
+                dtype=rmodel.dtype, **kw)
+
+    full, thin3 = demc(9), demc(9, history_thin=3)
+    thin_equal = bool(np.array_equal(thin3['chain_history'],
+                                     full['chain_history'][2::3]))
+    if not thin_equal:
+        fail('retrieval_post: history_thin = 3 differs from every third '
+             'state of the unthinned run')
+    timing_ckpt = os.path.join(workdir, 'post_transit', 'timing_ckpt.npz')
+    gens_per_s = {'no_checkpoint': [], 'checkpoint_dt_0': []}
+    for name in ('no_checkpoint', 'checkpoint_dt_0', 'checkpoint_dt_0',
+                 'no_checkpoint'):
+        kw = {} if name == 'no_checkpoint' else dict(
+            checkpoint_file=timing_ckpt, checkpoint_dt=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        demc(POST_GENS, **kw)
+        torch.cuda.synchronize()
+        gens_per_s[name].append(POST_GENS / (time.perf_counter() - t0))
+
+    steps = None
+    if args.profile:
+        steps = profile_post(cfg_file, dev, timed=lambda fn: timed_calls((
+            (rposterior, 'temperature_posterior'),
+            (rposterior, 'spectrum_posterior'), (pio, 'write_atm'),
+            (model_mod.Model, 'band_contribution'), (rdriver, '_plots'),
+        ), fn))
+
+    # Eclipse: the bundled Spitzer IRAC 1 and 2 passbands by name and two
+    # filter files, 51 x 1447 (3.0-5.3 um), K3:
+    def eclipse_filters(pdir):
+        return ['spitzer_irac1', 'spitzer_irac2',
+                write_filter_file(os.path.join(pdir, 'nirspec_3.30.dat'),
+                                  3.3, 0.05, 0.01),
+                write_filter_file(os.path.join(pdir, 'nirspec_5.05.dat'),
+                                  5.05, 0.1, 0.02)]
+
+    emodel, ecfg, ebase, eobs = setup(
+        'post_eclipse', 'eclipse', eclipse_filters,
+        lambda b: np.maximum(np.abs(b) * ECLIPSE_NOISE, 1e-12),
+        wl_low=ECLIPSE_WL[0], wl_high=ECLIPSE_WL[1])
+    zero_counts()
+    _, eclipse_s = driven(ecfg)
+    eclipse_launches = counts()
+    if eclipse_launches['emission_rt'] < POST_GENS + 3:
+        fail(f'retrieval_post: eclipse launches {eclipse_launches}')
+    eclipse_plots = outputs(ebase, 'eclipse')
+    eclipse_errs, eclipse_cpu_s = against_cpu(ecfg, ebase, 'eclipse')
+
+    emit('retrieval_post', card=card, nchains=NCHAINS,
+         transit=dict(
+             nlayers=rmodel.nlayers, nwave=rmodel.nwave,
+             bands=len(rmodel.obs.filters), generations=igens,
+             run_s=[first_s, second_s], post_process_s=post_s[:2],
+             post_cli_s=post_cli_s, cpu_post_process_s=transit_cpu_s,
+             envelope_forward_ms=envelope_ms,
+             envelope_draws=ENVELOPE_DRAWS,
+             demc_generations_per_s=gens_per_s,
+             history_thin_3_equal=thin_equal, launches=transit_launches,
+             gpu_vs_cpu_rel_err=transit_errs, post_cli_rel_err=post_cli_errs,
+             plots_written=transit_plots, post_steps_s=steps),
+         eclipse=dict(
+             nlayers=emodel.nlayers, nwave=emodel.nwave,
+             bands=[band.name for band in eobs.filters],
+             run_s=eclipse_s, post_process_s=post_s[2:],
+             cpu_post_process_s=eclipse_cpu_s, launches=eclipse_launches,
+             gpu_vs_cpu_rel_err=eclipse_errs, plots_written=eclipse_plots),
+         tol=POST_TOL, phase_s=time.perf_counter() - phase_t0,
+         note='run_s: run() of the retrieval config, host clock ending in '
+              'a synchronize (post-processing included); post_process_s: '
+              'the same clock around post_process; envelope_forward_ms: '
+              'CUDA events, median; generations/s: host clock, in turns; '
+              'phase_s: the whole phase, --profile included')
+    launches = {k: transit_launches[k] + eclipse_launches[k]
+                for k in transit_launches}
+    return launches, max(envelope_abs.values())
+
+
+def profile_post(cfg_file, dev, timed):
+    """Where the time of one post-processing goes: torch.profiler over
+    posterior_post_processing on the card (device busy time, launches,
+    the device kernels by time) and the host seconds of its steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from pyratbay_tpu_torch.retrieval import driver as rdriver
+    box = {}
+
+    def once():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rdriver.posterior_post_processing(cfg_file, suffix='_prof',
+                                          device=dev)
+        torch.cuda.synchronize()
+        box['s'] = time.perf_counter() - t0
+
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        steps = timed(once)
+    rows = sorted(((evt.device_time_total, evt.key, evt.count)
+                   for evt in prof.key_averages()
+                   if evt.device_type != DeviceType.CPU), reverse=True)
+    busy_us = sum(us for us, _, _ in rows)
+    emit('profile_post', seconds=box['s'], steps_s=steps,
+         device_busy_us=busy_us, device_launches=sum(c for _, _, c in rows),
+         device_idle_share=1.0 - busy_us * 1e-6 / box['s'],
+         device_kernels=[{'name': name[:80], 'us': us, 'calls': calls}
+                         for us, name, calls in rows[:12]])
+    return steps
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--profile', action='store_true',
@@ -1554,6 +1982,16 @@ def main():
         kernels[3]['max_abs_err'] = max(kernels[3]['max_abs_err'],
                                         tall['max_abs_err'])
         kernels[3]['spectrum_operands'] = tall['spectrum_operands']
+        # The retrieval as users run it (filter files, the bundled
+        # passbands, checkpoints and resume, the post-processing):
+        post_launches, envelope_abs = run_retrieval_post(
+            workdir, dev, args, card)
+        for entry in kernels[:3]:
+            more = post_launches[entry['name']]
+            entry['launches_by_path']['retrieval_post'] = more
+            entry['launches'] += more
+        kernels[0]['max_abs_err'] = max(kernels[0]['max_abs_err'],
+                                        envelope_abs)
         path_dir = os.path.join(workdir, 'opacity')
         os.makedirs(path_dir)
         kernels += run_opacity(path_dir, dev, args, card)

@@ -1,10 +1,11 @@
 """Packaged physical data: species properties, isotope tables,
-TIPS-2021 partition functions and the bundled CIA tables.
+TIPS-2021 partition functions, the bundled CIA tables and the bundled
+instrument passbands.
 
-The isotope, TIPS and CIA tables are the JAX package's bundled files
-(`pyratbay_tpu/data/*.npz`, `pyratbay_tpu/data/cia/*.npz`), read by path
-through TABLES_DIR rather than copied: a file read imports nothing of
-that package.
+The isotope, TIPS, CIA and filter tables are the JAX package's bundled
+files (`pyratbay_tpu/data/*.npz`, `pyratbay_tpu/data/cia/*.npz`), read by
+path through TABLES_DIR rather than copied: a file read imports nothing
+of that package.
 """
 import functools
 import os
@@ -12,7 +13,7 @@ import os
 import numpy as np
 
 __all__ = ['TABLES_DIR', 'isotopes_table', 'tips_table', 'get_iso',
-           'list_cia', 'cia_file']
+           'list_cia', 'cia_file', 'list_filters', 'filter_response']
 
 TABLES_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
@@ -78,6 +79,30 @@ def cia_file(name):
     raise FileNotFoundError(
         f"No bundled CIA table matching '{name}'; available: {available}"
     )
+
+
+@functools.lru_cache(maxsize=1)
+def _filter_bundle():
+    with np.load(os.path.join(TABLES_DIR, 'filters.npz')) as f:
+        return {key: f[key] for key in f.files}
+
+
+def list_filters():
+    """Bundled instrument passband names (CHEOPS, Kepler, Spitzer
+    IRAC/MIPS, TESS)."""
+    return sorted(
+        key[:-3] for key in _filter_bundle() if key.endswith('_wl'))
+
+
+def filter_response(name):
+    """(wl [um], response) arrays of a bundled instrument passband."""
+    bundle = _filter_bundle()
+    key = str(name).lower()
+    if key + '_wl' not in bundle:
+        raise FileNotFoundError(
+            f"No bundled filter named '{name}'; available: "
+            f'{list_filters()}')
+    return bundle[key + '_wl'], bundle[key + '_response']
 
 
 def get_iso(molname):

@@ -3,8 +3,9 @@
 Port of pyratbay_tpu/driver.py for runmode = tli (line lists to a TLI
 file), atmosphere (the atmospheric profiles to output_atmfile),
 spectrum (one forward spectrum, Model.run, to specfile), opacity (the
-JAX default engine, whose port is pending) and retrieval; radeq and the
-nested sampler are not ported yet (ROADMAP.md A10).
+JAX default engine, whose port is pending) and retrieval (DEMC with
+checkpoints, resume and post-processing); radeq and the nested sampler
+are not ported yet (ROADMAP.md A10).
 """
 import os
 
@@ -42,7 +43,8 @@ def run(cfile, device=None, root=None, seed=0):
             'yet (ROADMAP.md A10)'
         )
     log = Log(
-        logname=cfg.logfile, verb=cfg.verb if cfg.verb is not None else 2)
+        logname=cfg.logfile, verb=cfg.verb if cfg.verb is not None else 2,
+        append=bool(cfg.resume))
     log.head(
         f'{log.sep}\n  pyratbay_tpu_torch v{__version__}\n'
         f'  Run mode: {cfg.runmode}\n  Config: {cfile}\n{log.sep}'

@@ -679,19 +679,21 @@ class Model:
             vmr_pars=None, pars_list=None, fpatchy=None):
         """Evaluate the forward model of one atmosphere; returns a dict
         of tensors and stores .spectrum, .depth, .ideep, .clear,
-        .cloudy, .temp, .radius and .vmr as pyratbay_tpu's Model.run.
+        .cloudy, .bbody, .depth_clear, .ideep_clear, .temp, .radius and
+        .vmr as pyratbay_tpu's Model.run.
 
         The spectrum comes from the RT kernels at B = 1 (on the CPU their
         plain versions), on the operands the batched forward assembles
         (retrieval/batched.py assemble_opacity, spectra): one launch of
         the transit kernel (the counterpart of pyratbay_tpu's
         transit_spectrum_fused) or of the emission kernel, two for a
-        patchy model.  depth and ideep are diagnostics computed from the
-        summed dense extinction with spectrum/rt.py, as the reference
-        computes them beside its fused kernel.  An out-of-bounds
+        patchy model.  depth, ideep (and bbody, depth_clear,
+        ideep_clear) are diagnostics computed from the summed dense
+        extinction (retrieval/batched.py rt_diagnostics), as the
+        reference computes them beside its fused kernel.  An out-of-bounds
         temperature gives a zero spectrum and 'out_of_bounds'.
         """
-        from .retrieval.batched import spectra
+        from .retrieval.batched import rt_diagnostics, spectra
         temp = self.eval_temp(tpars) if temp is None else self._tensor(temp)
         oob = self.check_temp_bounds(temp)
         if oob or bool(torch.any(temp <= 0)):
@@ -720,24 +722,9 @@ class Model:
             result['cloudy'], result['clear'] = cloudy[0], clear[0]
 
         # The diagnostics, from the same operands summed:
-        ec, ec_cloud, deck = self._summed(ops, ls_tab, temp)
-        ibottom = self.nlayers if deck is None else int(deck[0]) + 1
-        ec_total = ec + ec_cloud if self.is_patchy else ec
-        if self.rt_path in pc.TRANSMISSION_RT:
-            rscale = self._radius_scale
-            path = geometry.transit_path_matrix(
-                radius[None] / rscale, rtop)[0] * rscale
-            depth_fn = lambda e, bottom: rt.transit_depth(
-                e, path, self.maxdepth, rtop, bottom)
-        else:
-            depth_fn = lambda e, bottom: rt.plane_parallel_depth(
-                e, radius, self.maxdepth, rtop, bottom)
-        result['depth'], result['ideep'] = depth_fn(ec_total, ibottom)
-        if deck is not None and self.rt_path not in pc.TRANSMISSION_RT:
-            result['ideep'] = torch.clamp(result['ideep'], 0, int(deck[0]))
-        if self.is_patchy and self.rt_path in pc.TRANSMISSION_RT:
-            result['depth_clear'], result['ideep_clear'] = depth_fn(
-                ec, self.nlayers)
+        diag = rt_diagnostics(self, ops, ls_tab, temp[None], radius[None],
+                              rtop[None])
+        result.update({key: val[0] for key, val in diag.items()})
 
         # Eclipse: Fp/Fs scaled by (Rp/Rs)^2 (pyratbay_tpu/model.py:
         # 1142-1156):
@@ -758,11 +745,63 @@ class Model:
         self.cloudy = host('cloudy')
         self.depth = result['depth']
         self.ideep = result['ideep']
+        self.bbody = result.get('bbody')
+        self.depth_clear = result.get('depth_clear')
+        self.ideep_clear = result.get('ideep_clear')
+        self._last_fpatchy = fpatchy
         self.temp = temp.cpu().numpy()
         self.radius = None if radius is None else radius.cpu().numpy()
         self.vmr = vmr.cpu().numpy()
         self.log.msg(f'Forward model done on {self.device}')
         return result
+
+    def band_contribution(self, obs, result=None):
+        """Band-averaged contribution functions (emission) or
+        transmittances (transmission) at each band of `obs`
+        [nlayers, nbands] (numpy), as pyratbay_tpu's
+        Model.band_contribution: transit gives the patchy-mixed e^-tau,
+        emission the Knutson et al. (2009) B d(e^-tau)/dln p with the
+        depth zeroed below ideep; both weighted by each band's raw
+        response and max-normalized per band.
+
+        result: a dict from run() or from a forward called with
+        diagnostics=True (one chain); defaults to the last run()'s state.
+        """
+        from .spectrum import contribution as cfuncs
+        from .spectrum.passbands import band_cf_matrix
+        if result is not None:
+            depth, ideep = result['depth'], result['ideep']
+            bbody = result.get('bbody')
+            depth_clear = result.get('depth_clear')
+            ideep_clear = result.get('ideep_clear')
+            fpatchy = result.get('fpatchy', self.fpatchy)
+        else:
+            last = lambda key: getattr(self, key, None)
+            depth, ideep, bbody = last('depth'), last('ideep'), last('bbody')
+            depth_clear, ideep_clear = last('depth_clear'), last('ideep_clear')
+            fpatchy = last('_last_fpatchy')
+        if depth is None:
+            raise ValueError(
+                'Cannot compute band contributions before run()')
+        if getattr(obs, '_band_matrix', None) is None:
+            raise ValueError(
+                'Undefined observation filters, needed for band '
+                'contribution functions')
+        if self.rt_path in pc.TRANSMISSION_RT:
+            contrib = cfuncs.transmittance(depth, ideep)
+            if self.is_patchy and depth_clear is not None:
+                contrib = fpatchy * contrib + (1.0 - fpatchy) * \
+                    cfuncs.transmittance(depth_clear, ideep_clear)
+        else:
+            lay = torch.arange(self.nlayers, device=depth.device)[:, None]
+            depth_cf = torch.where(lay > ideep[None, :],
+                                   torch.zeros_like(depth), depth)
+            contrib = cfuncs.contribution_function(
+                depth_cf, self.press, bbody)
+        weights = torch.as_tensor(
+            band_cf_matrix(obs.filters, self.nwave), dtype=depth.dtype,
+            device=depth.device)
+        return cfuncs.band_cf(contrib, weights).cpu().numpy()
 
     def _run_emission(self, ec_parts, temp, radius, rtop, deck_surface=None,
                       cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None,

@@ -1,10 +1,10 @@
-"""Observed data: band-integrated depths and their tophat passbands.
+"""Observed data: band-integrated depths and their passbands.
 
 Port of pyratbay_tpu/observation.py for data given in the config
-(data/uncert/filters) or an obsfile with tophat entries, plus the
-instrumental offset and error-scaling models.  Filter files, the
-bundled filter library and the high-resolution channel are not ported
-yet (ROADMAP.md A8/A10).
+(data/uncert/filters) or an obsfile, with passbands from filter files,
+the bundled filter library or tophat entries, plus the instrumental
+offset and error-scaling models.  The high-resolution channel is not
+ported yet (ROADMAP.md A8).
 """
 import os
 
@@ -13,7 +13,7 @@ import torch
 
 from . import constants as pc
 from .io import io as pio
-from .spectrum.passbands import Tophat, band_matrix
+from .spectrum.passbands import PassBand, Tophat, band_matrix
 
 __all__ = ['Observation']
 
@@ -56,19 +56,24 @@ class Observation:
             )
 
         if filters is not None:
+            from .data import filter_response, list_filters
             for entry in filters:
-                fields = str(entry).split()
-                if isinstance(entry, str) and (
-                        os.path.isfile(_expand(entry, root))
-                        or not (len(fields) >= 2 and _is_float(fields[-2]))):
-                    raise NotImplementedError(
-                        f'Filter {entry!r}: only tophat filters are ported '
-                        '(ROADMAP.md A10: passbands from files and the '
-                        'bundled filter library)'
-                    )
-                self.filters.append(Tophat(
-                    float(fields[-2]), float(fields[-1]), wn=wn,
-                ))
+                if isinstance(entry, str) and os.path.isfile(
+                        _expand(entry, root)):
+                    band = PassBand(_expand(entry, root), wn=wn)
+                elif isinstance(entry, str) \
+                        and entry.lower() in list_filters():
+                    wl_f, resp = filter_response(entry)
+                    band = PassBand.from_arrays(
+                        wl_f, resp, entry.lower(), wn=wn)
+                else:
+                    # 'tophat wl0 half_width' style entries:
+                    fields = str(entry).split()
+                    if not (len(fields) >= 2 and _is_float(fields[-2])):
+                        raise FileNotFoundError(
+                            f"Filter file '{entry}' does not exist")
+                    band = Tophat(float(fields[-2]), float(fields[-1]), wn=wn)
+                self.filters.append(band)
             self.nbands = len(self.filters)
             self.band_wl = np.array([band.wl0 for band in self.filters])
             self._band_matrix = band_matrix(self.filters, len(wn))

@@ -28,10 +28,13 @@ extinction parts are [B, l, W].
 * patchy clouds: a second launch for the clear spectrum (no cloud
   parts, no deck, bottom at nlayers), mixed as
   f_patchy * cloudy + (1 - f_patchy) * clear;
-* band integration: one [B, W] x [W, nbands] product.
+* band integration: one [B, W] x [W, nbands] product;
+* on request, the RT diagnostics (depth, ideep, the Planck grid of an
+  emission, a patchy transit's clear depth) from the summed dense
+  extinction (rt_diagnostics): the kernels return no depth.
 
-Model.run takes the same assembly (assemble_opacity, spectra) at
-B = 1.
+Model.run takes the same assembly (assemble_opacity, spectra,
+rt_diagnostics) at B = 1.
 
 Float32 CUDA matmuls run in full float32: the TF32 switch
 (torch.backends.cuda.matmul.allow_tf32) is set to False when a CUDA
@@ -42,15 +45,17 @@ import torch
 
 from .forward import build_state
 from .. import constants as pc
+from ..atmosphere import geometry
 from ..atmosphere import vmr as vmr_models
 from ..ops.planck import blackbody_wn
+from ..spectrum import rt
 from ..spectrum.transit_kernel import (
     extinction_plain, fit_operands, ls_in_kernel,
 )
 
 __all__ = ['build_forward_batched', 'build_log_posterior_batched',
            'line_sample_table', 'assemble_opacity', 'summed_extinction',
-           'spectra']
+           'spectra', 'rt_diagnostics']
 
 
 def line_sample_table(model):
@@ -197,10 +202,61 @@ def spectra(model, ops, temp, radius, rtop, ls_tab, fpatchy=None):
     return fp * cloudy + (1.0 - fp) * clear, cloudy, clear
 
 
+def rt_diagnostics(model, ops, ls_tab, temp, radius, rtop):
+    """The RT diagnostics of B chains from their operands summed into
+    dense extinction (pyratbay_tpu Model._run_transit / _run_emission):
+    depth [B, l, W] and ideep [B, W]; an emission's Planck grid bbody
+    [B, l, W] (the deck's layer emitting at its surface temperature,
+    ideep clipped to the deck); a patchy transit's depth_clear and
+    ideep_clear (no clouds, no deck).  temp, radius [B, l]; rtop [B]."""
+    ec, ec_cloud = summed_extinction(model, ops, ls_tab, temp)
+    deck = ops['deck']
+    nb, nlayers = temp.shape
+    ec_total = ec + ec_cloud if model.is_patchy else ec
+    out = {}
+    if model.rt_path in pc.TRANSMISSION_RT:
+        rscale = model._radius_scale
+        path = geometry.transit_path_matrix(radius / rscale, rtop) * rscale
+        ibottom = [nlayers] * nb if deck is None \
+            else (deck[0] + 1).tolist()
+
+        def depths(e, bottoms):
+            pairs = [rt.transit_depth(e[b], path[b], model.maxdepth,
+                                      rtop[b], bottoms[b])
+                     for b in range(nb)]
+            return (torch.stack([d for d, _ in pairs]),
+                    torch.stack([i for _, i in pairs]))
+
+        out['depth'], out['ideep'] = depths(ec_total, ibottom)
+        if model.is_patchy:
+            out['depth_clear'], out['ideep_clear'] = depths(
+                ec, [nlayers] * nb)
+        return out
+    ibottom = nlayers if deck is None else deck[0] + 1
+    depth, ideep = rt.plane_parallel_depth(
+        ec_total, radius, model.maxdepth, rtop, ibottom)
+    bbody = blackbody_wn(model._wn, temp[..., None])
+    if deck is not None:
+        itop, _, tsurf = deck
+        rows = torch.arange(nlayers, device=temp.device)[None, :, None]
+        bb_surf = blackbody_wn(model._wn, tsurf[:, None])
+        bbody = torch.where(rows == itop[:, None, None], bb_surf[:, None],
+                            bbody)
+        ideep = torch.minimum(ideep, itop[:, None])
+    out.update(depth=depth, ideep=ideep, bbody=bbody)
+    return out
+
+
 def build_forward_batched(model, obs=None, ret=None):
-    """Build forward_b(params [B, npars]) -> dict of batched outputs
-    (spectrum [B, W], bandflux [B, nbands], good [B], temperature
-    [B, l]); same semantics as pyratbay_tpu's build_forward_batched."""
+    """Build forward_b(params [B, npars], diagnostics=False) -> dict of
+    batched outputs (spectrum [B, W], bandflux [B, nbands], good [B],
+    temperature [B, l]); same semantics as pyratbay_tpu's
+    build_forward_batched.  With diagnostics=True it also returns the
+    outputs of pyratbay_tpu's per-chain forward that contribution
+    functions read (forward.py:288-306 there): depth, ideep, fpatchy
+    [B], and bbody, depth_clear, ideep_clear, clear, cloudy where the
+    RT path makes them (rt_diagnostics; clear and cloudy before the
+    emission's post-scalings).  The log-posterior does not ask."""
     dev, dt = model.device, model.dtype
     if dev.type == 'cuda':
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -225,15 +281,16 @@ def build_forward_batched(model, obs=None, ret=None):
         obs.to(dev, dt)
     ls_tab = line_sample_table(model)
 
-    def forward_b(params_b=None):
+    def forward_b(params_b=None, diagnostics=False):
         if params_b is not None:
             params_b = torch.as_tensor(params_b, dtype=dt, device=dev)
         st = state(params_b)
         temp = st['temp']
         ops = assemble_opacity(
             model, temp, st['dens'], st['radius'], st['pars_list'], ls_tab)
-        spectrum, _, _ = spectra(model, ops, temp, st['radius'], st['rtop'],
-                                 ls_tab, st['fpatchy'])
+        spectrum, cloudy, clear = spectra(
+            model, ops, temp, st['radius'], st['rtop'], ls_tab,
+            st['fpatchy'])
         if not is_transit:
             spectrum = _emission_scalings(
                 model, spectrum, st, retrieve_tstar)
@@ -246,6 +303,14 @@ def build_forward_batched(model, obs=None, ret=None):
         spectrum = torch.where(
             good[:, None], spectrum, torch.zeros_like(spectrum))
         out = {'spectrum': spectrum, 'temperature': temp, 'good': good}
+        if diagnostics:
+            out.update(rt_diagnostics(
+                model, ops, ls_tab, temp, st['radius'], st['rtop']))
+            fpatchy = 1.0 if st['fpatchy'] is None else st['fpatchy']
+            out['fpatchy'] = torch.as_tensor(
+                fpatchy, dtype=dt, device=dev).expand(temp.shape[0])
+            if model.is_patchy:
+                out['clear'], out['cloudy'] = clear, cloudy
         if has_bands:
             bandflux = obs.band_integrate(spectrum)
             out['bandflux'] = torch.where(

@@ -137,10 +137,10 @@ def build_state(model, ret=None):
 def _unbatch(fn):
     """Per-chain view of a batched function: params [npars] -> outputs
     of the B = 1 evaluation with the chain axis dropped."""
-    def one(params=None):
+    def one(params=None, **kw):
         if params is not None:
             params = torch.as_tensor(params)[None]
-        out = fn(params)
+        out = fn(params, **kw)
         if isinstance(out, dict):
             return {k: v[0] for k, v in out.items()}
         return out[0]
@@ -148,9 +148,10 @@ def _unbatch(fn):
 
 
 def build_forward(model, obs=None, ret=None):
-    """Per-chain forward(params [npars]) -> dict(spectrum [W],
-    bandflux [nbands], temperature [l], good): the batched forward at
-    B = 1, so its transit RT is one kernel launch at B = 1."""
+    """Per-chain forward(params [npars], diagnostics=False) ->
+    dict(spectrum [W], bandflux [nbands], temperature [l], good, and
+    the RT diagnostics on request): the batched forward at B = 1, so
+    its transit RT is one kernel launch at B = 1."""
     from .batched import build_forward_batched
     forward_b = build_forward_batched(model, obs, ret)
     forward = _unbatch(forward_b)

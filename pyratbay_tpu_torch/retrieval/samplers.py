@@ -5,7 +5,9 @@ Port of pyratbay_tpu/retrieval/samplers.py: the lax.scan over
 generations becomes a Python loop, and the random draws of each
 generation come from a torch.Generator as tensors (`draw_generation`),
 so that a test can inject the JAX sampler's draws into
-`_propose_de`, `_propose_snooker` and `generation`.
+`_propose_de`, `_propose_snooker` and `generation`.  Checkpoints carry
+the generator's state, so that a resumed run continues the random
+stream of the interrupted one.
 
 Moves (ter Braak 2006; ter Braak & Vrugt 2008):
   * DE move: x' = x + gamma (x_r1 - x_r2) + e,  gamma = 2.38/sqrt(2 d)
@@ -13,6 +15,9 @@ Moves (ter Braak 2006; ter Braak & Vrugt 2008):
   * snooker move (10% of proposals): stretch along (x - z) with the
     difference of two other chains projected onto that line.
 """
+import os
+import time
+
 import numpy as np
 import torch
 
@@ -105,25 +110,83 @@ def generation(chains, logp, gamma, eps_scale, free_mask, draws,
     return new_chains, new_logp, accept
 
 
+def _gen_seed(seed, igen):
+    """The generator seed of a run resumed at `igen` from a checkpoint
+    that holds no generator state."""
+    return int(np.random.SeedSequence([int(seed), int(igen)])
+               .generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def _load_checkpoint(checkpoint_file, generator, ngen, log):
+    """The state of a checkpoint (pyratbay_tpu's keys, plus the
+    generator state this package writes); sets `generator` to continue
+    the checkpointed run's random stream."""
+    with np.load(checkpoint_file) as ckpt:
+        state = {key: ckpt[key] for key in ckpt.files}
+    igen = int(state['igen'])
+    rng_state = state.get('rng_state')
+    same_device = (rng_state is not None and str(state['rng_device'])
+                   == generator.device.type)
+    if same_device:
+        generator.set_state(torch.as_tensor(rng_state))
+    else:
+        # A checkpoint written by pyratbay_tpu (or on another device):
+        # its JAX key stream cannot be continued here.
+        generator.manual_seed(_gen_seed(generator.initial_seed(), igen))
+    if log is not None:
+        log.msg(f'Resuming retrieval from {checkpoint_file} at '
+                f'generation {igen}/{ngen}')
+        if not same_device:
+            log.msg('The checkpoint holds no generator state of this '
+                    f'device: the generator is seeded from the run\'s seed '
+                    f'and generation {igen}')
+    return state, igen
+
+
+def _write_checkpoint(checkpoint_file, chains, igen, gamma, eps_scale,
+                      hist_parts, generator):
+    """pyratbay_tpu's checkpoint keys, plus the generator state."""
+    hist = [np.concatenate([part[i] for part in hist_parts])
+            for i in range(3)]
+    np.savez(
+        checkpoint_file, chains=chains.cpu().numpy(), igen=igen,
+        gamma=np.asarray(gamma), eps_scale=eps_scale.cpu().numpy(),
+        hist_chains=hist[0], hist_logp=hist[1], hist_accept=hist[2],
+        rng_state=generator.get_state().numpy(),
+        rng_device=generator.device.type)
+
+
 def sample_demc(
         log_post_batched, init_params, nsamples, generator=None,
         nchains=None, pstep=None, pmin=None, pmax=None,
-        snooker_fraction=0.1, thin=1, burnin=0, chunk_gens=None,
+        snooker_fraction=0.1, thin=1, burnin=0,
+        checkpoint_file=None, checkpoint_dt=None, resume=False,
+        chunk_gens=None, log=None,
         adapt_gamma=False, target_acceptance=0.234, gamma_init=None,
-        dtype=None, device=None,
+        history_thin=1, dtype=None, device=None,
     ):
     """Run snooker-DEMC over a batched log-posterior.
 
     log_post_batched: params [B, npars] -> [B].
     init_params: [npars] center (jittered by pstep) or [nchains,
     npars] explicit ensemble.  nsamples: total draws (nchains * ngen).
-    burnin and thin count generations.  adapt_gamma scales the DE step
-    toward `target_acceptance` after every `chunk_gens` generations
-    (default: once, after the whole run, as the JAX sampler does
-    without checkpoints).
+
+    The generations run in chunks of `chunk_gens` (default: the whole
+    run, or at most 200 with a checkpoint file); the history of a chunk
+    stays on the device and is copied to the host once at its end.
+    adapt_gamma scales the DE step toward `target_acceptance` after every
+    chunk, from the acceptance of the chunk's last recorded part.
+    history_thin records the last state of every whole stride of
+    `history_thin` generations of a chunk, and one record for a partial
+    stride at its end; burnin and thin then count recorded samples.
+    checkpoint_file: npz of the chain state and history, written when
+    `checkpoint_dt` seconds (default 600) have passed since the last one
+    and at the end, with the generator's state; resume continues from it
+    (pyratbay_tpu's checkpoints too, whose generator is then seeded from
+    the generator's initial seed and the generation).
 
     Returns dict with 'posterior' [nkept, npars], 'log_post' [nkept],
-    'chains', 'chain_history' [ngen, nchains, npars],
+    'chains', 'chain_history' [nrecords, nchains, npars],
     'acceptance_rate', 'bestp', 'best_log_post', 'gamma_final'
     (posterior arrays as numpy).
     """
@@ -167,32 +230,63 @@ def sample_demc(
     )
 
     ngen = int(np.ceil(nsamples / nchains))
+    igen = 0
+    hist_parts = []
+    if resume and checkpoint_file is not None \
+            and os.path.isfile(checkpoint_file):
+        ckpt, igen = _load_checkpoint(checkpoint_file, generator, ngen, log)
+        chains = tensor(ckpt['chains'])
+        hist_parts.append((ckpt['hist_chains'], ckpt['hist_logp'],
+                           ckpt['hist_accept']))
+        if 'gamma' in ckpt:
+            gamma0 = float(ckpt['gamma'])
+        if 'eps_scale' in ckpt:
+            eps_scale = tensor(ckpt['eps_scale']) * torch.ones(
+                npars, dtype=dtype, device=device)
     if chunk_gens is None:
-        chunk_gens = ngen
+        chunk_gens = ngen if checkpoint_file is None \
+            else max(1, min(200, ngen))
     logp = log_post_batched(chains)
-    hist_chains, hist_logp, hist_accept = [], [], []
-    chunk_accept = []
-    for igen in range(ngen):
-        gamma = 1.0 if igen % 10 == 9 else gamma0
-        draws = draw_generation(generator, nchains, npars, dtype, device)
-        chains, logp, accept = generation(
-            chains, logp, gamma, eps_scale, free_mask, draws,
-            log_post_batched, snooker_fraction,
-        )
-        hist_chains.append(chains)
-        hist_logp.append(logp)
-        hist_accept.append(accept)
-        chunk_accept.append(accept)
-        if adapt_gamma and (
-                (igen + 1) % chunk_gens == 0 or igen + 1 == ngen):
-            acc = float(torch.stack(chunk_accept).to(torch.float64).mean())
+    t_last = time.time()
+    dt_ckpt = checkpoint_dt if checkpoint_dt is not None else 600.0
+    while igen < ngen:
+        hi = min(igen + chunk_gens, ngen)
+        # Record the last state of each whole stride of the chunk, and
+        # the chunk's final state for a partial stride:
+        rec_chains, rec_logp, rec_accept = [], [], []
+        for jgen in range(igen, hi):
+            gamma = 1.0 if jgen % 10 == 9 else gamma0
+            draws = draw_generation(generator, nchains, npars, dtype, device)
+            chains, logp, accept = generation(
+                chains, logp, gamma, eps_scale, free_mask, draws,
+                log_post_batched, snooker_fraction,
+            )
+            if (jgen - igen + 1) % history_thin == 0 or jgen == hi - 1:
+                rec_chains.append(chains)
+                rec_logp.append(logp)
+                rec_accept.append(accept)
+        part = tuple(torch.stack(rec).cpu().numpy()
+                     for rec in (rec_chains, rec_logp, rec_accept))
+        hist_parts.append(part)
+        partial = (hi - igen) % history_thin if history_thin > 1 else 0
+        igen = hi
+        if adapt_gamma:
+            # pyratbay_tpu adapts on its last history part: the partial
+            # stride's one record when there is one.
+            acc = float(part[2][-1:].mean() if partial else part[2].mean())
             gamma0 *= float(np.exp(
                 np.clip(acc - target_acceptance, -0.25, 0.25)))
-            chunk_accept = []
+        if checkpoint_file is not None and (
+                time.time() - t_last > dt_ckpt or igen == ngen):
+            _write_checkpoint(checkpoint_file, chains, igen, gamma0,
+                              eps_scale, hist_parts, generator)
+            t_last = time.time()
+            if log is not None:
+                log.msg(f'Checkpoint at generation {igen}/{ngen} -> '
+                        f'{checkpoint_file}')
 
-    history = torch.stack(hist_chains).cpu().numpy()
-    history_logp = torch.stack(hist_logp).cpu().numpy()
-    accepts = torch.stack(hist_accept).cpu().numpy()
+    history, history_logp, accepts = (
+        np.concatenate([part[i] for part in hist_parts]) for i in range(3))
     kept = history[burnin::thin]
     kept_logp = history_logp[burnin::thin]
     posterior = kept.reshape(-1, npars)

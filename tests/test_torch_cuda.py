@@ -810,3 +810,35 @@ def test_cuda_model_run_matches_plain_route(cuda, tmp_path, rt_path):
     want = cpu['spectrum'].numpy()
     assert np.all(np.isfinite(got))
     assert np.max(np.abs(got - want)) / np.abs(want).max() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rt_path', ['transit', 'eclipse'])
+def test_cuda_spectrum_posterior_matches_cpu(cuda, rt_path, tmp_path):
+    """The spectrum envelope of the retrieval's post-processing: 128
+    draws in one batched forward (one K1 or K3 launch) on the card in
+    float32, against the CPU in float64, within 1e-4 of the maximum."""
+    from pyratbay_tpu_torch.benchmark import make_flagship
+    from pyratbay_tpu_torch.retrieval.batched import build_forward_batched
+    from pyratbay_tpu_torch.retrieval.posterior import spectrum_posterior
+
+    envelopes = {}
+    for dev in (cuda, 'cpu'):
+        model, obs, ret, _, p0 = make_flagship(
+            str(tmp_path / str(dev)), nlayers=21, wl_low=1.1, wl_high=1.3,
+            wnstep=4.0, device=dev, rt_path=rt_path)
+        rng = np.random.default_rng(5)
+        draws = np.clip(p0 + 0.5 * ret.pstep * rng.standard_normal(
+            (300, len(p0))), ret.pmin, ret.pmax)
+        forward_b = build_forward_batched(model, obs, ret)
+        counter = tk.transit_rt_cuda if rt_path == 'transit' \
+            else ek.emission_rt_cuda
+        launches = counter.launches
+        envelopes[str(dev)] = np.array(spectrum_posterior(
+            draws, lambda p: forward_b(p)['spectrum'], max_draws=128))
+        if dev == cuda:
+            assert counter.launches == launches + 1
+    got, want = envelopes[str(cuda)], envelopes['cpu']
+    assert np.all(np.isfinite(got)) and got.shape == want.shape
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    assert np.max(np.abs(got - want) / scale) < 1e-4
