@@ -7,10 +7,12 @@ B = 1, then retrievals as users run them (passbands from filter files
 and the bundled library, checkpoints and resume, the post-processing
 and --post), then the flagship opacity workflow (line list -> TLI file
 -> cross-section table) through the hand-written line-by-line wing and
-core kernels.
+core kernels, then a high-resolution eclipse retrieval with a
+stellar-model star on a 39,200-point table.
 
     python3 chip_smoke.py              # one GPU; exits non-zero on any failure
     python3 chip_smoke.py --profile    # also print torch.profiler breakdowns
+    python3 chip_smoke.py --seed 2     # another noise draw of hires_eclipse
 
 Phases, one JSON line each: device, kernel build, then for each path
 (transit, then eclipse): the path's kernel against its plain PyTorch
@@ -73,6 +75,20 @@ layers; and timings: K4 and K5 with their plain versions and bounds on a
 flagship and a production block, the per-line route against the
 window-layout route in turns, three wing sub-tile widths, and one
 species at the production width of the JAX bench's _production_table.
+The spectrum phase also runs eclipse spectra with a Kurucz star (a
+four-model .pck grid it writes) and a starspec SED, and transit and
+eclipse spectra from the flagship's TLI file through the parity
+line-by-line engine (host float64, one dense part to the kernels); the
+opacity phase also runs the CLI's runmode = opacity (the parity engine,
+3 of the 10 temperatures) in a process of its own and prints its
+difference from the direct table.  Then the hires_eclipse phase (see
+HIRES_WL): the direct table over 1.5-1.7 um at 0.02 cm-1 (K4, K5), the
+eclipse flagship on it with a 7-temperature SED star and T_eff
+retrieved, 6 bands and a 16,650-point high-res channel with rv_shift,
+512 chains x 20 generations through the driver and its
+post-processing; GPU float32 against CPU float64 at B = 512 (spectrum,
+high-res fluxes, log-posterior), K3 against its plain version on 16
+chains, and timings (forward, the high-res stage, K3, DEMC).
 The line before the last is the kernel table; the last line is the
 result.
 """
@@ -198,6 +214,7 @@ NLINES = 50_000
 PROD_NWAVE = 200_000    # bench.py::_production_table's width
 PROD_NTEMP = 24
 PROD_BUDGET_S = 60.0
+PARITY_TEMPS = (300, 2700, 1200)   # tmin, tmax, tstep of the parity table
 
 
 def emit(phase, **fields):
@@ -747,9 +764,11 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS):
 
 
 def write_spectrum_cfg(workdir, name, rt_path, atmfile=None, nlayers=None,
-                       rayleigh=('H2', 'He', 'H'), extra=()):
+                       rayleigh=('H2', 'He', 'H'), extra=(), tli=None):
     """The flagship config (runmode = spectrum) with this phase's
-    sources, as <workdir>/<name>.cfg writing <workdir>/<name>.dat."""
+    sources, as <workdir>/<name>.cfg writing <workdir>/<name>.dat; with
+    `tli`, H2O from that TLI file (the parity engine) in place of the
+    line-sampled table."""
     with open(os.path.join(workdir, 'flagship.cfg')) as f:
         lines = f.read().splitlines()
     out, in_clouds = [], False
@@ -768,6 +787,7 @@ def write_spectrum_cfg(workdir, name, rt_path, atmfile=None, nlayers=None,
             'rt_path': f'rt_path = {rt_path}',
             'logfile': f'logfile = {workdir}/{name}.log',
             'atmfile': f'atmfile = {atmfile}' if atmfile else line,
+            'sampled_cross_sec': f'tlifile = {tli}' if tli else line,
         }.get(key, line)
         out.append(line)
     out += [f'specfile = {workdir}/{name}.dat',
@@ -828,10 +848,9 @@ def run_spectrum(workdir, dev, args, card):
     launches and what the tall function's entry takes from the phase."""
     import torch
     from pyratbay_tpu_torch import model as model_mod
-    from pyratbay_tpu_torch.benchmark import make_flagship
+    from pyratbay_tpu_torch.benchmark import make_flagship, make_lbl_flagship
     from pyratbay_tpu_torch.driver import run
     from pyratbay_tpu_torch.io import io as pio
-    phase_t0 = time.perf_counter()
     from pyratbay_tpu_torch.model import Model
     from pyratbay_tpu_torch.observation import Observation
     from pyratbay_tpu_torch.retrieval import batched
@@ -840,6 +859,15 @@ def run_spectrum(workdir, dev, args, card):
     from pyratbay_tpu_torch.spectrum import transit_kernel as tk
 
     _, obs, _, _, _ = make_flagship(workdir, device=dev)
+    # Stars from files, and H2O from the flagship's TLI file:
+    pck = write_kurucz_file(os.path.join(workdir, 'stars.pck'),
+                            np.linspace(900.0, 1900.0, 1001), KURUCZ_MODELS)
+    sed = write_sed_file(os.path.join(workdir, 'star_sed.dat'),
+                         np.linspace(1.0, 1.8, SED_POINTS), SED_TEMPS)
+    lines_dir = os.path.join(workdir, 'lines')
+    _, tli_cfg, _ = make_lbl_flagship(lines_dir, nlines=NLINES)
+    run(tli_cfg)
+    tli = os.path.join(lines_dir, 'flagship_h2o.tli')
     atm_e = os.path.join(workdir, 'electrons.atm')
     nl = NLAYERS
     pio.write_atm(atm_e, np.logspace(-6, 2, nl), np.full(nl, 1400.0),
@@ -858,6 +886,12 @@ def run_spectrum(workdir, dev, args, card):
                          1, 1, 1, 0),
         'eclipse_tall': ('eclipse', dict(with_e, nlayers=TALL_LAYERS),
                          0, 0, 0, 1),
+        'eclipse_kurucz': ('eclipse', dict(extra=(
+            f'kurucz = {pck}', 'log_gstar = 4.4')), 0, 0, 0, 1),
+        'eclipse_starspec': ('eclipse', dict(extra=(f'starspec = {sed}',)),
+                             0, 0, 0, 1),
+        'transit_tli': ('transit', dict(tli=tli), 1, 1, 0, 0),
+        'eclipse_tli': ('eclipse', dict(tli=tli), 0, 0, 0, 1),
     }
     counters = (tk.transit_rt_cuda, ek.emission_rt_cuda)
     total = {'transit_rt': 0, 'transit_rt_single_chain': 0,
@@ -884,7 +918,9 @@ def run_spectrum(workdir, dev, args, card):
             total[key] += value
         models[name] = model
         wn, spec = pio.read_spectrum(os.path.join(workdir, name + '.dat'))
+        t0 = time.perf_counter()
         cpu = Model(cfg, device='cpu').run()['spectrum']
+        cpu_s = time.perf_counter() - t0
         rel, absolute = rel_err(
             torch.as_tensor(model.spectrum)[None], cpu[None])
         checks = {
@@ -898,6 +934,7 @@ def run_spectrum(workdir, dev, args, card):
         }
         emit('main_path_spectrum', run=name, rt_path=rt_path,
              nlayers=model.nlayers, nwave=model.nwave, seconds=seconds,
+             cpu_seconds=cpu_s, star=star_of(model),
              launches=launches, expected=expect, gpu_vs_cpu_max_rel_err=rel,
              gpu_vs_cpu_max_abs_err=absolute, tol=FORWARD_TOL, checks=checks,
              opacity_models=[m.name for _, m, _ in model.opacity_models])
@@ -1065,6 +1102,13 @@ def run_spectrum(workdir, dev, args, card):
     if total['transit_rt_tall'] < 1:
         fail('spectrum: the tall transit function launched no time')
     return total, tall
+
+
+def star_of(model):
+    """The kind of a model's star."""
+    cfg = model.cfg
+    return ('starspec' if cfg.starspec else 'kurucz' if cfg.kurucz
+            else 'blackbody' if model.star_is_blackbody else None)
 
 
 def masked_rel(got, want, floor=1e-6):
@@ -1504,6 +1548,53 @@ def run_opacity(workdir, dev, args, card):
     if not prod_ok:
         fail('opacity: non-finite or negative production-width table')
 
+    # 5. The parity engine, compute_opacity's default, through the CLI in
+    # a process of its own at PARITY_TEMPS (3 of the 10 temperatures:
+    # ~0.4 s of the host a layer), against the direct table there.
+    parity_cfg = os.path.join(workdir, 'parity_opacity.cfg')
+    parity_table = os.path.join(workdir, 'flagship_h2o_parity.npz')
+    with open(opacity_cfg) as f:
+        text = f.read()
+    text = text.replace(model.cfg.sampled_cs[0], parity_table)
+    for key, value in zip(('tmin', 'tmax', 'tstep'), PARITY_TEMPS):
+        text = text.replace(f'{key} = {int(getattr(model.cfg, key))}\n',
+                            f'{key} = {value}\n')
+    with open(parity_cfg, 'w') as f:
+        f.write(text)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'pyratbay_tpu_torch', '-c', parity_cfg],
+        cwd=HERE, capture_output=True, text=True, timeout=900)
+    parity_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f'opacity: the CLI (parity engine) exited {proc.returncode}: '
+             f'{proc.stderr[-2000:]}')
+    with np.load(parity_table) as f:
+        parity = f['opacity']
+        parity_temps = f['temperature']
+    it = [int(np.argmin(np.abs(model.cs_temps - t))) for t in parity_temps]
+    direct_t = table[it]
+    mask = np.abs(direct_t) > 1e-6 * np.abs(direct_t).max()
+    diff = np.abs(parity - direct_t)[mask] / np.abs(direct_t[mask])
+    parity_ok = (parity.shape == direct_t.shape
+                 and np.allclose(model.cs_temps[it], parity_temps)
+                 and bool(np.all(np.isfinite(parity)))
+                 and bool(np.all(parity >= 0)))
+    emit('parity_opacity', card=card, seconds=parity_s,
+         temps=parity_temps.tolist(), table_shape=list(parity.shape),
+         cut=f'temperatures 10 -> {len(parity_temps)}',
+         parity_vs_direct_median_rel=float(np.median(diff)),
+         parity_vs_direct_max_rel=float(np.max(diff)),
+         parity_vs_direct_note='a finding, not a gate: the parity engine '
+                               'samples a grid of binned Voigt profiles '
+                               '(its quantization), the direct engine '
+                               'exact profiles; entries above 1e-6 of the '
+                               'maximum',
+         checks=dict(ran=True, table=parity_ok))
+    if not parity_ok:
+        fail('opacity: the parity table is not a finite table at the '
+             'direct table\'s temperatures')
+
     entries = []
     for key, spec in LBL.items():
         entry = {'name': spec['name'], 'route': 'cuda', 'source': LBL_SOURCE,
@@ -1913,10 +2004,371 @@ def profile_post(cfg_file, dev, timed):
     return steps
 
 
+# The hires_eclipse phase: a high-resolution eclipse retrieval with a
+# stellar-model star.  The H2O table comes from make_lbl_flagship's
+# 50,000 synthetic lines through compute_opacity(engine='direct') (K4,
+# K5) over 1.50-1.70 um at 0.02 cm-1 (~39,200 points, sampling
+# R ~ 3e5), 51 layers, 10 temperatures; the eclipse flagship reads it.
+# The star is an SED of 7 temperatures (5,000-6,500 K) that the phase
+# writes in ascending wavelength over 1.4-1.8 um (blackbodies times one
+# line pattern from a seed).  The data: a SPIRou-like H-band channel at
+# inst_resolution = 70,000 (points uniform in ln(wavelength) at
+# R = 140,000 over 1.505-1.695 um) and 6 tophat bands, made from the
+# model at known parameters with rv_shift = 12 km/s and Gaussian noise
+# from --seed.  9 parameters (the flagship's 7, T_eff and rv_shift),
+# 512 chains x 20 generations (the only cut) through the driver, then
+# the post-processing.
+HIRES_WL = (1.5, 1.7)
+HIRES_WNSTEP = 0.02
+HIRES_INST_R = 70_000.0
+HIRES_SAMPLING_R = 140_000.0
+HIRES_DATA_WL = (1.505, 1.695)
+HIRES_RV = 12.0
+HIRES_NOISE = 0.02      # of the channel's largest flux ratio
+HIRES_BANDS = 6
+SED_TEMPS = np.linspace(5000.0, 6500.0, 7)
+SED_WL = (1.4, 1.8)
+SED_POINTS = 40_000
+KURUCZ_MODELS = ((5500.0, 4.0), (5500.0, 4.5), (6000.0, 4.0), (6000.0, 4.5))
+HIRES_PARAMS = ('    T_eff      5800.0  5000.0  6500.0  50.0',
+                '    rv_shift     10.0   -50.0    50.0   2.0')
+HIRES_K3_CHAINS = 16    # the plain version's [B, l, W] grows with W
+CPU_CHUNK = 32          # chains a CPU float64 forward
+CPU_LP_CHAINS = 64      # of them, the CPU's log-posterior
+
+
+def write_sed_file(path, wl_um, temps, seed=3):
+    """A starspec SED (@TEMPERATURES / @SPECTRA) with rows in the order
+    of wl_um: a blackbody for each temperature times one pattern of 300
+    absorption lines from `seed`."""
+    from pyratbay_tpu_torch.spectrum.starspec import bbflux
+    rng = np.random.default_rng(seed)
+    wn = 1.0 / (wl_um * 1e-4)
+    pattern = np.ones_like(wn)
+    for center, depth, width in zip(rng.uniform(wn.min(), wn.max(), 300),
+                                    rng.uniform(0.02, 0.5, 300),
+                                    rng.uniform(0.2, 2.0, 300)):
+        pattern -= depth * np.exp(-0.5 * ((wn - center) / width)**2)
+    fluxes = np.array([bbflux(wn, t) * np.clip(pattern, 0.05, None)
+                       for t in temps])
+    with open(path, 'w') as f:
+        f.write('@TEMPERATURES\n' + ' '.join(f'{t:.1f}' for t in temps)
+                + '\n@SPECTRA\n')
+        np.savetxt(f, np.column_stack([wl_um, fluxes.T]), fmt='%.9e')
+    return path
+
+
+def write_kurucz_file(path, wl_nm, models):
+    """A Kurucz .pck grid of `models` (teff, log g): the fixed-column
+    TEFF / GRAVITY headers and 8 fields of 10 characters a line, the
+    intensities (a blackbody's flux / 4 pi c) then the continua."""
+    from pyratbay_tpu_torch import constants as pc
+    from pyratbay_tpu_torch.spectrum.starspec import bbflux
+    lines = ['Kurucz-format grid written by chip_smoke.py', 'END']
+    lines += [''.join(f'{w:10.3f}' for w in wl_nm[i:i + 8])
+              for i in range(0, len(wl_nm), 8)]
+    wn = 1.0 / (wl_nm * pc.nm)
+    for teff, logg in models:
+        lines.append(f'TEFF {teff:7.0f}  GRAVITY {logg:7.5f} LTE')
+        intensity = bbflux(wn, teff) / (4.0 * np.pi * pc.c)
+        for block in (intensity, 0.9 * intensity):
+            lines += [''.join(f'{v:10.4E}' for v in block[i:i + 8])
+                      for i in range(0, len(block), 8)]
+    with open(path, 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    return path
+
+
+def chunked_cpu(fn, pb, chunk=CPU_CHUNK):
+    """fn(pb) by chunks of `chunk` chains (a CPU forward's [B, l, W]
+    operands grow with W): the list of the chunks' outputs."""
+    return [fn(pb[i:i + chunk]) for i in range(0, len(pb), chunk)]
+
+
+def run_hires_eclipse(workdir, dev, args, card):
+    """The hires_eclipse phase (see HIRES_WL).  Returns each kernel's
+    launches on its main path and K3's largest difference from its
+    plain version."""
+    import torch
+    from pyratbay_tpu_torch import constants as pc
+    from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch.benchmark import make_flagship, make_lbl_flagship
+    from pyratbay_tpu_torch.driver import run
+    from pyratbay_tpu_torch.io import io as pio
+    from pyratbay_tpu_torch.model import Model
+    from pyratbay_tpu_torch.observation import Observation
+    from pyratbay_tpu_torch.opacity import lbl_kernel as lk
+    from pyratbay_tpu_torch.opacity.lbl_direct import DirectLBL
+    from pyratbay_tpu_torch.retrieval.batched import (
+        build_forward_batched, build_log_posterior_batched)
+    from pyratbay_tpu_torch.retrieval.params import RetrievalParams
+    from pyratbay_tpu_torch.retrieval.samplers import sample_demc
+    from pyratbay_tpu_torch.spectrum import emission_kernel as ek
+    phase_t0 = time.perf_counter()
+    lbl_counters = {LBL[k]['name']: getattr(lk, LBL[k]['fn'] + '_cuda')
+                    for k in ('wing_lines', 'core_lines')}
+
+    # 1. The table: line list -> TLI -> compute_opacity(engine='direct').
+    odir = os.path.join(workdir, 'opacity')
+    _, tli_cfg, opacity_cfg = make_lbl_flagship(
+        odir, nlines=NLINES, nlayers=NLAYERS, wl_low=HIRES_WL[0],
+        wl_high=HIRES_WL[1], wnstep=HIRES_WNSTEP)
+    run(tli_cfg)
+    omodel = Model(opacity_cfg, device=dev)
+    for counter in lbl_counters.values():
+        counter.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = omodel.compute_opacity(engine='direct')
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    lbl_launches = {k: c.launches for k, c in lbl_counters.items()}
+    nblocks = -(-table.shape[0] * table.shape[1] // 64)
+    # The table against the CPU in float64 on 4 cells and a 2,000-point
+    # slice of the grid (the direct engine on the slice's wavenumbers):
+    cpu_omodel = Model(opacity_cfg, device='cpu')
+    mid = cpu_omodel.nwave // 2
+    it, il = [1, 8], [NLAYERS // 5, NLAYERS - 6]
+    iw = slice(max(mid - 1000, 0), mid + 1000)
+    cpu_direct = DirectLBL(cpu_omodel.opacity_models[0][1],
+                           wn=cpu_omodel.wn[iw], device='cpu')
+    t0 = time.perf_counter()
+    sub = cpu_direct.tabulate(omodel.cs_temps[it], cpu_omodel.press[il],
+                              cpu_omodel.base_vmr[il])
+    cpu_s = time.perf_counter() - t0
+    gpu = table[it][:, il][..., iw]
+    strong = np.abs(sub) > 1e-4 * np.abs(sub).max(axis=-1, keepdims=True)
+    table_rel = float(np.max(np.abs(gpu - sub)[strong] / np.abs(sub[strong])))
+    checks = {
+        'shape': table.shape[:2] == (10, NLAYERS)
+        and abs(table.shape[2] - 39_200) < 100,
+        'finite': bool(np.all(np.isfinite(table))),
+        'non_negative': bool(np.all(table >= 0)),
+        'launches': all(n >= nblocks for n in lbl_launches.values()),
+        'gpu_vs_cpu': table_rel < TABLE_TOL,
+    }
+    emit('hires_opacity', card=card, table_shape=list(table.shape),
+         seconds=table_s, blocks=nblocks, launches=lbl_launches,
+         lines_on_grid=int(omodel.opacity_models[0][1].ntransitions),
+         gpu_vs_cpu_cells=dict(temps=omodel.cs_temps[it].tolist(),
+                               layers=il, points=[iw.start, iw.stop]),
+         gpu_vs_cpu_max_rel_err=table_rel, tol=TABLE_TOL,
+         cpu_seconds=cpu_s, checks=checks)
+    if not all(checks.values()):
+        fail(f'hires_eclipse opacity: {checks}')
+    del omodel, cpu_omodel, cpu_direct
+
+    # 2. The eclipse flagship on that table, the star, the data.
+    sed = write_sed_file(
+        os.path.join(workdir, 'star_sed.dat'),
+        np.linspace(SED_WL[0], SED_WL[1], SED_POINTS), SED_TEMPS)
+    model, _, _, _, _ = make_flagship(
+        workdir, nlayers=NLAYERS, wl_low=HIRES_WL[0], wl_high=HIRES_WL[1],
+        wnstep=HIRES_WNSTEP, device=dev, rt_path='eclipse',
+        cs_file=os.path.join(odir, 'flagship_h2o_lbl.npz'))
+    with open(os.path.join(workdir, 'flagship.cfg')) as f:
+        text = f.read()
+    text = text.replace('    alpha_ray ', '\n'.join(HIRES_PARAMS)
+                        + '\n    alpha_ray ')
+    spec_cfg = os.path.join(workdir, 'hires_flagship.cfg')
+    with open(spec_cfg, 'w') as f:
+        f.write(text + f'starspec = {sed}\n')
+    wl_hires = np.exp(np.arange(np.log(HIRES_DATA_WL[0]),
+                                np.log(HIRES_DATA_WL[1]),
+                                1.0 / HIRES_SAMPLING_R))
+    hires_file = os.path.join(workdir, 'hires.dat')
+    entries = [f'{wl:.9f}' for wl in wl_hires]
+    pio.write_observations(hires_file, np.zeros(len(wl_hires)),
+                           np.ones(len(wl_hires)), entries)
+    filters = [f'tophat {wl0:.4f} 0.01' for wl0 in np.linspace(
+        HIRES_WL[0] + 0.02, HIRES_WL[1] - 0.02, HIRES_BANDS)]
+
+    class ObsCfg:
+        data = uncert = obsfile = dunits = None
+        offset_inst = uncert_scaling = None
+        obsfile_hires = hires_file
+        inst_resolution = HIRES_INST_R
+
+    ObsCfg.filters = filters
+    model = Model(spec_cfg, device=dev)
+    obs = Observation(ObsCfg, model.wn)
+    ret = RetrievalParams(model, obs)
+    p_true = np.asarray(ret.params, float).copy()
+    p_true[ret.irv] = HIRES_RV
+    truth = build_forward_batched(model, obs, ret)(p_true[None])
+    band0 = truth['bandflux'][0].double().cpu().numpy()
+    hires0 = truth['bandflux_hires'][0].double().cpu().numpy()
+    rng = np.random.default_rng(args.seed)
+    uncert = np.maximum(np.abs(band0) * ECLIPSE_NOISE, 1e-12)
+    uncert_h = np.full(len(hires0), HIRES_NOISE * np.abs(hires0).max())
+    pio.write_observations(hires_file, hires0 + rng.normal(0, uncert_h),
+                           uncert_h, entries)
+    cfg_file = os.path.join(workdir, 'hires_retrieval.cfg')
+    write_retrieval_cfg(
+        spec_cfg, cfg_file, band0 + rng.normal(0, uncert), uncert, filters,
+        os.path.join(workdir, 'hires_retrieval.log'),
+        extra=(f'obsfile_hires = {hires_file}',
+               f'inst_resolution = {HIRES_INST_R}'))
+
+    # 3. The main path: the retrieval through the driver, on the card.
+    ek.emission_rt_cuda.launches = 0
+    for counter in lbl_counters.values():
+        counter.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rmodel = run(cfg_file, seed=0)      # the default device: the card
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    k3_launches = ek.emission_rt_cuda.launches
+    out = np.load(os.path.join(workdir, 'hires_retrieval.npz'))
+    robs, rret = rmodel.obs, rmodel.ret
+    finite = {k: bool(np.all(np.isfinite(out[k])))
+              for k in ('posterior', 'bestp', 'spec_best', 'bandflux_best')}
+    post_files = {s: os.path.isfile(os.path.join(workdir, 'hires_retrieval'
+                                                 + s))
+                  for s in POST_FILES}
+    checks = {
+        'on_the_card': rmodel.device.type == 'cuda',
+        'nwave': abs(rmodel.nwave - 39_200) < 100,
+        'hires_points': len(robs.wn_hires) == len(wl_hires),
+        'sed_star': rmodel.sed_temps is not None
+        and len(rmodel.sed_temps) == len(SED_TEMPS),
+        'parameters': len(rret.params) == 9 and rret.irv is not None
+        and rret.itstar is not None,
+        'finite': all(finite.values()),
+        'acceptance': float(out['acceptance_rate']) > 0,
+        'posterior_shape': out['posterior'].shape[1] == 9,
+        'post_files': all(post_files.values()),
+        'k3_launches': k3_launches >= NGEN + 2,
+    }
+    emit('main_path_hires_eclipse', seconds=main_s, nchains=NCHAINS,
+         generations=NGEN, nlayers=rmodel.nlayers, nwave=rmodel.nwave,
+         hires_points=len(wl_hires), bands=HIRES_BANDS,
+         inst_resolution=HIRES_INST_R,
+         acceptance_rate=float(out['acceptance_rate']),
+         best_log_post=float(out['best_log_post']),
+         posterior_shape=list(out['posterior'].shape),
+         truth=dict(zip(rret.pnames, p_true.tolist())),
+         bestp=dict(zip(rret.pnames, out['bestp'].tolist())),
+         launches={'emission_rt': k3_launches,
+                   **{k: c.launches for k, c in lbl_counters.items()}},
+         post_files=post_files, checks=checks)
+    if not all(checks.values()):
+        fail(f'hires_eclipse main path: {checks}')
+
+    # 4. GPU float32 against CPU float64: the spectrum and the high-res
+    # fluxes at B = 512 (~2 minutes of an 8-core host), the log-posterior
+    # on the first CPU_LP_CHAINS chains.
+    pb = np.clip(p_true + rret.pstep * np.random.default_rng(0)
+                 .standard_normal((NCHAINS, len(p_true))),
+                 rret.pmin, rret.pmax)
+    forward_b = build_forward_batched(rmodel, robs, rret)
+    log_post_b = build_log_posterior_batched(rmodel, robs, rret)
+    with torch.no_grad():
+        gpu_out = forward_b(pb)
+        gpu_lp = log_post_b(pb).double().cpu().numpy()
+    cpu_model = Model(cfg_file, device='cpu')
+    cpu_obs = Observation(cpu_model.cfg, cpu_model.wn,
+                          root=os.path.dirname(cfg_file) + '/')
+    cpu_ret = RetrievalParams(cpu_model, cpu_obs)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs = chunked_cpu(
+            build_forward_batched(cpu_model, cpu_obs, cpu_ret), pb)
+        cpu_out = {key: torch.cat([o[key] for o in outs])
+                   for key in ('spectrum', 'bandflux_hires')}
+        cpu_lp = torch.cat(chunked_cpu(build_log_posterior_batched(
+            cpu_model, cpu_obs, cpu_ret), pb[:CPU_LP_CHAINS])).numpy()
+    cpu_s = time.perf_counter() - t0
+    errs = {key: rel_err(gpu_out[key], cpu_out[key])
+            for key in ('spectrum', 'bandflux_hires')}
+    lp_diff = np.abs(gpu_lp[:CPU_LP_CHAINS] - cpu_lp)
+    fin = np.isfinite(cpu_lp)
+    emit('gpu_vs_cpu_hires_eclipse', chains=NCHAINS,
+         log_posterior_chains=CPU_LP_CHAINS,
+         max_rel_err={k: v[0] for k, v in errs.items()},
+         max_abs_err={k: v[1] for k, v in errs.items()}, tol=FORWARD_TOL,
+         log_posterior_max_abs_diff=float(lp_diff[fin].max()),
+         log_posterior_max_rel_diff=float(
+             (lp_diff[fin] / np.abs(cpu_lp[fin])).max()),
+         finite_log_posteriors=[
+             int(np.isfinite(gpu_lp[:CPU_LP_CHAINS]).sum()), int(fin.sum())],
+         cpu_seconds=cpu_s)
+    if not all(v[0] < FORWARD_TOL for v in errs.values()):
+        fail(f'hires_eclipse: GPU f32 disagrees with CPU f64 {errs}')
+    del cpu_model, cpu_out
+
+    # 5. K3 on this phase's operands against its plain version.
+    call, = record_calls(((model_mod, 'emission_flux_ensemble'),),
+                         lambda: forward_b(pb))
+    fargs, fkw = call
+    sl = slice(0, HIRES_K3_CHAINS)
+    k3_args = ([p[sl] for p in fargs[0]],
+               *_prep('eclipse', rmodel, fargs, fkw, sl))
+    k3_kw = _common(fkw, sl)
+    k3_abs = check_kernel('emission_rt', ek.emission_rt_cuda,
+                          ek.emission_rt_plain,
+                          {f'B{HIRES_K3_CHAINS}_hires_eclipse':
+                           (k3_args, k3_kw)},
+                          KERNELS['eclipse']['tol'])
+    every = slice(None)
+    full_args = ([p[every] for p in fargs[0]],
+                 *_prep('eclipse', rmodel, fargs, fkw, every))
+    full_kw = _common(fkw, every)
+
+    # 6. Times (CUDA events, medians after warm-up).
+    pb_t = torch.as_tensor(pb, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        ms_forward = float(np.median(cuda_times(lambda: forward_b(pb_t))))
+        spectrum = forward_b(pb_t)['spectrum']
+        vel = pb_t[:, rret.irv] * pc.km
+        ms_hires = float(np.median(cuda_times(
+            lambda: forward_b.hires(spectrum, vel))))
+        ms_hires_fixed = float(np.median(cuda_times(
+            lambda: forward_b.hires(spectrum))))
+    ms = paired_ms({
+        'kernel_b512': lambda: ek.emission_rt_cuda(*full_args, **full_kw),
+        'kernel_b16': lambda: ek.emission_rt_cuda(*k3_args, **k3_kw),
+        'plain_b16': lambda: ek.emission_rt_plain(*k3_args, **k3_kw)},
+        repeats=5)
+    bound16_ms, bound16_by = kernel_bound('eclipse', k3_args, k3_kw)
+    gen_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample_demc(log_post_b, rret.params, nsamples=NCHAINS * 10,
+                    nchains=NCHAINS, pstep=rret.pstep, pmin=rret.pmin,
+                    pmax=rret.pmax, device=dev, dtype=rmodel.dtype)
+        torch.cuda.synchronize()
+        gen_times.append(time.perf_counter() - t0)
+    emit('times_hires_eclipse', card=card, nwave=rmodel.nwave,
+         nlayers=rmodel.nlayers, hires_points=len(wl_hires),
+         forward_ms=ms_forward,
+         forward_spectra_per_s=NCHAINS / (ms_forward * 1e-3),
+         hires_stage_ms=ms_hires, hires_stage_fixed_grid_ms=ms_hires_fixed,
+         k3_b512_ms=ms['kernel_b512'], k3_b16_ms=ms['kernel_b16'],
+         k3_b16_plain_ms=ms['plain_b16'], k3_b16_bound_ms=bound16_ms,
+         k3_b16_bound_by=bound16_by,
+         demc_generations_per_s=10 / float(np.median(gen_times)),
+         table_seconds=table_s, main_path_seconds=main_s,
+         phase_seconds=time.perf_counter() - phase_t0,
+         times_note='CUDA events around runs of 4 calls, medians; the '
+                    'high-res stage on the forward\'s [512, W] spectra '
+                    'with the retrieved rv_shift (per-chain lerp) and '
+                    'without (the fixed lerp); DEMC: host clock around '
+                    '10 generations, median of 3')
+    if args.profile:
+        profile('hires_eclipse', forward_b, pb_t, ms_forward)
+    return ({'emission_rt': k3_launches, **lbl_launches},
+            max(k3_abs.values()))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--profile', action='store_true',
                         help='also print torch.profiler kernel breakdowns')
+    parser.add_argument('--seed', type=int, default=1,
+                        help='seed of the hires_eclipse phase\'s noise')
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(HERE, 'pyratbay_tpu_torch')):
         fail('pyratbay_tpu_torch/ is not beside this script: run it from '
@@ -1995,6 +2447,22 @@ def main():
         path_dir = os.path.join(workdir, 'opacity')
         os.makedirs(path_dir)
         kernels += run_opacity(path_dir, dev, args, card)
+        # The high-resolution eclipse retrieval with a stellar-model star
+        # (K4 and K5 for its table, K3 for its forwards):
+        path_dir = os.path.join(workdir, 'hires_eclipse')
+        os.makedirs(path_dir)
+        hires_launches, hires_k3_abs = run_hires_eclipse(
+            path_dir, dev, args, card)
+        for entry in kernels:
+            more = hires_launches.get(entry['name'])
+            if more is None:
+                continue
+            entry.setdefault('launches_by_path',
+                             {'opacity': entry['launches']})
+            entry['launches_by_path']['hires_eclipse'] = more
+            entry['launches'] += more
+        kernels[2]['max_abs_err'] = max(kernels[2]['max_abs_err'],
+                                        hires_k3_abs)
         print(json.dumps({'kernels': kernels}), flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

@@ -2,8 +2,9 @@
 
 Port of pyratbay_tpu/driver.py for runmode = tli (line lists to a TLI
 file), atmosphere (the atmospheric profiles to output_atmfile),
-spectrum (one forward spectrum, Model.run, to specfile), opacity (the
-JAX default engine, whose port is pending) and retrieval (DEMC with
+spectrum (one forward spectrum, Model.run, to specfile), opacity (a
+cross-section table from TLI files through Model.compute_opacity's
+default engine, the parity engine) and retrieval (DEMC with
 checkpoints, resume and post-processing); radeq and the nested sampler
 are not ported yet (ROADMAP.md A10).
 """
@@ -32,8 +33,9 @@ def run(cfile, device=None, root=None, seed=0):
     for runmode = retrieval).  runmode = atmosphere writes the
     temperature, VMR and radius profiles to output_atmfile; runmode =
     spectrum writes the spectrum to specfile.  runmode = opacity calls
-    Model.compute_opacity() with its default engine, the parity engine,
-    which raises NotImplementedError (ROADMAP.md A11): tabulate with
+    Model.compute_opacity() with its default engine, the parity engine
+    (the reference's profile-grid sampling, host float64), and writes
+    the table to sampled_cross_sec; the direct engine on the device is
     Model(cfg, device).compute_opacity(engine='direct').
     """
     cfg = cfg_parser.parse(cfile, root=root)

@@ -14,7 +14,7 @@ from .. import constants as pc
 
 __all__ = [
     'read_atm', 'write_atm',
-    'write_spectrum', 'read_spectrum',
+    'write_spectrum', 'read_spectrum', 'read_spectra',
     'read_cs', 'write_cs',
     'read_opacity', 'write_opacity',
     'read_molecs', 'species_properties',
@@ -159,6 +159,34 @@ def read_spectrum(filename, wn=True):
     if wn:
         wave = 1.0 / (wave * pc.um)
     return wave, spectrum
+
+
+def read_spectra(filename):
+    """Read a temperature-gridded SED file (the reference's @TEMPERATURES
+    / @SPECTRA format, pyratbay/io/io.py read_spectra); falls back to a
+    plain two-column spectrum.
+
+    Returns (spectra [ntemps, nwave], wn [cm-1], temperatures [K] or
+    None for a plain single spectrum).  wn is 1/wavelength in the
+    file's row order: a file in ascending wavelength gives a
+    descending wn.
+    """
+    with open(filename) as f:
+        lines = [line.strip() for line in f]
+    if '@SPECTRA' not in lines:
+        wn, spectrum = read_spectrum(filename)
+        return spectrum[None, :], wn, None
+    lines = [
+        line for line in lines
+        if line and not line.startswith('#')
+    ]
+    itemp = lines.index('@TEMPERATURES')
+    temperatures = np.array(lines[itemp + 1].split(), float)
+    iflux = lines.index('@SPECTRA') + 1
+    data = np.array([line.split() for line in lines[iflux:]], float)
+    spectra = data[:, 1:].T
+    wn = 1.0 / (data[:, 0] * pc.um)
+    return spectra, wn, temperatures
 
 
 # --------------------------------------------------------------------------

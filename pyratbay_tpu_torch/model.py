@@ -2,17 +2,19 @@
 
 Port of pyratbay_tpu/model.py for: transit and plane-parallel emission
 geometry (rt_path transit, emission, eclipse, f_lambda) with a
-blackbody star and raygrid or Gauss quadrature; isothermal, Guillot or
+blackbody star, a Kurucz model or a starspec SED (gridded in
+temperature or plain) and raygrid or Gauss quadrature; isothermal, Guillot or
 Madhusudhan T(p); free VMR models with bulk balancing; hydro_m/hydro_g
 radii; input atmospheres, interpolated onto a calculated pressure grid;
 the opacity types line_sample, cia (files, or the bundled tables by
 basename), alkali, rayleigh (H, H2, He, e-), cloud (deck, ccsgray,
-lecavelier), h_ion and patchy clouds (fpatchy); the line-by-line setup
-(tlifile) with the direct tabulation of runmode = opacity,
-compute_opacity(engine='direct'); and the per-chain forward of runmode
-= spectrum, Model.run, whose spectrum comes from the RT kernels at
-B = 1.  Other options raise NotImplementedError naming their ROADMAP.md
-item.
+lecavelier), h_ion and patchy clouds (fpatchy); line-by-line opacity
+from TLI files (tlifile) through the parity engine (opacity/lbl.py,
+host numpy float64: compute_opacity's default, Model.run and get_ec)
+or the direct engine on the device (compute_opacity(engine='direct'));
+and the per-chain forward of runmode = spectrum, Model.run, whose
+spectrum comes from the RT kernels at B = 1.  Other options raise
+NotImplementedError naming their ROADMAP.md item.
 
 Setup is host-side numpy, as in the JAX package; `to(device)` turns
 the static tables into tensors (float64 on the CPU, float32 on CUDA).
@@ -40,7 +42,7 @@ from .opacity.line_sample import LineSample, wn_mask_tol
 from .opacity.rayleigh import Rayleigh
 from .spectrum import rt
 from .spectrum.emission_kernel import emission_flux_ensemble
-from .spectrum.starspec import bbflux
+from .spectrum.starspec import bbflux, read_kurucz
 from .spectrum.transit_kernel import transit_spectrum_ensemble
 
 __all__ = ['Model']
@@ -314,15 +316,49 @@ class Model:
             self.invsrat = 1.0 / np.sum(bratio, axis=1)
 
     def _setup_star(self):
-        """The stellar flux pi B(wn, tstar) of a blackbody star."""
+        """The stellar flux at the model's wavenumbers
+        (pyratbay_tpu/model.py:498-530): a starspec SED file (with
+        @TEMPERATURES, a grid of SEDs interpolated in temperature at
+        tstar, else its first temperature; sed_temps and sed_fluxes keep
+        the grid for a retrieved T_eff), a Kurucz grid's model closest to
+        (tstar, log_gstar), or the blackbody pi B(wn, tstar).
+
+        Each SED is sorted by wavenumber before its interpolation: a
+        file in ascending wavelength lists its wavenumbers in descending
+        order, which np.interp does not take.
+        """
         cfg = self.cfg
-        if cfg.starspec is not None or cfg.kurucz is not None:
-            raise _not_ported(
-                'Stellar spectra from files (starspec, kurucz)',
-                'A8 (stellar spectra)')
         self.starflux = None
+        self.sed_temps = None
+        self.sed_fluxes = None
         self.star_is_blackbody = False
-        if self.tstar is not None:
+        if cfg.starspec is not None:
+            spectra, starwn, sed_temps = pio.read_spectra(cfg.starspec)
+            order = np.argsort(starwn, kind='stable')
+            fluxes = np.stack([
+                np.interp(self.wn, starwn[order], flux[order])
+                for flux in spectra
+            ])
+            if sed_temps is not None:
+                self.sed_temps = np.asarray(sed_temps, float)
+                self.sed_fluxes = fluxes
+                tstar = self.tstar if self.tstar is not None \
+                    else sed_temps[0]
+                self.starflux = _interp_sed(
+                    torch.as_tensor(fluxes), torch.as_tensor(self.sed_temps),
+                    torch.as_tensor([float(tstar)], dtype=torch.float64),
+                )[0].numpy()
+            else:
+                self.starflux = fluxes[0]
+        elif cfg.kurucz is not None:
+            if self.tstar is None or cfg.log_gstar is None:
+                raise ValueError(
+                    'Undefined stellar temperature or gravity for Kurucz'
+                )
+            flux, starwn, _, _ = read_kurucz(
+                cfg.kurucz, self.tstar, cfg.log_gstar)
+            self.starflux = np.interp(self.wn, starwn, flux)
+        elif self.tstar is not None:
             self.starflux = np.asarray(bbflux(self.wn, self.tstar))
             self.star_is_blackbody = True
 
@@ -370,10 +406,6 @@ class Model:
             self.tmax['line_sample'] = ls.tmax
 
         if cfg.tlifile is not None:
-            if cfg.runmode != 'opacity':
-                raise _not_ported(
-                    'Line-by-line opacity (tlifile) in the forward model',
-                    'A12')
             if self.grid.own is None:
                 raise ValueError(
                     'Line-by-line opacity (tlifile) requires an explicit '
@@ -385,7 +417,20 @@ class Model:
             lbl = LineByLine(
                 cfg.tlifile, wn=wn, species=species,
                 mol_mass=self.mol_mass, mol_radius=self.mol_radius,
-                own=self.grid.own, voigt_cutoff=cfg.voigt_cutoff,
+                voigt_extent=cfg.voigt_extent,
+                voigt_cutoff=cfg.voigt_cutoff,
+                ethresh=cfg.ethresh,
+                wnosamp=self.grid.wnosamp,
+                ownstep=self.grid.ownstep,
+                own=self.grid.own,
+                odivisors=self.grid.odivisors,
+                pressure=self.press,
+                tmin=cfg.tmin, tmax=cfg.tmax,
+                ndop=cfg.voigt_ndop, nlor=cfg.voigt_nlor,
+                dmin=cfg.voigt_dmin, dmax=cfg.voigt_dmax,
+                lmin=cfg.voigt_lmin, lmax=cfg.voigt_lmax,
+                dlratio=cfg.voigt_dlratio,
+                resolution_mode=self.grid.resolution is not None,
                 single_isotope=cfg.single_isotope,
             )
             imol = [species.index(mol) for mol in lbl.species]
@@ -464,6 +509,8 @@ class Model:
         self._log_press = tensor(np.log10(self.press))
         self._wn = tensor(self.wn)
         self._starflux = tensor(self.starflux)
+        self._sed_temps = tensor(self.sed_temps)
+        self._sed_fluxes = tensor(self.sed_fluxes)
         if self.bulk is not None:
             self._bulkratio = tensor(self.bulkratio)
             self._invsrat = tensor(self.invsrat)
@@ -478,10 +525,11 @@ class Model:
         """Tabulate line-by-line cross sections over a (T, layer, wave)
         grid and write them to the sampled_cross_sec npz file.
 
-        engine='direct' evaluates exact Voigt profiles on the model's
-        device (opacity/lbl_direct.py, the CUDA kernels on a GPU).  The
-        parity engine, the reference's profile-grid sampling, is not
-        ported yet (ROADMAP.md A11).
+        engine='parity' (the default) reproduces the reference's
+        profile-grid sampling on the host in float64 (opacity/lbl.py,
+        with grid-temperature densities); engine='direct' evaluates exact
+        Voigt profiles on the model's device (opacity/lbl_direct.py, the
+        CUDA kernels on a GPU), free of the profile grid's quantization.
         """
         cfg = self.cfg
         if cfg.sampled_cs is None:
@@ -515,18 +563,24 @@ class Model:
                 f'[{cfg.tmin:.1f}, {cfg.tmax:.1f}] K lie outside the TLI '
                 f'range [{lbl.tmin:.1f}, {lbl.tmax:.1f}] K'
             )
-        if engine != 'direct':
-            raise NotImplementedError(
-                f"compute_opacity(engine='{engine}'): the parity "
-                'line-by-line engine is not ported to pyratbay_tpu_torch '
-                "yet (ROADMAP.md A11); use engine='direct'")
+        if engine not in ('parity', 'direct'):
+            raise ValueError(
+                f"Unknown line-by-line engine '{engine}' (parity, direct)")
         ntemp = int((cfg.tmax - cfg.tmin) / cfg.tstep) + 1
         temps = np.linspace(
             cfg.tmin, cfg.tmin + (ntemp - 1) * cfg.tstep, ntemp,
         )
-        direct = self.direct_lbl(lbl)
-        table = np.asarray(
-            direct.tabulate(temps, self.press, self.base_vmr), float)
+        vmr = self.base_vmr
+        if engine == 'direct':
+            direct = self.direct_lbl(lbl)
+            table = np.asarray(direct.tabulate(temps, self.press, vmr), float)
+        else:
+            table = np.zeros((ntemp, self.nlayers, self.nwave))
+            for itemp, temp_val in enumerate(temps):
+                temp_profile = np.full(self.nlayers, temp_val)
+                dens = np.asarray(vmr) * (
+                    self.press[:, None] * pc.bar / (pc.k * temp_val))
+                table[itemp] = lbl.cross_section(temp_profile, dens)
         pio.write_opacity(
             cfg.sampled_cs[0], str(lbl.species[0]), temps, self.press,
             self.wn, table,
@@ -755,6 +809,68 @@ class Model:
         self.log.msg(f'Forward model done on {self.device}')
         return result
 
+    def get_ec(self, layer, temp=None, vmr=None):
+        """Per-model extinction contributions (cm-1) at one layer, the
+        reference's opacity.get_ec diagnostic (pyratbay_tpu/model.py:
+        1193-1260): (ec [nrows, W] tensor, labels).  A line-sample or
+        line-by-line model gives one row per species (the latter from
+        the parity engine's per-species cross sections times the
+        layer's densities); the deck a row of 1 below its cloud top and
+        0 above; every other model one row.  temp [l] and vmr
+        [l, nspecies] default to the configured profiles."""
+        temp = self.eval_temp() if temp is None else self._tensor(temp)
+        vmr = self.eval_vmr() if vmr is None else self._tensor(vmr)
+        dens = hydro.ideal_gas_density(vmr, self._press, temp)
+        mm = hydro.mean_weight(vmr, self._mol_mass)
+        radius = self.eval_radius(temp, mm)
+        t1, d1 = temp[None], dens[None]
+        rows, labels = [], []
+        for (mtype, model, imol), pars in zip(
+                self.opacity_models, self.model_pars()):
+            pars = None if pars is None else pars[None]
+            if model.name == 'deck':
+                itop = int(model.surface(radius[None], t1, pars)[0][0])
+                rows.append(torch.full(
+                    (1, self.nwave), float(layer > itop),
+                    dtype=self.dtype, device=self.device))
+                labels.append('deck')
+                continue
+            if mtype == 'line_sample':
+                w_st = model.kernel_weights(t1, d1[:, :, imol]).reshape(
+                    model.nspec, model.ntemp, model.nlayers)[:, :, layer]
+                rows.append(torch.einsum(
+                    'st,stw->sw', w_st, model._table[:, :, layer]))
+                labels += list(model.species)
+                continue
+            if mtype == 'lbl':
+                dens_h = dens.cpu().double().numpy()
+                contrib = model.cross_section(
+                    temp.cpu().double().numpy(), dens_h, layer=layer,
+                    per_mol=True)[:, layer]
+                mol_idx = [self.species.index(mol) for mol in model.species]
+                rows.append(self._tensor(
+                    contrib * dens_h[layer, mol_idx][:, None]))
+                labels += list(model.species)
+                continue
+            if mtype == 'alkali':
+                contrib = model.extinction(t1, d1[:, :, imol])
+                labels.append(model.species)
+            elif mtype == 'cia':
+                contrib = model.extinction(t1, d1[:, :, imol])
+                labels.append(model.name)
+            elif mtype == 'rayleigh':
+                contrib = model.extinction(d1[:, :, imol])
+                labels.append(model.name)
+            elif mtype == 'cloud':
+                contrib = model.extinction(t1, pars)
+                labels.append(model.name)
+            else:
+                contrib = model.extinction(
+                    t1, d1[:, :, imol[0]], d1[:, :, imol[1]])
+                labels.append(model.name)
+            rows.append(contrib[0, layer][None, :])
+        return torch.cat(rows, dim=0), labels
+
     def band_contribution(self, obs, result=None):
         """Band-averaged contribution functions (emission) or
         transmittances (transmission) at each band of `obs`
@@ -860,3 +976,18 @@ def _is_number(value):
         return True
     except ValueError:
         return False
+
+
+def _interp_sed(fluxes, temps, tstar):
+    """Linear-in-T interpolation of a temperature-gridded stellar SED
+    (pyratbay_tpu/model.py:1466-1477): fluxes [ntemps, W], temps
+    [ntemps], tstar [B] -> [B, W], on the fluxes' device.  The lower
+    index is clipped to [0, ntemps - 2] and the weight to [0, 1], so a
+    temperature off the grid takes the SED at its nearer end."""
+    tstar = tstar.to(fluxes.dtype)
+    i = torch.clamp(
+        torch.searchsorted(temps, tstar.contiguous(), right=True) - 1,
+        0, len(temps) - 2)
+    w = torch.clamp(
+        (tstar - temps[i]) / (temps[i + 1] - temps[i]), 0.0, 1.0)[:, None]
+    return fluxes[i] * (1.0 - w) + fluxes[i + 1] * w

@@ -3,8 +3,9 @@
 Port of pyratbay_tpu/observation.py for data given in the config
 (data/uncert/filters) or an obsfile, with passbands from filter files,
 the bundled filter library or tophat entries, plus the instrumental
-offset and error-scaling models.  The high-resolution channel is not
-ported yet (ROADMAP.md A8).
+offset and error-scaling models, and the high-resolution channel
+(obsfile_hires: data at wavenumbers, modeled by the instrumental
+convolution of the spectrum at inst_resolution, spectrum/hires.py).
 """
 import os
 
@@ -78,14 +79,35 @@ class Observation:
             self.band_wl = np.array([band.wl0 for band in self.filters])
             self._band_matrix = band_matrix(self.filters, len(wn))
 
-        if getattr(cfg, 'obsfile_hires', None) is not None:
-            raise NotImplementedError(
-                'High-resolution observations are not ported yet '
-                '(ROADMAP.md A8: the high-res channel)'
-            )
+        # High-resolution channel (pyratbay_tpu/observation.py:89-116):
+        # per-point wavenumbers (a filter file's wl0, or a bare
+        # wavelength in um) with data and uncertainties, modeled by
+        # convolving the spectrum to inst_resolution (and an optional
+        # radial-velocity shift) and interpolating at wn_hires.
         self.wn_hires = None
         self.data_hires = None
+        self.uncert_hires = None
         self.inst_resolution = getattr(cfg, 'inst_resolution', None)
+        obsfile_hires = getattr(cfg, 'obsfile_hires', None)
+        if obsfile_hires is not None:
+            if self.inst_resolution is None:
+                raise ValueError(
+                    'Undefined inst_resolution, required when modeling '
+                    'high-resolution data (obsfile_hires)'
+                )
+            obs_h = pio.read_observations(_expand(obsfile_hires, root))
+            wl_hires = []
+            for entry in obs_h['filters']:
+                fields = str(entry).split()
+                path = _expand(fields[0], root)
+                if os.path.isfile(path):
+                    wl_hires.append(PassBand(path, wn=wn).wl0)
+                else:
+                    wl_hires.append(float(fields[0]))
+            self.wn_hires = 1.0 / (np.asarray(wl_hires) * pc.um)
+            if obs_h['data'] is not None and len(obs_h['data']):
+                self.data_hires = np.asarray(obs_h['data'], float)
+                self.uncert_hires = np.asarray(obs_h['uncert'], float)
 
         self.offset_pars = []
         self.uncert_pars = []

@@ -1,5 +1,7 @@
 """Special functions on tensors: exponential integrals (Guillot T(p))
-and the reference-compatible Voigt profile (alkali detuning anchors).
+and the reference-compatible Voigt profile (alkali detuning anchors);
+and, host numpy, the Voigt-grid width bounds of the line-by-line
+engine (min_widths, max_widths).
 
 Elementwise torch ports of pyratbay_tpu/ops/special.py, with the same
 fixed iteration counts and region selects, so float64 results agree
@@ -10,7 +12,10 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ['exp1', 'e2', 'wofz_real', 'voigt_profile', 'voigt_ref']
+from .. import constants as pc
+
+__all__ = ['exp1', 'e2', 'wofz_real', 'voigt_profile', 'voigt_ref',
+           'min_widths', 'max_widths']
 
 _SQRT_PI = np.sqrt(np.pi)
 _SQRT_LN2 = np.sqrt(np.log(2.0))
@@ -152,3 +157,39 @@ def voigt_ref(x, hwhm_lor, hwhm_dop):
         )
     rational = v * _SQRT_PI_LN2 / (np.pi * hwhm_dop)
     return torch.where(hwhm_lor / hwhm_dop < 0.1, exact, rational)
+
+
+_H2_RADIUS = 1.445e-8  # cm
+_H2_MASS = 2.01588     # amu
+
+
+def min_widths(min_temp, max_temp, min_wn, max_mass, min_rad, min_press):
+    """Minimum Doppler/Lorentz HWHM bounds for an H2-dominated atmosphere
+    (host numpy, pyratbay_tpu/ops/special.py)."""
+    dmin = (
+        np.sqrt(2.0 * np.log(2.0) * pc.k * min_temp / (max_mass * pc.amu))
+        * min_wn / pc.c
+    )
+    min_diam = _H2_RADIUS + min_rad
+    lmin = (
+        np.sqrt(2.0 / (np.pi * pc.k * max_temp * pc.amu))
+        * min_press * pc.bar * min_diam**2 / pc.c
+        * np.sqrt(1.0 / max_mass + 1.0 / _H2_MASS)
+    )
+    return dmin, lmin
+
+
+def max_widths(min_temp, max_temp, max_wn, min_mass, max_rad, max_press):
+    """Maximum Doppler/Lorentz HWHM bounds for an H2-dominated atmosphere
+    (host numpy, pyratbay_tpu/ops/special.py)."""
+    dmax = (
+        np.sqrt(2.0 * np.log(2.0) * pc.k * max_temp / (min_mass * pc.amu))
+        * max_wn / pc.c
+    )
+    max_diam = _H2_RADIUS + max_rad
+    lmax = (
+        np.sqrt(2.0 / (np.pi * pc.k * min_temp * pc.amu))
+        * max_press * pc.bar * max_diam**2 / pc.c
+        * np.sqrt(1.0 / min_mass + 1.0 / _H2_MASS)
+    )
+    return dmax, lmax

@@ -17,6 +17,9 @@ extinction parts are [B, l, W].
   the clouds are dense parts kept apart from the gas;
 * H- and active alkali lines: one elementwise dense part; alkali lines
   with no on-grid support are pruned statically;
+* line-by-line opacity from TLI files (Model.run only): the parity
+  engine's extinction, host float64, as one dense part (lbl_extinction);
+  the batched forward of an lbl model raises (ROADMAP.md A12);
 * deck: the surface triple that bounds the integration;
 * the size rule transit_kernel.fit_operands keeps the operands within
   what the kernels take (rank-1 terms, CIA rows, dense parts);
@@ -24,11 +27,17 @@ extinction parts are [B, l, W].
   (spectrum/transit_kernel.py) on CUDA, its plain version on the CPU;
 * emission/eclipse RT: one launch of the emission kernel
   (spectrum/emission_kernel.py), then the post-scalings: f_dilution,
-  the eclipse's / starflux * (Rp/Rs)^2 and the f_lambda flux at Earth;
+  the eclipse's / starflux * (Rp/Rs)^2 (with a retrieved T_eff, the
+  star's blackbody or its temperature-gridded SED interpolated for each
+  chain) and the f_lambda flux at Earth;
 * patchy clouds: a second launch for the clear spectrum (no cloud
   parts, no deck, bottom at nlayers), mixed as
   f_patchy * cloudy + (1 - f_patchy) * clear;
 * band integration: one [B, W] x [W, nbands] product;
+* the high-res channel (spectrum/hires.py HiresStage): one grouped
+  convolution with the instrumental kernel, then a fixed lerp at the
+  data's wavenumbers or, with a retrieved rv_shift, a per-chain lerp
+  on the Doppler-shifted grid;
 * on request, the RT diagnostics (depth, ideep, the Planck grid of an
   emission, a patchy transit's clear depth) from the summed dense
   extinction (rt_diagnostics): the kernels return no depth.
@@ -36,9 +45,10 @@ extinction parts are [B, l, W].
 Model.run takes the same assembly (assemble_opacity, spectra,
 rt_diagnostics) at B = 1.
 
-Float32 CUDA matmuls run in full float32: the TF32 switch
-(torch.backends.cuda.matmul.allow_tf32) is set to False when a CUDA
-forward is built.
+Float32 CUDA matmuls and convolutions run in full float32: the TF32
+switches (torch.backends.cuda.matmul.allow_tf32 and
+torch.backends.cudnn.allow_tf32) are set to False when a CUDA forward is
+built.
 """
 import numpy as np
 import torch
@@ -49,13 +59,14 @@ from ..atmosphere import geometry
 from ..atmosphere import vmr as vmr_models
 from ..ops.planck import blackbody_wn
 from ..spectrum import rt
+from ..spectrum.hires import HiresStage, instrumental_kernel
 from ..spectrum.transit_kernel import (
     extinction_plain, fit_operands, ls_in_kernel,
 )
 
 __all__ = ['build_forward_batched', 'build_log_posterior_batched',
-           'line_sample_table', 'assemble_opacity', 'summed_extinction',
-           'spectra', 'rt_diagnostics']
+           'line_sample_table', 'assemble_opacity', 'lbl_extinction',
+           'summed_extinction', 'spectra', 'rt_diagnostics']
 
 
 def line_sample_table(model):
@@ -108,6 +119,9 @@ def assemble_opacity(model, temp, dens, radius, pars_list, ls_tab,
             else:
                 parts.append(m.extinction(temp, density, pars))
             continue
+        if mtype == 'lbl':
+            parts.append(lbl_extinction(m, temp, dens, skip))
+            continue
         if mtype == 'cia':
             cia_ws.append(m.kernel_weights(temp, dens[:, :, imol]))
             cia_tabs.append(m._tab)
@@ -146,6 +160,18 @@ def assemble_opacity(model, temp, dens, radius, pars_list, ls_tab,
     return dict(parts=parts, r1_cols=r1_cols, r1_rows=r1_rows,
                 cia_ws=cia_ws, cia_tabs=cia_tabs, ls_ws=ls_ws, cloud=cloud,
                 deck=deck)
+
+
+def lbl_extinction(lbl, temp, dens, skip=()):
+    """The parity engine's extinction of B chains as one dense part
+    [B, l, W]: computed on the host in float64 (opacity/lbl.py, chain by
+    chain), then one copy to the tensors' device and dtype.  skip: the
+    species to leave out."""
+    temp_h = temp.detach().to('cpu', torch.float64).numpy()
+    dens_h = dens.detach().to('cpu', torch.float64).numpy()
+    ec = np.stack([lbl.extinction(t, d, skip=skip)
+                   for t, d in zip(temp_h, dens_h)])
+    return torch.as_tensor(ec, dtype=temp.dtype).to(temp.device)
 
 
 def _shared_operands(ops, ls_tab):
@@ -257,9 +283,15 @@ def build_forward_batched(model, obs=None, ret=None):
     [B], and bbody, depth_clear, ideep_clear, clear, cloudy where the
     RT path makes them (rt_diagnostics; clear and cloudy before the
     emission's post-scalings).  The log-posterior does not ask."""
+    if any(mtype == 'lbl' for mtype, _, _ in model.opacity_models):
+        raise NotImplementedError(
+            'A batched forward of a line-by-line (tlifile) model is not '
+            'ported yet (ROADMAP.md A12 (the direct engine in the batched '
+            'forward)); Model.run computes its spectrum')
     dev, dt = model.device, model.dtype
     if dev.type == 'cuda':
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     state = build_state(model, ret)
     tmin_bound = max([model.tmin[k] for k in model.tmin], default=-np.inf)
     tmax_bound = min([model.tmax[k] for k in model.tmax], default=np.inf)
@@ -279,6 +311,10 @@ def build_forward_batched(model, obs=None, ret=None):
     has_bands = obs is not None and obs.nbands > 0
     if has_bands:
         obs.to(dev, dt)
+    hires = None
+    if obs is not None and obs.wn_hires is not None:
+        hires = hires_stage(model, obs)
+    retrieve_rv = ret is not None and ret.irv is not None
     ls_tab = line_sample_table(model)
 
     def forward_b(params_b=None, diagnostics=False):
@@ -315,10 +351,30 @@ def build_forward_batched(model, obs=None, ret=None):
             bandflux = obs.band_integrate(spectrum)
             out['bandflux'] = torch.where(
                 good[:, None], bandflux, torch.full_like(bandflux, np.inf))
+        if hires is not None:
+            velocity = st['rv_shift'] * pc.km if retrieve_rv else None
+            flux_hires = hires(spectrum, velocity)
+            out['bandflux_hires'] = torch.where(
+                good[:, None], flux_hires,
+                torch.full_like(flux_hires, np.inf))
         return out
 
     forward_b.state = state
+    forward_b.hires = hires
     return forward_b
+
+
+def hires_stage(model, obs):
+    """The high-res stage of a model and an Observation with a high-res
+    channel (pyratbay_tpu batched.py:117-149): the instrumental kernel
+    at inst_resolution on the model's sampling resolution
+    (grid.resolution, else the median wn / dwn of the grid)."""
+    wn = np.asarray(model.wn)
+    sampling_res = model.grid.resolution
+    if sampling_res is None:
+        sampling_res = float(np.median(wn[:-1] / np.ediff1d(wn)))
+    kernel = instrumental_kernel(obs.inst_resolution, sampling_res)
+    return HiresStage(wn, obs.wn_hires, kernel, model.device, model.dtype)
 
 
 def _emission_scalings(model, spectrum, st, retrieve_tstar):
@@ -330,7 +386,11 @@ def _emission_scalings(model, spectrum, st, retrieve_tstar):
         spectrum = spectrum * per_chain(st['f_dilution'])
     rp = per_chain(st['rplanet'])
     if model.rt_path in pc.ECLIPSE_RT:
-        if retrieve_tstar:
+        if retrieve_tstar and model.sed_temps is not None:
+            from ..model import _interp_sed
+            sflux = _interp_sed(
+                model._sed_fluxes, model._sed_temps, st['tstar'])
+        elif retrieve_tstar:
             sflux = blackbody_wn(model._wn, st['tstar'][:, None]) * np.pi
         else:
             sflux = model._starflux
@@ -345,9 +405,12 @@ def _emission_scalings(model, spectrum, st, retrieve_tstar):
 
 def build_log_posterior_batched(model, obs, ret):
     """Batched params [B, n] -> log-posterior [B]: Gaussian likelihood
-    of the band-integrated data, uniform bounds and optional two-sided
-    Gaussian priors; -inf for rejected or out-of-bounds chains."""
-    if obs.data is None or obs.nbands == 0:
+    of the band-integrated data and of the high-res channel's data
+    (either or both), uniform bounds and optional two-sided Gaussian
+    priors; -inf for rejected or out-of-bounds chains."""
+    has_lowres = obs.data is not None and obs.nbands > 0
+    has_hires = obs.data_hires is not None
+    if not (has_lowres or has_hires):
         raise ValueError(
             'Undefined observed data (data/obsfile), required to build '
             'the likelihood'
@@ -356,8 +419,12 @@ def build_log_posterior_batched(model, obs, ret):
     forward_b = build_forward_batched(model, obs, ret)
     tensor = lambda a: torch.as_tensor(
         np.asarray(a, float), dtype=dt, device=dev)
-    data = tensor(obs.data)
-    uncert = tensor(obs.uncert)
+    if has_lowres:
+        data = tensor(obs.data)
+        uncert = tensor(obs.uncert)
+    if has_hires:
+        data_hires = tensor(obs.data_hires)
+        uncert_hires = tensor(obs.uncert_hires)
     pmin, pmax = tensor(ret.pmin), tensor(ret.pmax)
     prior = tensor(ret.prior)
     priorlow, priorup = tensor(ret.priorlow), tensor(ret.priorup)
@@ -366,17 +433,23 @@ def build_log_posterior_batched(model, obs, ret):
     def log_post_b(params_b):
         params_b = torch.as_tensor(params_b, dtype=dt, device=dev)
         result = forward_b(params_b)
-        data_adj = data[None, :]
-        uncert_adj = uncert[None, :]
-        log_norm = 0.0
-        if ret.ioffset:
-            data_adj = obs.offset_data(params_b[:, ret.ioffset])
-        if ret.ierror:
-            uncert_adj = obs.scale_uncert(params_b[:, ret.ierror])
-            log_norm = -torch.sum(
-                torch.log(uncert_adj / uncert[None, :]), dim=1)
-        resid = (result['bandflux'] - data_adj) / uncert_adj
-        log_like = -0.5 * torch.sum(resid**2, dim=1) + log_norm
+        log_like = torch.zeros(params_b.shape[0], dtype=dt, device=dev)
+        if has_lowres:
+            data_adj = data[None, :]
+            uncert_adj = uncert[None, :]
+            log_norm = 0.0
+            if ret.ioffset:
+                data_adj = obs.offset_data(params_b[:, ret.ioffset])
+            if ret.ierror:
+                uncert_adj = obs.scale_uncert(params_b[:, ret.ierror])
+                log_norm = -torch.sum(
+                    torch.log(uncert_adj / uncert[None, :]), dim=1)
+            resid = (result['bandflux'] - data_adj) / uncert_adj
+            log_like = -0.5 * torch.sum(resid**2, dim=1) + log_norm
+        if has_hires:
+            resid_h = (result['bandflux_hires'] - data_hires[None, :]) \
+                / uncert_hires[None, :]
+            log_like = log_like - 0.5 * torch.sum(resid_h**2, dim=1)
         in_bounds = torch.all(
             (params_b >= pmin[None]) & (params_b <= pmax[None]), dim=1)
         sigma = torch.where(params_b > prior[None], priorup[None],

@@ -50,7 +50,8 @@ def run_retrieval(model, seed=0):
         raise NotImplementedError(
             f'sampler = {cfg.sampler} is not ported yet (ROADMAP.md A10)')
     obs = _observation(model)
-    if obs.data is None or obs.nbands == 0:
+    has_lowres = obs.data is not None and obs.nbands > 0
+    if not has_lowres and obs.data_hires is None:
         raise ValueError(
             'Undefined observed data/filters, required for retrieval')
     ret = RetrievalParams(model, obs)
@@ -93,7 +94,9 @@ def run_retrieval(model, seed=0):
     model.best_log_post = float(results['best_log_post'])
     model.acceptance_rate = results['acceptance_rate']
     model.spec_best = best['spectrum'].cpu().numpy()
-    model.bandflux_best = best['bandflux'].cpu().numpy()
+    # High-res data alone have no bands: an empty best-fit band flux.
+    model.bandflux_best = best['bandflux'].cpu().numpy() if has_lowres \
+        else np.zeros(0)
     history = results['chain_history'][burnin_gens:]
     if len(history) > 2:
         model.grfactor = gelman_rubin(history)
@@ -109,8 +112,8 @@ def run_retrieval(model, seed=0):
             acceptance_rate=model.acceptance_rate,
             spec_best=model.spec_best,
             bandflux_best=model.bandflux_best,
-            data=obs.data,
-            uncert=obs.uncert,
+            data=obs.data if has_lowres else np.zeros(0),
+            uncert=obs.uncert if has_lowres else np.zeros(0),
         )
         log.msg(f'Posterior saved to {outfile}')
     log.msg(

@@ -20,12 +20,12 @@ def build_state(model, ret=None):
     Same mapping as pyratbay_tpu forward.state (forward.py:124-217):
     parameters overwrite the T(p), VMR and opacity-model slots, the
     planet's radius, mass and reference pressure, the patchy-cloud
-    fraction, the emission's dilution factor and the star's
-    temperature.
+    fraction, the emission's dilution factor, the star's temperature
+    and the radial velocity of the high-res channel (rv_shift, km/s).
     """
     if (ret is not None and ret.itstar is not None
             and model.rt_path in pc.ECLIPSE_RT
-            and not model.star_is_blackbody):
+            and model.sed_temps is None and not model.star_is_blackbody):
         raise ValueError(
             'Cannot retrieve tstar from a fixed input stellar spectrum; '
             'provide a temperature-gridded SED file (starspec with '
@@ -61,6 +61,7 @@ def build_state(model, ret=None):
         fpatchy = model.fpatchy
         f_dilution = model.cfg.f_dilution
         tstar = model.tstar
+        rv_shift = None
 
         if ret is not None and params is not None:
             if ret.itemp:
@@ -93,11 +94,8 @@ def build_state(model, ret=None):
                 f_dilution = params[:, ret.idilut]
             if ret.itstar is not None:
                 tstar = params[:, ret.itstar]
-            if getattr(ret, 'irv', None) is not None:
-                raise NotImplementedError(
-                    'Retrieval parameter slot irv is not ported yet '
-                    '(ROADMAP.md A8 (high-res channel))'
-                )
+            if ret.irv is not None:
+                rv_shift = params[:, ret.irv]
 
         if tpars is not None and model.temp_model is not None:
             temp = model.temp_model(tpars)
@@ -127,7 +125,7 @@ def build_state(model, ret=None):
             'params': params, 'tpars': tpars, 'vmr_par_list': vmr_par_list,
             'pars_list': pars_list, 'rplanet': rplanet, 'mplanet': mplanet,
             'refpress': refpress, 'fpatchy': fpatchy,
-            'f_dilution': f_dilution, 'tstar': tstar,
+            'f_dilution': f_dilution, 'tstar': tstar, 'rv_shift': rv_shift,
             'temp': temp, 'vmr': vmr, 'dens': dens,
             'mm': mm, 'radius': radius, 'rtop': rtop,
         }
@@ -149,8 +147,9 @@ def _unbatch(fn):
 
 def build_forward(model, obs=None, ret=None):
     """Per-chain forward(params [npars], diagnostics=False) ->
-    dict(spectrum [W], bandflux [nbands], temperature [l], good, and
-    the RT diagnostics on request): the batched forward at B = 1, so
+    dict(spectrum [W], bandflux [nbands], bandflux_hires [H] with a
+    high-res channel, temperature [l], good, and the RT diagnostics on
+    request): the batched forward at B = 1, so
     its transit RT is one kernel launch at B = 1."""
     from .batched import build_forward_batched
     forward_b = build_forward_batched(model, obs, ret)

@@ -842,3 +842,105 @@ def test_cuda_spectrum_posterior_matches_cpu(cuda, rt_path, tmp_path):
     assert np.all(np.isfinite(got)) and got.shape == want.shape
     scale = np.abs(want).max(axis=1, keepdims=True)
     assert np.max(np.abs(got - want) / scale) < 1e-4
+
+
+def _hires_file(path, wn, npoints, seed=4):
+    """A high-res data file: points uniform in ln(wavelength) across the
+    grid `wn` and beyond both its ends."""
+    from pyratbay_tpu_torch.io import io as pio
+    wl_lo, wl_hi = 1e4 / wn[-1], 1e4 / wn[0]
+    wl = np.exp(np.linspace(np.log(wl_lo) - 2e-4, np.log(wl_hi) + 2e-4,
+                            npoints))
+    rng = np.random.default_rng(seed)
+    pio.write_observations(path, 1.0 + 0.01 * rng.standard_normal(npoints),
+                           np.full(npoints, 0.01),
+                           [f'{w:.8f}' for w in wl])
+    return path
+
+
+@pytest.mark.cuda
+def test_cuda_hires_forward_matches_cpu_float64(cuda, tmp_path):
+    """The batched forward's high-res stage on the card in float32 (a
+    retrieved rv_shift at -100 to 100 km/s) against the CPU in float64,
+    within 1e-4 of the row maximum.  cuDNN's TF32, on by default, would
+    round the spectra to 10 bits (~5e-4): building the forward turns it
+    off."""
+    from pyratbay_tpu_torch.benchmark import make_flagship
+    from pyratbay_tpu_torch.observation import Observation
+    from pyratbay_tpu_torch.retrieval.batched import build_forward_batched
+    from pyratbay_tpu_torch.retrieval.params import RetrievalParams
+
+    torch.backends.cudnn.allow_tf32 = True
+    fluxes = {}
+    for dev in (cuda, 'cpu'):
+        workdir = tmp_path / str(dev)
+        model, _, _, _, _ = make_flagship(
+            str(workdir), nlayers=21, wl_low=1.1, wl_high=1.3, wnstep=0.5,
+            device=dev, rt_path='eclipse')
+
+        class Cfg:
+            data = uncert = obsfile = dunits = filters = None
+            offset_inst = uncert_scaling = None
+            obsfile_hires = _hires_file(str(workdir / 'hires.dat'),
+                                        model.wn, 3000)
+            inst_resolution = 20000.0
+
+        model.cfg.retrieval_params += '\n    rv_shift  0.0 -120.0 120.0 5.0'
+        obs = Observation(Cfg, model.wn)
+        ret = RetrievalParams(model, obs)
+        forward_b = build_forward_batched(model, obs, ret)
+        pb = np.tile(np.asarray(ret.params), (5, 1))
+        pb[:, ret.irv] = [-100.0, -12.0, 0.0, 12.0, 100.0]
+        fluxes[str(dev)] = forward_b(pb)['bandflux_hires'].double().cpu()
+        if dev == cuda:
+            assert not torch.backends.cudnn.allow_tf32
+    got, want = fluxes[str(cuda)].numpy(), fluxes['cpu'].numpy()
+    assert np.all(np.isfinite(got)) and got.shape == (5, 3000)
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    assert np.max(np.abs(got - want) / scale) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('velocity', [-100.0, -12.0, 0.0, 12.0, 100.0])
+def test_cuda_shifted_lerp_at_high_resolution(cuda, velocity):
+    """The per-chain lerp on a 0.02 cm-1 grid near 6,300 cm-1: its
+    indices on the card equal the CPU's (float64 positions), and the
+    float32 result is np.interp's in float64 within 1e-6, points beyond
+    the grid's ends included."""
+    from pyratbay_tpu_torch.spectrum.hires import HiresStage, rv_shift
+    wn = np.arange(5900.0, 6700.0, 0.02)
+    wn_hires = np.exp(np.linspace(np.log(5899.0), np.log(6701.0), 16650))
+    rng = np.random.default_rng(7)
+    spectrum = 1.0 + 0.1 * np.sin(wn / 0.37) \
+        + 0.01 * rng.standard_normal(len(wn))
+    vel = torch.as_tensor([velocity * 1e5], dtype=torch.float64)
+    stages = {dev: HiresStage(wn, wn_hires, np.ones(1), torch.device(dev),
+                              dtype)
+              for dev, dtype in (('cuda', torch.float32),
+                                 ('cpu', torch.float64))}
+    ilo_gpu, _ = stages['cuda'].shifted_lerp(vel.to(cuda))
+    ilo_cpu, _ = stages['cpu'].shifted_lerp(vel)
+    assert torch.equal(ilo_gpu.cpu(), ilo_cpu)
+    got = stages['cuda'](
+        torch.as_tensor(spectrum[None], dtype=torch.float32, device=cuda),
+        vel.to(cuda)).double().cpu().numpy()[0]
+    want = np.interp(wn_hires, rv_shift(velocity, wn=wn), spectrum)
+    assert np.max(np.abs(got - want)) / np.abs(want).max() < 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_interp_sed_at_the_grid_ends(cuda):
+    """_interp_sed on the card at, between and beyond the SED grid's
+    temperatures against float64 on the CPU."""
+    from pyratbay_tpu_torch.model import _interp_sed
+    rng = np.random.default_rng(8)
+    temps = np.linspace(5000.0, 6500.0, 7)
+    fluxes = rng.uniform(1e5, 2e5, (7, 2000))
+    tstar = np.array([4000.0, 5000.0, 5123.4, 6250.0, 6500.0, 9000.0])
+    want = _interp_sed(torch.as_tensor(fluxes), torch.as_tensor(temps),
+                       torch.as_tensor(tstar)).numpy()
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    got = _interp_sed(f32(fluxes), f32(temps), f32(tstar)).double().cpu()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    np.testing.assert_array_equal(want[0], fluxes[0])
+    np.testing.assert_array_equal(want[-1], fluxes[-1])

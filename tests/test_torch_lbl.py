@@ -54,6 +54,9 @@ from pyratbay_tpu_torch.opacity.lbl_direct import DirectLBL  # noqa: E402
 from pyratbay_tpu_torch.opacity.line_sample import LineSample  # noqa: E402
 from pyratbay_tpu_torch.opacity.linelists import get_linelist_reader  # noqa: E402
 from pyratbay_tpu_torch.opacity.tli import read_tli  # noqa: E402
+from pyratbay_tpu_torch.retrieval.batched import (  # noqa: E402
+    build_forward_batched,
+)
 
 RTOL = 1e-10
 RTOL_JIT = 1e-6     # XLA's float32 folding in the JAX jitted entries
@@ -457,11 +460,6 @@ def test_opacity_config_reads_no_line_sample(workflow, tmp_path):
 # What is not ported yet raises, naming its ROADMAP item
 
 def test_unported_parts_raise(workflow, tmp_path):
-    model = Model(workflow['opacity_cfg'], device='cpu')
-    with pytest.raises(NotImplementedError, match='A11'):
-        model.compute_opacity()
-    with pytest.raises(NotImplementedError, match='A11'):
-        run(workflow['opacity_cfg'], device='cpu')
     with pytest.raises(NotImplementedError, match='A13'):
         get_linelist_reader('exomol')
     with pytest.raises(NotImplementedError, match='A13'):
@@ -471,6 +469,8 @@ def test_unported_parts_raise(workflow, tmp_path):
         text = f.read().replace(
             'runmode = opacity', 'runmode = retrieval\nrt_path = transit')
     with open(cfg, 'w') as f:
-        f.write(text)
+        f.write('\n'.join(ln for ln in text.splitlines()
+                          if not ln.startswith('sampled_cross_sec')))
+    model = Model(cfg, device='cpu')
     with pytest.raises(NotImplementedError, match='A12'):
-        Model(cfg, device='cpu')
+        build_forward_batched(model)

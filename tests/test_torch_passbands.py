@@ -156,5 +156,8 @@ def test_observation_missing_filter_and_hires_raise(tmp_path):
     cfg.filters = ['tophat 1.5 0.01']
     cfg.obsfile_hires = os.path.join(str(tmp_path), 'hires.dat')
     cfg.inst_resolution = 1e5
-    with pytest.raises(NotImplementedError, match='A8'):
+    with pytest.raises(FileNotFoundError):
+        observation.Observation(cfg, NIR_WN)
+    cfg.inst_resolution = None
+    with pytest.raises(ValueError, match='inst_resolution'):
         observation.Observation(cfg, NIR_WN)
