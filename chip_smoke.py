@@ -88,7 +88,19 @@ retrieved, 6 bands and a 16,650-point high-res channel with rv_shift,
 512 chains x 20 generations through the driver and its
 post-processing; GPU float32 against CPU float64 at B = 512 (spectrum,
 high-res fluxes, log-posterior), K3 against its plain version on 16
-chains, and timings (forward, the high-res stage, K3, DEMC).
+chains, and timings (forward, the high-res stage, K3, DEMC).  Then the
+equilibrium phase (run_equilibrium): the transit flagship with
+thermochemical equilibrium, [M/H] and C/O retrieved, 512 chains x 20
+generations through the driver (K1 on every generation, the network
+solved in float64 for every chain), K1 and K3 against their plain
+versions on its operands, GPU against CPU float64 at B = 512 (VMRs,
+spectrum, log-posterior; the eclipse variant's forward through K3),
+Model.run and runmode = atmosphere with the network, and timings (the
+solve, the forward, the device's idle share, DEMC).  Then the radeq
+phase (run_radeq): runmode = radeq through the driver, configured and
+with equilibrium chemistry, each's first 10 iterations against a CPU
+float64 run, a warm restart, the two-stream Model.run and a convective
+run.
 The line before the last is the kernel table; the last line is the
 result.
 """
@@ -2363,6 +2375,543 @@ def run_hires_eclipse(workdir, dev, args, card):
             max(k3_abs.values()))
 
 
+# ----------------------------------------------------------------------
+# The equilibrium phase: thermochemical equilibrium in the retrieval
+
+EQ_CPU_CHUNK = 64       # chains a CPU float64 forward of this phase takes
+VMR_FLOOR = 1e-20       # VMRs held relatively above this value
+VMR_TOL = FORWARD_TOL   # GPU float32 temperatures against CPU float64
+
+
+def _capture(obj, name, store):
+    """Wrap obj.name (an instance's method) so that each call's result
+    is appended to `store`."""
+    real = getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        out = real(*a, **kw)
+        store.append(out)
+        return out
+
+    setattr(obj, name, wrapped)
+
+
+def _lp_bound(lp_cpu, band_cpu, uncert, tol):
+    """The log-posterior difference that a band-flux error of `tol` of
+    each chain's largest band flux allows: with d the error in units of
+    sigma, |dlp| <= |r| |d| + |d|^2 / 2, |r| = sqrt(2 |lp|)."""
+    d = tol * np.abs(band_cpu).max(axis=1, keepdims=True) / uncert[None]
+    dn = np.sqrt(np.sum(d**2, axis=1))
+    return np.sqrt(2.0 * np.abs(lp_cpu)) * dn + 0.5 * dn**2
+
+
+def run_equilibrium(workdir, dev, args, card):
+    """The equilibrium phase: the transit flagship (51 x 3209) with
+    thermochemical equilibrium (benchmark.equilibrium_flagship_cfg:
+    the network of H2 He H H2O CH4 CO CO2 Na K, [M/H] and C/O retrieved
+    beside the Guillot parameters) as 512 chains x 20 generations
+    through the driver; K1 against its plain version on the operands of
+    one B = 512 forward, of a chain and of eight chains with one
+    rejected; GPU float32 against CPU float64 at B = 512 (VMRs,
+    spectrum, log-posterior); the eclipse variant's forward at B = 512
+    through K3, held the same way; Model.run of each and runmode =
+    atmosphere with the network against the CPU; timings (the solve,
+    the forward, the device's busy and idle time, DEMC).  Returns each
+    kernel's launches on this path (each run counted between zeroed
+    counters) and each kernel's largest difference from its plain
+    version."""
+    import torch
+    from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch.benchmark import (
+        equilibrium_flagship_cfg, make_flagship)
+    from pyratbay_tpu_torch.driver import run
+    from pyratbay_tpu_torch.io import io as pio
+    from pyratbay_tpu_torch.model import Model
+    from pyratbay_tpu_torch.observation import Observation
+    from pyratbay_tpu_torch.retrieval.batched import (
+        build_forward_batched, build_log_posterior_batched)
+    from pyratbay_tpu_torch.retrieval.params import RetrievalParams
+    from pyratbay_tpu_torch.retrieval.samplers import sample_demc
+    from pyratbay_tpu_torch.spectrum import emission_kernel as ek
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+
+    _, flag_obs, _, _, _ = make_flagship(workdir, device=dev)
+    cfgs = {'transit': equilibrium_flagship_cfg(
+        os.path.join(workdir, 'flagship.cfg'),
+        os.path.join(workdir, 'equilibrium_transit.cfg'))}
+    with open(cfgs['transit']) as f:
+        text = f.read()
+    cfgs['eclipse'] = os.path.join(workdir, 'equilibrium_eclipse.cfg')
+    with open(cfgs['eclipse'], 'w') as f:
+        f.write(text.replace('rt_path = transit', 'rt_path = eclipse'))
+
+    counters = (tk.transit_rt_cuda, ek.emission_rt_cuda)
+    launches = {'transit_rt': 0, 'transit_rt_single_chain': 0,
+                'emission_rt': 0}
+
+    def counted(fn):
+        """fn() between zeroed launch counters; adds its launches to
+        the phase's and returns (fn's result, its launches)."""
+        for counter in counters:
+            counter.launches = 0
+        tk.transit_rt_cuda.single_chain_launches = 0
+        tk.transit_rt_cuda.tall_launches = 0
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {'transit_rt': tk.transit_rt_cuda.launches,
+               'transit_rt_single_chain':
+                   tk.transit_rt_cuda.single_chain_launches,
+               'emission_rt': ek.emission_rt_cuda.launches}
+        for key, value in got.items():
+            launches[key] += value
+        return out, got
+
+    max_abs = {}
+    rng = np.random.default_rng(0)
+    for kind in ('transit', 'eclipse'):
+        spec = KERNELS[kind]
+        wrapper = 'transit_spectrum_ensemble' if kind == 'transit' \
+            else 'emission_flux_ensemble'
+        kernel, plain = ((tk.transit_rt_cuda, tk.transit_rt_plain)
+                         if kind == 'transit'
+                         else (ek.emission_rt_cuda, ek.emission_rt_plain))
+        model = Model(cfgs[kind], device=dev)
+        obs = Observation(obs_cfg(flag_obs), model.wn)
+        ret = RetrievalParams(model, obs)
+        if model.chem_model is None or (model.nlayers, model.nwave) != (
+                NLAYERS, NWAVE):
+            fail(f'equilibrium {kind}: no network or shape '
+                 f'{(model.nlayers, model.nwave)}')
+        p0 = np.asarray(ret.params)
+        pb = np.clip(p0 + ret.pstep * rng.standard_normal(
+            (NCHAINS, len(p0))), ret.pmin, ret.pmax)
+        forward_b = build_forward_batched(model, obs, ret)
+        pb_t = torch.as_tensor(pb, dtype=model.dtype, device=dev)
+
+        # The kernel against its plain version on this path's operands:
+        call, = record_calls(((model_mod, wrapper),),
+                             lambda: forward_b(pb_t))
+        pb_rejected = pb[:8].copy()
+        pb_rejected[-1, 1] = 1.0e6
+        rejected, = record_calls(((model_mod, wrapper),),
+                                 lambda: forward_b(pb_rejected))
+        args_, kw_ = call
+        one = slice(0, 1)
+        cases = {
+            'B512_equilibrium': wrapper_case(kind, model, call),
+            'B1_equilibrium': (
+                ([p[one] for p in args_[0]],
+                 *_prep(kind, model, args_, kw_, one)),
+                _common(kw_, one)),
+            'B8_equilibrium_rejected_chain': wrapper_case(
+                kind, model, rejected),
+        }
+        case_abs = check_kernel(spec['name'], kernel, plain, cases,
+                                spec['tol'])
+        max_abs[spec['name']] = max(case_abs.values())
+        if kind == 'transit':
+            max_abs['transit_rt_single_chain'] = case_abs['B1_equilibrium']
+
+        # The main path: the retrieval through the driver (transit), the
+        # B = 512 forward (eclipse):
+        band0 = forward_b(p0[None])['bandflux'][0].cpu().numpy()
+        if kind == 'transit':
+            uncert = np.full(len(band0), NOISE)
+            data = band0 + np.random.default_rng(1).normal(0, uncert)
+            filters = [f'tophat {band.wl0:.4f} {band.half_width}'
+                       for band in obs.filters]
+            ret_cfg = os.path.join(workdir, 'equilibrium_retrieval.cfg')
+            write_retrieval_cfg(
+                cfgs[kind], ret_cfg, data, uncert, filters,
+                os.path.join(workdir, 'equilibrium_retrieval.log'))
+            t0 = time.perf_counter()
+            rmodel, path_launches = counted(lambda: run(ret_cfg, seed=0))
+            main_s = time.perf_counter() - t0
+            out = np.load(os.path.join(workdir, 'equilibrium_retrieval.npz'))
+            finite = {k: bool(np.all(np.isfinite(out[k]))) for k in
+                      ('posterior', 'bestp', 'spec_best', 'bandflux_best')}
+            checks = {
+                'on_the_card': rmodel.device.type == 'cuda',
+                'network': rmodel.chem_model is not None,
+                'finite': all(finite.values()),
+                'accepted': float(out['acceptance_rate']) > 0,
+                'k1_every_generation':
+                    path_launches['transit_rt'] >= NGEN + 2,
+                'k1_at_b1': path_launches['transit_rt_single_chain'] >= 1,
+            }
+            emit('main_path_equilibrium', rt_path='transit', seconds=main_s,
+                 nchains=NCHAINS, generations=NGEN,
+                 pnames=list(rmodel.ret.pnames),
+                 acceptance_rate=float(out['acceptance_rate']),
+                 best_log_post=float(out['best_log_post']),
+                 bestp=[float(v) for v in out['bestp']],
+                 launches=path_launches, checks=checks)
+            if not all(checks.values()):
+                fail(f'equilibrium main path: {checks}')
+        else:
+            _, path_launches = counted(lambda: forward_b(pb_t))
+            emit('main_path_equilibrium', rt_path='eclipse', nchains=NCHAINS,
+                 launches=path_launches)
+            if path_launches['emission_rt'] != 1:
+                fail(f'equilibrium eclipse: K3 launches {path_launches}')
+
+        # GPU float32 against CPU float64 at B = 512: the VMRs, the
+        # spectrum and (transit) the log-posterior.
+        cpu_model = Model(cfgs[kind], device='cpu')
+        cpu_obs = Observation(obs_cfg(flag_obs), cpu_model.wn)
+        cpu_ret = RetrievalParams(cpu_model, cpu_obs)
+        if kind == 'transit':
+            for o in (obs, cpu_obs):
+                o.data, o.uncert = data, uncert
+        gpu_vmrs, cpu_vmrs = [], []
+        _capture(model, 'eval_vmr_batched', gpu_vmrs)
+        _capture(cpu_model, 'eval_vmr_batched', cpu_vmrs)
+        with torch.no_grad():
+            gpu_out = build_forward_batched(model, obs, ret)(pb_t)
+            if kind == 'transit':
+                gpu_lp = build_log_posterior_batched(model, obs, ret)(
+                    pb_t).double().cpu().numpy()
+            t0 = time.perf_counter()
+            cpu_fb = build_forward_batched(cpu_model, cpu_obs, cpu_ret)
+            outs = chunked_cpu(cpu_fb, pb, EQ_CPU_CHUNK)
+            cpu_vmr = torch.cat(cpu_vmrs)
+            cpu_lp = None
+            if kind == 'transit':
+                cpu_lp = torch.cat(chunked_cpu(build_log_posterior_batched(
+                    cpu_model, cpu_obs, cpu_ret), pb, EQ_CPU_CHUNK)).numpy()
+            cpu_s = time.perf_counter() - t0
+        gpu_vmr = gpu_vmrs[0]
+        cpu_spec = torch.cat([o['spectrum'] for o in outs])
+        cpu_band = torch.cat([o['bandflux'] for o in outs]).numpy()
+        spec_rel, spec_abs = rel_err(gpu_out['spectrum'], cpu_spec)
+        live = cpu_vmr.numpy() > VMR_FLOOR
+        vmr_diff = np.abs(gpu_vmr.double().cpu().numpy() - cpu_vmr.numpy())
+        vmr_rel = float(np.max(vmr_diff[live] / cpu_vmr.numpy()[live]))
+        checks = {'spectrum': spec_rel < FORWARD_TOL,
+                  'vmr': vmr_rel < VMR_TOL,
+                  'vmr_shape': tuple(gpu_vmr.shape) == (
+                      NCHAINS, NLAYERS, len(model.species))}
+        lp_fields = {}
+        if cpu_lp is not None:
+            fin = np.isfinite(cpu_lp)
+            bound = _lp_bound(cpu_lp, cpu_band, uncert, FORWARD_TOL)
+            lp_diff = np.abs(gpu_lp - cpu_lp)
+            checks['log_posterior_finite'] = bool(np.array_equal(
+                np.isfinite(gpu_lp), fin))
+            checks['log_posterior'] = bool(np.all(
+                lp_diff[fin] <= bound[fin]))
+            lp_fields = dict(
+                log_posterior_max_abs_diff=float(lp_diff[fin].max()),
+                log_posterior_max_rel_diff=float(
+                    (lp_diff[fin] / np.abs(cpu_lp[fin])).max()),
+                log_posterior_largest_share_of_bound=float(
+                    (lp_diff[fin] / bound[fin]).max()),
+                finite_log_posteriors=int(fin.sum()))
+        emit('gpu_vs_cpu_equilibrium', rt_path=kind, chains=NCHAINS,
+             spectrum_max_rel_err=spec_rel, spectrum_max_abs_err=spec_abs,
+             vmr_max_rel_err=vmr_rel, vmr_floor=VMR_FLOOR,
+             vmr_max_rel_err_above_1e_30=float(np.max(
+                 vmr_diff[cpu_vmr.numpy() > 1e-30]
+                 / cpu_vmr.numpy()[cpu_vmr.numpy() > 1e-30])),
+             tol=FORWARD_TOL, cpu_seconds=cpu_s, checks=checks, **lp_fields)
+        if not all(checks.values()):
+            fail(f'equilibrium {kind}: GPU f32 against CPU f64 {checks}')
+        del model.eval_vmr_batched      # the class's method again
+        del cpu_model, outs, cpu_vmrs, gpu_vmrs
+
+        # Model.run through the driver (runmode = spectrum) against the
+        # CPU, and (transit) runmode = atmosphere with the network:
+        spec_cfg = os.path.join(workdir, f'equilibrium_{kind}_spec.cfg')
+        with open(cfgs[kind]) as f:
+            spec_text = f.read().replace(
+                'logfile = ', f'specfile = {workdir}/eq_{kind}.dat\nlogfile = ')
+        with open(spec_cfg, 'w') as f:
+            f.write(spec_text)
+        t0 = time.perf_counter()
+        smodel, run_launches = counted(lambda: run(spec_cfg))
+        run_s = time.perf_counter() - t0
+        cpu_spec = Model(spec_cfg, device='cpu').run()['spectrum']
+        rel, absolute = rel_err(torch.as_tensor(smodel.spectrum)[None],
+                                cpu_spec[None])
+        expect = {'transit_rt': 1, 'transit_rt_single_chain': 1,
+                  'emission_rt': 0} if kind == 'transit' else {
+                  'transit_rt': 0, 'transit_rt_single_chain': 0,
+                  'emission_rt': 1}
+        checks = {'on_the_card': smodel.device.type == 'cuda',
+                  'launches': run_launches == expect,
+                  'gpu_vs_cpu': rel < FORWARD_TOL,
+                  'finite': bool(np.all(np.isfinite(smodel.spectrum)))}
+        emit('main_path_equilibrium_spectrum', rt_path=kind, seconds=run_s,
+             launches=run_launches, gpu_vs_cpu_max_rel_err=rel,
+             gpu_vs_cpu_max_abs_err=absolute, tol=FORWARD_TOL,
+             checks=checks)
+        if not all(checks.values()):
+            fail(f'equilibrium spectrum {kind}: {checks}')
+        if kind == 'transit':
+            atm = {}
+            for where in ('cuda', 'cpu'):
+                atm_cfg = os.path.join(workdir, f'eq_atm_{where}.cfg')
+                atm_out = os.path.join(workdir, f'eq_{where}.atm')
+                with open(atm_cfg, 'w') as f:
+                    f.write(text.replace(
+                        'runmode = spectrum', 'runmode = atmosphere')
+                        + f'output_atmfile = {atm_out}\n')
+                run(atm_cfg, device=where)
+                atm[where] = pio.read_atm(atm_out)
+            species_ok = list(atm['cuda'][1]) == list(atm['cpu'][1])
+            errs = {name: float(np.max(np.abs(g / w - 1)))
+                    for name, g, w in zip(
+                        ('pressure', 'temperature', 'vmr', 'radius'),
+                        atm['cuda'][2:], atm['cpu'][2:])}
+            checks = {'species': species_ok,
+                      'network_species': list(atm['cuda'][1])
+                      == list(smodel.species),
+                      'gpu_vs_cpu': max(errs.values()) < FORWARD_TOL}
+            emit('main_path_equilibrium_atmosphere',
+                 species=list(atm['cuda'][1]), max_rel_diff=errs,
+                 checks=checks)
+            if not all(checks.values()):
+                fail(f'equilibrium atmosphere: {checks}')
+
+        # Times: the forward, the device's busy and idle time in it;
+        # (transit) the solve at B = 512 (CUDA events; its launches and
+        # device time by the profiler) and DEMC generations/s.
+        with torch.no_grad():
+            forward_ms = float(np.median(cuda_times(
+                lambda: forward_b(pb_t), repeats=5)))
+        prof = profile(f'equilibrium_{kind}', forward_b, pb_t, forward_ms)
+        times = dict(path=f'equilibrium_{kind}', card=card,
+                     forward_ms=forward_ms,
+                     forward_spectra_per_s=NCHAINS / (forward_ms * 1e-3),
+                     forward_launches=prof['device_kernels'],
+                     device_busy_ms=prof['device_busy_us'] * 1e-3,
+                     device_idle_share=prof['device_idle_share'],
+                     model_run_seconds=run_s)
+        if kind == 'transit':
+            st = forward_b.state(pb_t)
+
+            def solve():
+                return model.eval_vmr_batched(st['vmr_par_list'], st['temp'])
+
+            with torch.no_grad():
+                times['solve_ms'] = float(np.median(cuda_times(
+                    solve, repeats=5)))
+                _, times['solve_device_ms'], times['solve_launches'] = \
+                    device_ms(solve, 'lu', reps=3)
+            log_post_b = build_log_posterior_batched(
+                rmodel, rmodel.obs, rmodel.ret)
+            gens = 10
+            gen_times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sample_demc(log_post_b, rmodel.ret.params,
+                            nsamples=NCHAINS * gens, nchains=NCHAINS,
+                            pstep=rmodel.ret.pstep, pmin=rmodel.ret.pmin,
+                            pmax=rmodel.ret.pmax, device=dev,
+                            dtype=rmodel.dtype)
+                torch.cuda.synchronize()
+                gen_times.append(time.perf_counter() - t0)
+            times['demc_generations_per_s'] = \
+                gens / float(np.median(gen_times))
+        emit('times_equilibrium', **times,
+             times_note='solve_ms, forward_ms: CUDA events, medians of runs '
+                        'of 4 calls; solve_device_ms, solve_launches, '
+                        'forward_launches, device_busy_ms: torch.profiler '
+                        'of single calls')
+    return launches, max_abs
+
+
+# ----------------------------------------------------------------------
+# The radeq phase: radiative equilibrium of a two-stream model
+
+RADEQ_SAMPLES = 100     # the driver's default nsamples
+RADEQ_GATE = 10         # iterations held against a CPU float64 run
+RADEQ_TOL = 1e-4        # relative, on those iterations' profiles
+RADEQ_RESTART = 10      # iterations of the warm restart
+CONVECTION_SAMPLES = 20
+
+
+def _steep_profile(press):
+    """A profile super-adiabatic below 1 bar (T ~ p^0.3 against
+    grad_ad = 2/7 at cp/R = 3.5): the convective branch acts on it."""
+    press = np.asarray(press)
+    return np.where(press < 1.0, 1200.0, 1200.0 * press**0.3)[None]
+
+
+def run_radeq(workdir, dev, args, card):
+    """The radeq phase: benchmark.make_radeq's configuration (40 layers,
+    0.6-12 um at R = 300, emission_two_stream) as runmode = radeq
+    through the driver with nsamples = 100, with the configured
+    atmosphere and with chemistry = equilibrium (the network solved at
+    each iteration's profile); for each, the first 10 iterations against
+    a CPU float64 run (the gate, RADEQ_TOL), the final profiles' largest
+    difference in K (a finding: near equilibrium the update follows the
+    signs of rounding noise), a warm restart (its shape and its first
+    step against the last ones), the two-stream Model.run against the
+    CPU; and radiative_equilibrium(..., convection=True) from a
+    super-adiabatic profile for 20 iterations, its first 10 against the
+    CPU.  Launches no kernel: the JAX package has none on this path."""
+    import torch
+    from pyratbay_tpu_torch.benchmark import make_radeq
+    from pyratbay_tpu_torch.driver import run
+    from pyratbay_tpu_torch.io import io as pio
+    from pyratbay_tpu_torch.model import Model
+    from pyratbay_tpu_torch.spectrum.radeq import radiative_equilibrium
+
+    make_radeq(workdir, device=dev)
+    with open(os.path.join(workdir, 'radeq.cfg')) as f:
+        text = f.read()
+    cfgs = {}
+    for name, swap in (
+            ('configured', ()),
+            ('equilibrium', (('bulk = H2 He', 'chemistry = equilibrium\n'
+                              'species = H2 He H H2O CH4 CO CO2 Na K'),))):
+        body = text.replace('logfile = ', f'nsamples = {RADEQ_SAMPLES}\n'
+                            'logfile = ').replace(
+            f'{workdir}/radeq.log', f'{workdir}/radeq_{name}.log')
+        for old, new in swap:
+            body = body.replace(old, new)
+        cfgs[name] = os.path.join(workdir, f'radeq_{name}.cfg')
+        with open(cfgs[name], 'w') as f:
+            f.write(body)
+
+    def clips(model):
+        return dict(tmin=max(model.tmin.values(), default=0.0),
+                    tmax=min(model.tmax.values(), default=6000.0))
+
+    def gate(got, want):
+        n = RADEQ_GATE + 1
+        return float(np.max(np.abs(got[:n] - want[:n]) / want[:n]))
+
+    times = {}
+    for name, cfg in cfgs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = run(cfg)                  # the default device: the card
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        base = os.path.join(workdir, f'radeq_{name}')
+        temps = np.load(base + '.npz')['temps']
+        atm = pio.read_atm(base + '.atm')
+        # The same iterations on the CPU in float64:
+        cpu_model = Model(cfg, device='cpu')
+        t0 = time.perf_counter()
+        cpu_temps = radiative_equilibrium(
+            cpu_model, nsamples=RADEQ_SAMPLES, **clips(cpu_model))
+        cpu_s = time.perf_counter() - t0
+        gate_rel = gate(temps, cpu_temps)
+        final_k = np.abs(temps[-1] - cpu_temps[-1])
+        apart = np.nonzero(np.abs(temps - cpu_temps).max(axis=1) > 1.0)[0]
+        # A warm restart from the driver's model:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = radiative_equilibrium(
+            model, nsamples=RADEQ_RESTART, radeq_temps=model.radeq_temps,
+            dt_scale=model._dt_scale, **clips(model))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        steps = np.abs(np.diff(temps, axis=0)).max(axis=1)
+        first_step = float(np.abs(warm[len(temps)] - temps[-1]).max())
+        checks = {
+            'on_the_card': model.device.type == 'cuda',
+            'network': (model.chem_model is not None) == (
+                name == 'equilibrium'),
+            'shape': temps.shape == (RADEQ_SAMPLES + 1, model.nlayers),
+            'finite': bool(np.all(np.isfinite(temps))),
+            'atm_is_the_last_profile': bool(np.allclose(
+                atm[3], temps[-1], rtol=1e-5, atol=0.01)),
+            'first_iterations_vs_cpu': gate_rel < RADEQ_TOL,
+            'restart_shape': warm.shape == (
+                RADEQ_SAMPLES + RADEQ_RESTART + 1, model.nlayers),
+            'restart_keeps_history': bool(np.array_equal(
+                warm[:len(temps)], temps)),
+            'restart_finite': bool(np.all(np.isfinite(warm))),
+            'restart_continuous': bool(
+                first_step <= 3.0 * steps[-5:].max() + 1.0),
+        }
+        emit('main_path_radeq', run=name, seconds=seconds,
+             iterations=RADEQ_SAMPLES,
+             iterations_per_s=RADEQ_SAMPLES / seconds,
+             nlayers=model.nlayers, nwave=model.nwave,
+             cpu_seconds=cpu_s, first_iterations=RADEQ_GATE,
+             first_iterations_max_rel_diff=gate_rel, tol=RADEQ_TOL,
+             final_max_abs_diff_k=float(final_k.max()),
+             first_iteration_apart_by_1k=int(apart[0]) if len(apart)
+             else None,
+             final_profile_k=[float(t) for t in temps[-1]],
+             restart_seconds=warm_s,
+             restart_iterations_per_s=RADEQ_RESTART / warm_s,
+             restart_first_step_k=first_step,
+             last_steps_k=[float(v) for v in steps[-5:]], checks=checks)
+        if not all(checks.values()):
+            fail(f'radeq {name}: {checks}')
+        times[f'{name}_iterations_per_s'] = RADEQ_SAMPLES / seconds
+        times[f'{name}_restart_iterations_per_s'] = RADEQ_RESTART / warm_s
+        if name == 'configured':
+            # The two-stream Model.run (no kernel) against the CPU:
+            run_s = []
+            for _ in range(MODEL_RUN_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = model.run()
+                torch.cuda.synchronize()
+                run_s.append(time.perf_counter() - t0)
+            cpu_spec = cpu_model.run()['spectrum']
+            rel, absolute = rel_err(result['spectrum'][None],
+                                    cpu_spec[None])
+            times['two_stream_model_run_ms'] = float(np.median(run_s)) * 1e3
+            emit('main_path_two_stream', rt_path=model.rt_path,
+                 model_run_ms=times['two_stream_model_run_ms'],
+                 gpu_vs_cpu_max_rel_err=rel, gpu_vs_cpu_max_abs_err=absolute,
+                 tol=FORWARD_TOL)
+            if not rel < FORWARD_TOL:
+                fail(f'two-stream Model.run: GPU f32 against CPU f64 {rel}')
+            # Convection from a super-adiabatic profile:
+            steep = _steep_profile(model.press)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            conv = radiative_equilibrium(
+                model, nsamples=CONVECTION_SAMPLES, convection=True,
+                radeq_temps=steep, **clips(model))
+            torch.cuda.synchronize()
+            conv_s = time.perf_counter() - t0
+            cpu_conv = radiative_equilibrium(
+                cpu_model, nsamples=CONVECTION_SAMPLES, convection=True,
+                radeq_temps=steep, **clips(cpu_model))
+            radiative = radiative_equilibrium(
+                cpu_model, nsamples=CONVECTION_SAMPLES, radeq_temps=steep,
+                **clips(cpu_model))
+            conv_rel = gate(conv, cpu_conv)
+            checks = {
+                'shape': conv.shape == (CONVECTION_SAMPLES + 1,
+                                        model.nlayers),
+                'finite': bool(np.all(np.isfinite(conv))),
+                'first_iterations_vs_cpu': conv_rel < RADEQ_TOL,
+                'convection_acted': bool(
+                    np.abs(cpu_conv[-1] - radiative[-1]).max() > 1.0),
+            }
+            times['convection_iterations_per_s'] = CONVECTION_SAMPLES / conv_s
+            emit('main_path_radeq_convection', iterations=CONVECTION_SAMPLES,
+                 seconds=conv_s,
+                 iterations_per_s=times['convection_iterations_per_s'],
+                 first_iterations_max_rel_diff=conv_rel, tol=RADEQ_TOL,
+                 final_max_abs_diff_k=float(
+                     np.abs(conv[-1] - cpu_conv[-1]).max()),
+                 convective_minus_radiative_k=float(
+                     np.abs(cpu_conv[-1] - radiative[-1]).max()),
+                 checks=checks)
+            if not all(checks.values()):
+                fail(f'radeq convection: {checks}')
+        del cpu_model
+    emit('times_radeq', card=card, **times,
+         times_note='host clock around the driver run (the Model set-up '
+                    'and the files included), around radiative_equilibrium '
+                    '(restart, convection) and around Model.run, each '
+                    'ending in a synchronize')
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--profile', action='store_true',
@@ -2463,6 +3012,28 @@ def main():
             entry['launches'] += more
         kernels[2]['max_abs_err'] = max(kernels[2]['max_abs_err'],
                                         hires_k3_abs)
+        # Thermochemical equilibrium in the retrieval (K1 at B = 512 and
+        # B = 1, K3 at B = 512 and B = 1):
+        path_dir = os.path.join(workdir, 'equilibrium')
+        os.makedirs(path_dir)
+        t0 = time.perf_counter()
+        eq_launches, eq_abs = run_equilibrium(path_dir, dev, args, card)
+        emit('phase_seconds', name='equilibrium',
+             seconds=time.perf_counter() - t0)
+        for entry in kernels:
+            more = eq_launches.get(entry['name'])
+            if more is None:
+                continue
+            entry.setdefault('launches_by_path', {})['equilibrium'] = more
+            entry['launches'] += more
+            entry['max_abs_err'] = max(entry['max_abs_err'],
+                                       eq_abs[entry['name']])
+        # Radiative equilibrium of a two-stream model (no kernel):
+        path_dir = os.path.join(workdir, 'radeq')
+        os.makedirs(path_dir)
+        t0 = time.perf_counter()
+        run_radeq(path_dir, dev, args, card)
+        emit('phase_seconds', name='radeq', seconds=time.perf_counter() - t0)
         print(json.dumps({'kernels': kernels}), flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2487,7 +3058,8 @@ def profile(label, forward_b, pb_t, ms_forward, reps=3):
     the device kernels by self time, their launches, and the device's
     busy share of the call's time `ms_forward` (CUDA events for a
     B = 512 forward; the host clock around a compute_opacity or a
-    tabulation block, ending in a synchronize)."""
+    tabulation block, ending in a synchronize).  Returns the fields it
+    prints."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -2505,13 +3077,16 @@ def profile(label, forward_b, pb_t, ms_forward, reps=3):
                          evt.count / reps))
     rows.sort(reverse=True)
     busy_us = sum(us for us, _, _ in rows)
-    emit('profile', path=label, device_busy_us=busy_us,
-         device_kernels=sum(calls for _, _, calls in rows),
-         forward_us=ms_forward * 1e3,
-         device_idle_share=1.0 - busy_us / (ms_forward * 1e3),
-         per_forward_device_us=[
-             {'name': name[:80], 'us': us, 'calls': calls}
-             for us, name, calls in rows[:15]])
+    fields = dict(
+        device_busy_us=busy_us,
+        device_kernels=sum(calls for _, _, calls in rows),
+        forward_us=ms_forward * 1e3,
+        device_idle_share=1.0 - busy_us / (ms_forward * 1e3),
+        per_forward_device_us=[
+            {'name': name[:80], 'us': us, 'calls': calls}
+            for us, name, calls in rows[:15]])
+    emit('profile', path=label, **fields)
+    return fields
 
 
 if __name__ == '__main__':

@@ -15,8 +15,8 @@ def build_parser():
     parser = argparse.ArgumentParser(
         prog='python -m pyratbay_tpu_torch',
         description='Run a configuration (runmode = tli, atmosphere, '
-                    'spectrum, opacity or retrieval) on PyTorch (CPU or '
-                    'CUDA)',
+                    'spectrum, opacity, radeq or retrieval) on PyTorch '
+                    '(CPU or CUDA)',
     )
     parser.add_argument('-c', '--cfile', metavar='CONFIG',
                         help='configuration file to run')

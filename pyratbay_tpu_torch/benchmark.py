@@ -3,7 +3,9 @@ config of pyratbay_tpu/benchmark.py::make_flagship, built with the
 port; the inputs of the opacity workflow that makes such a table
 from a line list (make_lbl_flagship); and a synthetic line list that
 the direct line-by-line engine reads without a TLI file
-(synthetic_lines).
+(synthetic_lines); the flagship with thermochemical equilibrium in place
+of its free VMRs (equilibrium_flagship_cfg); and the
+radiative-equilibrium model (make_radeq).
 
 The flagship is an HD 209458 b-like retrieval: line-sampled H2O, H2-H2
 CIA, Na alkali, a gray deck and a Lecavelier haze, a Guillot T(p),
@@ -20,7 +22,12 @@ import numpy as np
 
 from .io import io as pio
 
-__all__ = ['make_flagship', 'make_lbl_flagship', 'synthetic_lines']
+__all__ = ['make_flagship', 'make_lbl_flagship', 'synthetic_lines',
+           'equilibrium_flagship_cfg', 'make_radeq']
+
+# The equilibrium flagship's network: the species of the flagship's
+# atmosphere file, as pyratbay_tpu's tests/test_chem.py lists them.
+EQUILIBRIUM_SPECIES = 'H2 He H H2O CH4 CO CO2 Na K'
 
 
 def _synthetic_cs_table(path, wn, press, species='H2O', ntemp=10, seed=5):
@@ -161,6 +168,95 @@ retrieval_params =
     ret = RetrievalParams(model, obs)
     forward = build_forward(model, obs, ret)
     return model, obs, ret, forward, np.asarray(ret.params)
+
+
+def equilibrium_flagship_cfg(flagship_cfg, out_cfg):
+    """Write the flagship config `flagship_cfg` (make_flagship's, of
+    either package) as `out_cfg` with thermochemical equilibrium in
+    place of the free H2O VMR: chemistry = equilibrium over
+    EQUILIBRIUM_SPECIES, vmr_vars [M/H] = 0.0 and C/O = 0.55, both
+    retrieved beside the Guillot parameters (in log_H2O's place, then
+    after it), no bulk species.  Returns out_cfg."""
+    with open(flagship_cfg) as f:
+        lines = f.read().splitlines()
+    out = []
+    for line in lines:
+        if line.startswith(('vmr_vars', 'bulk')):
+            continue
+        if line.strip().startswith('log_H2O'):
+            out.append('    [M/H]         0.0   -1.0  2.0  0.3')
+            out.append('    C/O           0.55   0.1  1.5  0.1')
+            continue
+        out.append(line)
+        if line.startswith('radmodel'):
+            out += ['chemistry = equilibrium',
+                    f'species = {EQUILIBRIUM_SPECIES}',
+                    'vmr_vars =', '    [M/H] 0.0', '    C/O 0.55']
+    with open(out_cfg, 'w') as f:
+        f.write('\n'.join(out) + '\n')
+    return out_cfg
+
+
+def make_radeq(workdir=None, nlayers=40, wl_low=0.6, wl_high=12.0,
+               resolution=300.0, device=None):
+    """Write the radiative-equilibrium inputs of pyratbay_tpu/benchmark.py
+    make_radeq into `workdir` (the same files: the flagship's synthetic
+    tables on an emission_two_stream geometry over a broad constant-R
+    grid, runmode = radeq) and build the model on `device`."""
+    from .model import Model
+    from .ops.grids import wavenumber_grid
+
+    if workdir is None:
+        workdir = tempfile.mkdtemp(prefix='pbt_radeq_')
+    os.makedirs(workdir, exist_ok=True)
+
+    press = np.logspace(-6, 2, nlayers)
+    species = ['H2', 'He', 'H', 'Na', 'K', 'H2O', 'CH4', 'CO', 'CO2']
+    vmr = np.tile(
+        [8.5e-1, 1.49e-1, 1e-6, 3e-6, 5e-8, 4e-4, 1e-4, 5e-4, 1e-7],
+        (nlayers, 1),
+    )
+    temp = np.full(nlayers, 1400.0)
+    atmfile = os.path.join(workdir, 'radeq.atm')
+    pio.write_atm(atmfile, press, temp, species, vmr, punits='bar')
+
+    wn = np.asarray(wavenumber_grid(
+        wnlow=1.0 / (wl_high * 1e-4), wnhigh=1.0 / (wl_low * 1e-4),
+        resolution=resolution,
+    ).wn)
+    cs_file = os.path.join(workdir, 'radeq_h2o.npz')
+    _synthetic_cs_table(cs_file, wn, press)
+    cia_file = os.path.join(workdir, 'radeq_cia.dat')
+    _synthetic_cia_table(cia_file)
+
+    cfg_text = f"""[pyrat]
+runmode = radeq
+verb = -1
+logfile = {workdir}/radeq.log
+rt_path = emission_two_stream
+atmfile = {atmfile}
+sampled_cross_sec = {cs_file}
+continuum_cross_sec = {cia_file}
+wl_low = {wl_low} um
+wl_high = {wl_high} um
+resolution = {resolution}
+rstar = 1.27 rsun
+tstar = 5800.0
+smaxis = 0.045 au
+mplanet = 0.6 mjup
+rplanet = 1.0 rjup
+refpressure = 0.1 bar
+radmodel = hydro_m
+tmodel = guillot
+tpars = -4.67 -0.8 -0.8 0.5 1486.0 100.0
+bulk = H2 He
+tlow = 100
+thigh = 5900
+"""
+    cfg_file = os.path.join(workdir, 'radeq.cfg')
+    with open(cfg_file, 'w') as f:
+        f.write(cfg_text)
+    return Model(cfg_file, device=device)
 
 
 # HITRAN .par record (160 characters): molecule, isotope, wavenumber,

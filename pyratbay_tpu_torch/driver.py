@@ -4,9 +4,10 @@ Port of pyratbay_tpu/driver.py for runmode = tli (line lists to a TLI
 file), atmosphere (the atmospheric profiles to output_atmfile),
 spectrum (one forward spectrum, Model.run, to specfile), opacity (a
 cross-section table from TLI files through Model.compute_opacity's
-default engine, the parity engine) and retrieval (DEMC with
-checkpoints, resume and post-processing); radeq and the nested sampler
-are not ported yet (ROADMAP.md A10).
+default engine, the parity engine), radeq (radiative equilibrium of a
+two-stream model, spectrum/radeq.py) and retrieval (DEMC with
+checkpoints, resume and post-processing); the nested sampler is not
+ported yet (ROADMAP.md A10).
 """
 import os
 
@@ -22,7 +23,8 @@ from .version import __version__
 
 __all__ = ['run']
 
-_RUNMODES = ('tli', 'atmosphere', 'spectrum', 'opacity', 'retrieval')
+_RUNMODES = ('tli', 'atmosphere', 'spectrum', 'opacity', 'radeq',
+             'retrieval')
 
 
 def run(cfile, device=None, root=None, seed=0):
@@ -36,7 +38,15 @@ def run(cfile, device=None, root=None, seed=0):
     Model.compute_opacity() with its default engine, the parity engine
     (the reference's profile-grid sampling, host float64), and writes
     the table to sampled_cross_sec; the direct engine on the device is
-    Model(cfg, device).compute_opacity(engine='direct').
+    Model(cfg, device).compute_opacity(engine='direct').  runmode = radeq
+    iterates the profile toward radiative equilibrium (nsamples
+    iterations, 100 by default, clipped to the opacity models' common
+    temperature range) and writes the profiles to <logfile>.npz
+    (pressure, temps) and the last one, with the base VMRs, to
+    <logfile>.atm.  As in the JAX package, resume continues only from a
+    Model that carries a previous call's state, which a configuration
+    file does not: a warm restart is radiative_equilibrium(model,
+    radeq_temps=model.radeq_temps, dt_scale=model._dt_scale).
     """
     cfg = cfg_parser.parse(cfile, root=root)
     if cfg.runmode not in _RUNMODES:
@@ -88,6 +98,18 @@ def run(cfile, device=None, root=None, seed=0):
     elif cfg.runmode == 'opacity':
         result = Model(cfg, device=device, log=log)
         result.compute_opacity()
+    elif cfg.runmode == 'radeq':
+        from .spectrum.radeq import radiative_equilibrium
+        result = Model(cfg, device=device, log=log)
+        temps = radiative_equilibrium(
+            result, nsamples=int(cfg.nsamples or 100),
+            tmin=max(result.tmin.values(), default=0.0),
+            tmax=min(result.tmax.values(), default=6000.0))
+        if cfg.logfile is not None:
+            base = os.path.splitext(cfg.logfile)[0]
+            np.savez(base + '.npz', pressure=result.press, temps=temps)
+            pio.write_atm(base + '.atm', result.press, temps[-1],
+                          result.species, result.base_vmr, punits='bar')
     else:
         from .retrieval.driver import run_retrieval
         result = Model(cfg, device=device, log=log)

@@ -3,8 +3,14 @@
 Port of pyratbay_tpu/model.py for: transit and plane-parallel emission
 geometry (rt_path transit, emission, eclipse, f_lambda) with a
 blackbody star, a Kurucz model or a starspec SED (gridded in
-temperature or plain) and raygrid or Gauss quadrature; isothermal, Guillot or
-Madhusudhan T(p); free VMR models with bulk balancing; hydro_m/hydro_g
+temperature or plain) and raygrid or Gauss quadrature; two-stream
+emission (emission_two_stream, eclipse_two_stream: the Heng et al.
+two-stream fluxes of spectrum/rt.py, with an internal flux at tint and
+the irradiation beta_irr (rstar/smaxis)^2 F_star at the top);
+isothermal, Guillot or Madhusudhan T(p); free VMR models with bulk
+balancing; thermochemical equilibrium (chemistry = equilibrium,
+atmosphere/chem.py) with the [M/H], [X/H] and X/Y element models and
+hybrid log_X free VMRs on top of it; hydro_m/hydro_g
 radii; input atmospheres, interpolated onto a calculated pressure grid;
 the opacity types line_sample, cia (files, or the bundled tables by
 basename), alkali, rayleigh (H, H2, He, e-), cloud (deck, ccsgray,
@@ -13,11 +19,13 @@ from TLI files (tlifile) through the parity engine (opacity/lbl.py,
 host numpy float64: compute_opacity's default, Model.run and get_ec)
 or the direct engine on the device (compute_opacity(engine='direct'));
 and the per-chain forward of runmode = spectrum, Model.run, whose
-spectrum comes from the RT kernels at B = 1.  Other options raise
-NotImplementedError naming their ROADMAP.md item.
+plane-parallel and transit spectra come from the RT kernels at B = 1.
+Other options raise NotImplementedError naming their ROADMAP.md item.
 
-Setup is host-side numpy, as in the JAX package; `to(device)` turns
-the static tables into tensors (float64 on the CPU, float32 on CUDA).
+Setup is host-side numpy, as in the JAX package (the set-up profile's
+equilibrium solve runs in torch on the CPU in float64); `to(device)`
+turns the static tables into tensors (float64 on the CPU, float32 on
+CUDA) and builds the equilibrium evaluator on the device.
 The ensemble evaluation lives in retrieval/forward.py and
 retrieval/batched.py, whose opacity assembly Model.run shares.
 """
@@ -32,7 +40,7 @@ from .config import parser as cfg_parser
 from .device import resolve
 from .io import io as pio
 from .ops.grids import wavenumber_grid, WavenumberGrid
-from .atmosphere import geometry, hydro, profiles, vmr as vmr_models
+from .atmosphere import chem, geometry, hydro, profiles, vmr as vmr_models
 from .opacity.alkali import get_alkali_model
 from .opacity.cia import CIA
 from .opacity.clouds import CCSgray, Deck, Lecavelier
@@ -47,18 +55,6 @@ from .spectrum.transit_kernel import transit_spectrum_ensemble
 
 __all__ = ['Model']
 
-# Geometries of the batched forward (pyratbay_tpu retrieval/batched.py
-# _BATCHED_RT):
-_RT_PATHS = pc.TRANSMISSION_RT + ['emission', 'eclipse', 'f_lambda']
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f'{what} is not ported to pyratbay_tpu_torch yet '
-        f'(ROADMAP.md {item})'
-    )
-
-
 class Model:
     """Forward spectroscopic model assembled from a configuration."""
 
@@ -67,12 +63,8 @@ class Model:
             cfg = cfg_parser.parse(cfg, root=root)
         self.cfg = cfg
         self.rt_path = cfg.rt_path
+        self.two_stream = 'two_stream' in (self.rt_path or '')
         self.maxdepth = cfg.maxdepth
-        # An opacity tabulation needs no observing geometry:
-        if self.rt_path not in _RT_PATHS and not (
-                cfg.runmode == 'opacity' and self.rt_path is None):
-            raise _not_ported(
-                f'rt_path = {self.rt_path}', 'A10 (two-stream emission)')
         if log is None:
             from .logger import Log
             log = Log(verb=cfg.verb if cfg.verb is not None else 1)
@@ -176,22 +168,28 @@ class Model:
                 in_radius = interp1d(
                     logp_in, in_radius, kind='slinear')(logp)
 
+        # VMR provenance: a chemistry model beats the read profiles, and
+        # config species beat the file's (pyratbay_tpu/model.py:219-247):
         species = in_species
         vmr = in_vmr
         if cfg.chemistry is not None:
-            if cfg.chemistry != 'free':
-                raise _not_ported(
-                    f'chemistry = {cfg.chemistry}', 'A10 (atmosphere/chem.py)')
             if cfg.species is not None:
                 species = list(cfg.species)
-            if species is None or cfg.uniform_vmr is None \
-                    or len(cfg.uniform_vmr) != len(species):
+            if species is None:
                 raise ValueError(
-                    'Free chemistry needs species and one uniform_vmr '
-                    'value per species'
+                    'Cannot compute VMRs. Undefined atmospheric species '
+                    'list (species)'
                 )
-            vmr = vmr_models.uniform_vmr(
-                np.array(cfg.uniform_vmr, float), nlayers)
+            if cfg.chemistry == 'free':
+                if cfg.uniform_vmr is None \
+                        or len(cfg.uniform_vmr) != len(species):
+                    raise ValueError(
+                        'Free chemistry needs species and one uniform_vmr '
+                        'value per species'
+                    )
+                vmr = vmr_models.uniform_vmr(
+                    np.array(cfg.uniform_vmr, float), nlayers)
+            # Calculated composition invalidates any read radius:
             in_radius = None
 
         self.press = press
@@ -200,7 +198,9 @@ class Model:
         self.base_temp = in_temp
         self.base_vmr = None if vmr is None else np.asarray(vmr)
         self.input_radius = in_radius
-        if self.species is not None:
+        # Equilibrium chemistry resolves the species' properties after
+        # the network prunes those without thermodynamic data:
+        if self.species is not None and cfg.chemistry != 'equilibrium':
             self.mol_mass, self.mol_radius = pio.species_properties(
                 self.species, cfg.molfile)
         else:
@@ -219,6 +219,37 @@ class Model:
                     'Not all temperature parameters were defined (tpars)'
                 )
 
+        # Thermochemical equilibrium (pyratbay_tpu/model.py:287-332):
+        # the network on the set-up profile, its species pruned to those
+        # with thermodynamic data, base_vmr its solution there.
+        self.chemistry = cfg.chemistry
+        self.chem_model = None
+        if cfg.chemistry == 'equilibrium':
+            if cfg.species is not None:
+                self.species = list(cfg.species)
+                self.base_vmr = None
+            temp0 = self.base_temp
+            if temp0 is None:
+                if self.temp_model is None or self.tpars is None:
+                    raise ValueError(
+                        'chemistry=equilibrium requires a temperature '
+                        'profile (tmodel/tpars or an input atmosphere)'
+                    )
+                temp0 = self.temp_model(torch.as_tensor(
+                    self.tpars, dtype=torch.float64)[None])[0].numpy()
+            e_source = cfg.solar or 'asplund_2021'
+            if isinstance(e_source, str) and e_source not in \
+                    chem.SOLAR_ABUNDANCES:
+                e_source = chem.read_solar_file(e_source)
+            self.chem_model = chem.Network(
+                self.press, temp0, self.species, e_source=e_source)
+            self.chem_model.thermochemical_equilibrium()
+            self.species = [str(s) for s in self.chem_model.species]
+            self.mol_mass, self.mol_radius = pio.species_properties(
+                self.species, cfg.molfile)
+            self.base_vmr = np.asarray(self.chem_model.vmr)
+            self.base_temp = np.asarray(temp0)
+
         self.rplanet = cfg.rplanet
         mplanet, gplanet = cfg.mplanet, cfg.gplanet
         if self.rplanet is not None:
@@ -233,6 +264,8 @@ class Model:
         self.smaxis = cfg.smaxis
         self.rstar = cfg.rstar
         self.tstar = cfg.tstar
+        self.tint = cfg.tint
+        self.beta_irr = cfg.beta_irr
         self.distance = cfg.distance
         self.rhill = hydro.hill_radius(self.smaxis, self.mplanet, cfg.mstar)
         # Static radius scale for float32-safe transit geometry
@@ -275,28 +308,75 @@ class Model:
                     'Not all vmr parameter values were defined (vmr_vars)'
                 )
 
+        # Free models (log_, scale_, slant_) act on one species; the
+        # equilibrium models ([M/H], [X/H], X/Y) set the network's
+        # element budget, and a log_X beside them is a hybrid: a free
+        # VMR on top of equilibrium, capped by element availability
+        # (pyratbay_tpu/model.py:405-470).
         self.ifree = []
         self._vmr_kinds = []
+        self._equil_info = []
+        is_equil = self.chem_model is not None
+        elements = list(self.chem_model.elements) if is_equil else []
         species = self.species or []
         for var in self.vmr_var_names:
+            info = None
             if var.startswith('log_'):
                 mol, kind = var[4:], 'iso'
             elif var.startswith('scale_'):
                 mol, kind = var[6:], 'scale'
             elif var.startswith('slant_'):
                 mol, kind = var[6:], 'slant'
-            elif var.startswith('[') or '/' in var:
-                raise _not_ported(
-                    f"Equilibrium vmr_vars '{var}'", 'A10 (atmosphere/chem.py)')
+            elif var == '[M/H]':
+                mol, kind = None, 'metal_equil'
+            elif var.startswith('[') and var.endswith('/H]'):
+                mol, kind = None, 'scale_equil'
+                element = var[1:-3]
+                if not is_equil or element not in elements:
+                    raise ValueError(
+                        f"Invalid vmr_vars variable '{var}', element "
+                        f"'{element}' is not in the atmosphere"
+                    )
+                info = elements.index(element)
+            elif '/' in var:
+                mol, kind = None, 'ratio_equil'
+                num, den = var.split('/')
+                if not is_equil or num not in elements \
+                        or den not in elements:
+                    raise ValueError(
+                        f"Invalid vmr_vars variable '{var}', elements "
+                        'are not in the atmosphere'
+                    )
+                info = (elements.index(num), elements.index(den))
             else:
                 raise ValueError(f"Unrecognized VMR model (vmr_vars): '{var}'")
-            if mol not in species:
+            if kind.endswith('_equil') and not is_equil:
                 raise ValueError(
-                    f"Invalid vmr_vars variable '{var}', species {mol} "
-                    'is not in the atmosphere'
+                    f"vmr_vars variable '{var}' requires "
+                    'chemistry=equilibrium'
                 )
-            self.ifree.append(species.index(mol))
+            if mol is not None:
+                if mol not in species:
+                    raise ValueError(
+                        f"Invalid vmr_vars variable '{var}', species {mol} "
+                        'is not in the atmosphere'
+                    )
+                imol = species.index(mol)
+                if is_equil:
+                    if kind != 'iso':
+                        raise ValueError(
+                            f"vmr_vars variable '{var}': only log_X free "
+                            'models combine with chemistry=equilibrium'
+                        )
+                    kind = 'hybrid'
+                    stoich = self.chem_model.stoich_vals
+                    icols = np.where(stoich[imol] != 0)[0]
+                    info = (imol, stoich[:, icols].astype(float),
+                            stoich[imol, icols].astype(float))
+                else:
+                    self.ifree.append(imol)
             self._vmr_kinds.append(kind)
+            self._equil_info.append(info)
 
         self.bulk = cfg.bulk
         self.ibulk = None
@@ -514,6 +594,20 @@ class Model:
         if self.bulk is not None:
             self._bulkratio = tensor(self.bulkratio)
             self._invsrat = tensor(self.invsrat)
+        self._equil_fn = None if self.chem_model is None \
+            else chem.equilibrium_fn(self.chem_model, self.device)
+        if self.two_stream:
+            # The two-stream boundaries (pyratbay_tpu/model.py:1040-1049),
+            # made on the host in float64: the internal flux at tint and
+            # the stellar irradiation at the top.
+            wn = torch.as_tensor(self.wn, dtype=torch.float64)
+            self._f_int = tensor(rt.internal_flux(wn, self.tint).numpy())
+            fdown_top = np.zeros(self.nwave)
+            if self.starflux is not None and self.smaxis is not None \
+                    and self.rstar is not None:
+                fdown_top = self.beta_irr * (self.rstar / self.smaxis)**2 \
+                    * np.asarray(self.starflux)
+            self._fdown_top = tensor(fdown_top)
         for _, m, _ in self.opacity_models:
             m.to(self.device, self.dtype)
         return self
@@ -604,10 +698,18 @@ class Model:
     # ------------------------------------------------------------------
     # Evaluation pieces shared by the forward builders
 
-    def eval_vmr_batched(self, vmr_par_list, nchains):
-        """Free-VMR evaluation with bulk balancing (the free branch of
-        pyratbay_tpu Model._eval_vmr_pure): each entry of vmr_par_list
-        is a [B, npars] tensor or None -> vmr [B, l, nspecies]."""
+    def eval_vmr_batched(self, vmr_par_list, temp):
+        """VMRs of B chains [B, l, nspecies] (pyratbay_tpu
+        Model._eval_vmr_pure): each entry of vmr_par_list is a [B, npars]
+        tensor or None; temp [B, l].  With equilibrium chemistry the
+        network is solved again for every chain at its temperature
+        (_equilibrium_vmr), as the JAX package's jitted forward does;
+        else the free VMR models with bulk balancing."""
+        if self.chem_model is not None:
+            return self._equilibrium_vmr(vmr_par_list, temp)
+        return self._free_vmr(vmr_par_list, temp.shape[0])
+
+    def _free_vmr(self, vmr_par_list, nchains):
         base = self._base_vmr
         if vmr_par_list is None or not self.ifree:
             return base.expand(nchains, *base.shape)
@@ -625,6 +727,38 @@ class Model:
             base, profiles_list, self.ifree, self.ibulk,
             self._bulkratio, self._invsrat,
         )
+
+    def _equilibrium_vmr(self, vmr_par_list, temp):
+        """The network's equilibrium at temp [B, l] with each chain's
+        [M/H], [X/H] and X/Y parameters, then the hybrid log_X values
+        capped by their elements' availability; solved in float64
+        (atmosphere/chem.py) and cast to the model's dtype."""
+        nb = temp.shape[0]
+        metallicity = escale = None
+        ratios, hybrids = [], []
+        for kind, info, pars in zip(
+                self._vmr_kinds, self._equil_info, vmr_par_list or []):
+            if pars is None:
+                continue
+            val = pars[:, 0].to(torch.float64)
+            if kind == 'metal_equil':
+                metallicity = val
+            elif kind == 'scale_equil':
+                if escale is None:
+                    escale = torch.zeros(
+                        (nb, len(self.chem_model.elements)),
+                        dtype=torch.float64, device=temp.device)
+                escale[:, info] = val
+            elif kind == 'ratio_equil':
+                ratios.append((info[0], info[1], val))
+            elif kind == 'hybrid':
+                hybrids.append((*info, val))
+        vmr = self._equil_fn(temp, metallicity, escale, ratios)
+        for imol, stoich_cols, mol_stoich, val in hybrids:
+            cap = chem.hybrid_max_vmr(vmr, stoich_cols, mol_stoich)
+            vmr = vmr.clone()
+            vmr[:, :, imol] = torch.minimum(10.0 ** val[:, None], cap)
+        return vmr.to(self.dtype)
 
     # ------------------------------------------------------------------
     # The per-chain forward (runmode = spectrum), pyratbay_tpu/model.py:
@@ -655,16 +789,25 @@ class Model:
         return self._base_temp
 
     def eval_vmr(self, vmr_pars=None, temp=None):
-        """Volume mixing ratios [l, nspecies] of the free VMR models at
-        vmr_pars (a list of per-variable parameters, or the configured
-        ones); temp is taken for the reference's signature (only its
-        equilibrium chemistry, not ported, reads it)."""
+        """Volume mixing ratios [l, nspecies] at vmr_pars (a list of
+        per-variable parameters, or the configured ones).  With
+        equilibrium chemistry they are solved at temp (default: the
+        configured profile); without parameters at the set-up profile
+        itself they are base_vmr, as pyratbay_tpu's eval_vmr returns
+        outside jit (model.py:796-808 there)."""
         if vmr_pars is None:
             vmr_pars = self.vmr_pars
         par_list = None if vmr_pars is None else [
             None if p is None else self._tensor(p).reshape(1, -1)
             for p in vmr_pars]
-        return self.eval_vmr_batched(par_list, 1)[0]
+        if self.chem_model is None:
+            return self._free_vmr(par_list, 1)[0]
+        temp = self.eval_temp() if temp is None else self._tensor(temp)
+        has_pars = par_list is not None and any(
+            p is not None for p in par_list)
+        if not has_pars and torch.equal(temp, self._base_temp):
+            return self._base_vmr
+        return self._equilibrium_vmr(par_list, temp[None])[0]
 
     def eval_radius(self, temp, mm, radius=None):
         """Radius profile [l] (cm) of the radius model, or the input one
@@ -744,10 +887,14 @@ class Model:
         patchy model.  depth, ideep (and bbody, depth_clear,
         ideep_clear) are diagnostics computed from the summed dense
         extinction (retrieval/batched.py rt_diagnostics), as the
-        reference computes them beside its fused kernel.  An out-of-bounds
-        temperature gives a zero spectrum and 'out_of_bounds'.
+        reference computes them beside its fused kernel.  A two-stream
+        path launches no kernel: its spectrum is the top layer's upward
+        flux of spectrum/rt.py two_stream (retrieval/batched.py
+        two_stream_rt), and flux_up, flux_down [l, W] join the result.
+        An out-of-bounds temperature gives a zero spectrum and
+        'out_of_bounds'.
         """
-        from .retrieval.batched import rt_diagnostics, spectra
+        from .retrieval.batched import rt_diagnostics, spectra, two_stream_rt
         temp = self.eval_temp(tpars) if temp is None else self._tensor(temp)
         oob = self.check_temp_bounds(temp)
         if oob or bool(torch.any(temp <= 0)):
@@ -766,19 +913,25 @@ class Model:
         if fpatchy is None:
             fpatchy = self.fpatchy
 
-        # The spectrum, through the kernels at B = 1:
         ops, ls_tab = self._operands(temp, radius, dens, pars_list, skip)
-        spectrum, cloudy, clear = spectra(
-            self, ops, temp[None], radius[None], rtop[None], ls_tab,
-            fpatchy)
-        result = {'spectrum': spectrum[0]}
-        if self.is_patchy:
-            result['cloudy'], result['clear'] = cloudy[0], clear[0]
-
-        # The diagnostics, from the same operands summed:
-        diag = rt_diagnostics(self, ops, ls_tab, temp[None], radius[None],
-                              rtop[None])
-        result.update({key: val[0] for key, val in diag.items()})
+        if self.two_stream:
+            # Two-stream fluxes of the summed extinction (no kernel):
+            fluxes = two_stream_rt(self, ops, ls_tab, temp[None],
+                                   radius[None], rtop[None])
+            result = {key: val[0] for key, val in fluxes.items()}
+            result['spectrum'] = result['fplanet'] = result['flux_up'][0]
+        else:
+            # The spectrum, through the kernels at B = 1:
+            spectrum, cloudy, clear = spectra(
+                self, ops, temp[None], radius[None], rtop[None], ls_tab,
+                fpatchy)
+            result = {'spectrum': spectrum[0]}
+            if self.is_patchy:
+                result['cloudy'], result['clear'] = cloudy[0], clear[0]
+            # The diagnostics, from the same operands summed:
+            diag = rt_diagnostics(self, ops, ls_tab, temp[None],
+                                  radius[None], rtop[None])
+            result.update({key: val[0] for key, val in diag.items()})
 
         # Eclipse: Fp/Fs scaled by (Rp/Rs)^2 (pyratbay_tpu/model.py:
         # 1142-1156):

@@ -33,6 +33,10 @@ extinction parts are [B, l, W].
 * patchy clouds: a second launch for the clear spectrum (no cloud
   parts, no deck, bottom at nlayers), mixed as
   f_patchy * cloudy + (1 - f_patchy) * clear;
+* two-stream emission/eclipse (two_stream_rt): no kernel, as in the JAX
+  package; the summed extinction's depth, the Planck grid and the
+  two-stream recurrences of spectrum/rt.py over [B, l, W], the top
+  layer's upward flux as the spectrum, then the emission post-scalings;
 * band integration: one [B, W] x [W, nbands] product;
 * the high-res channel (spectrum/hires.py HiresStage): one grouped
   convolution with the instrumental kernel, then a fixed lerp at the
@@ -66,17 +70,18 @@ from ..spectrum.transit_kernel import (
 
 __all__ = ['build_forward_batched', 'build_log_posterior_batched',
            'line_sample_table', 'assemble_opacity', 'lbl_extinction',
-           'summed_extinction', 'spectra', 'rt_diagnostics']
+           'summed_extinction', 'spectra', 'rt_diagnostics',
+           'two_stream_rt']
 
 
 def line_sample_table(model):
     """The RT kernel's ls_tab operand [K2, l, W] when the line-sample
     tables go into the kernel of the model's RT path (ls_in_kernel, a
     static size rule on the model's shapes), else None: all line-sample
-    tables go in, or none."""
+    tables go in, or none.  A two-stream path has no kernel."""
     ls_models = [m for mtype, m, _ in model.opacity_models
                  if mtype == 'line_sample']
-    if ls_models and ls_in_kernel(
+    if ls_models and not model.two_stream and ls_in_kernel(
             sum(m.nspec * m.ntemp for m in ls_models), model.nlayers,
             model.rt_path):
         return torch.cat([m.kernel_table for m in ls_models])
@@ -203,7 +208,11 @@ def spectra(model, ops, temp, radius, rtop, ls_tab, fpatchy=None):
     two for a patchy model (the clear spectrum has no cloud parts, no
     deck and its bottom at nlayers).  Returns (spectrum, cloudy, clear)
     [B, W], the last two None unless the model is patchy; emission
-    fluxes before their post-scalings."""
+    fluxes before their post-scalings.  A two-stream path launches no
+    kernel (two_stream_rt) and has no clear / cloudy split."""
+    if model.two_stream:
+        fluxes = two_stream_rt(model, ops, ls_tab, temp, radius, rtop)
+        return fluxes['flux_up'][:, 0], None, None
     shared = _shared_operands(ops, ls_tab)
 
     def launch(parts, deck):
@@ -233,8 +242,12 @@ def rt_diagnostics(model, ops, ls_tab, temp, radius, rtop):
     dense extinction (pyratbay_tpu Model._run_transit / _run_emission):
     depth [B, l, W] and ideep [B, W]; an emission's Planck grid bbody
     [B, l, W] (the deck's layer emitting at its surface temperature,
-    ideep clipped to the deck); a patchy transit's depth_clear and
-    ideep_clear (no clouds, no deck).  temp, radius [B, l]; rtop [B]."""
+    ideep clipped to the deck; a two-stream path's are two_stream_rt's);
+    a patchy transit's depth_clear and ideep_clear (no clouds, no
+    deck).  temp, radius [B, l]; rtop [B]."""
+    if model.two_stream:
+        fluxes = two_stream_rt(model, ops, ls_tab, temp, radius, rtop)
+        return {key: fluxes[key] for key in ('depth', 'ideep', 'bbody')}
     ec, ec_cloud = summed_extinction(model, ops, ls_tab, temp)
     deck = ops['deck']
     nb, nlayers = temp.shape
@@ -271,6 +284,28 @@ def rt_diagnostics(model, ops, ls_tab, temp, radius, rtop):
         ideep = torch.minimum(ideep, itop[:, None])
     out.update(depth=depth, ideep=ideep, bbody=bbody)
     return out
+
+
+def two_stream_rt(model, ops, ls_tab, temp, radius, rtop):
+    """The two-stream branch of pyratbay_tpu Model._run_emission for B
+    chains (model.py:1027-1064 there): the operands summed into dense
+    extinction (clouds included in a patchy model), the plane-parallel
+    depth without an early stop, the Planck grid at the layer
+    temperatures (the deck only bounds ideep), and the two-stream fluxes
+    with the model's internal flux and top irradiation.  temp, radius
+    [B, l]; rtop [B].  Returns depth, bbody, flux_up, flux_down
+    [B, l, W] and ideep [B, W]."""
+    ec, ec_cloud = summed_extinction(model, ops, ls_tab, temp)
+    ec_total = ec + ec_cloud if model.is_patchy else ec
+    deck = ops['deck']
+    ibottom = temp.shape[1] if deck is None else deck[0] + 1
+    depth, ideep = rt.plane_parallel_depth(
+        ec_total, radius, np.inf, rtop, ibottom)
+    bbody = blackbody_wn(model._wn, temp[..., None])
+    flux_up, flux_down = rt.two_stream(
+        depth, bbody, model._wn, model._fdown_top, model._f_int)
+    return dict(depth=depth, ideep=ideep, bbody=bbody, flux_up=flux_up,
+                flux_down=flux_down)
 
 
 def build_forward_batched(model, obs=None, ret=None):

@@ -101,7 +101,9 @@ def build_state(model, ret=None):
             temp = model.temp_model(tpars)
         else:
             temp = model._base_temp.expand(nb, -1)
-        vmr = model.eval_vmr_batched(vmr_par_list, nb)
+        # Equilibrium chemistry is solved again for every chain, at
+        # its temperature, as under the JAX package's jit:
+        vmr = model.eval_vmr_batched(vmr_par_list, temp)
         press = model._press
         dens = hydro.ideal_gas_density(vmr, press, temp)
         mm = hydro.mean_weight(vmr, model._mol_mass)

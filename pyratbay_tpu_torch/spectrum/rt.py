@@ -1,9 +1,10 @@
-"""Radiative transfer in plain torch: transit and plane-parallel
-emission.
+"""Radiative transfer in plain torch: transit, plane-parallel and
+two-stream emission.
 
 Port of pyratbay_tpu/spectrum/rt.py.  transit_depth and
-transmission_spectrum work on one chain; plane_parallel_depth and
-plane_parallel_intensity take any leading (chain) axes.  These are the
+transmission_spectrum work on one chain; plane_parallel_depth,
+plane_parallel_intensity, two_stream and internal_flux take any leading
+(chain) axes.  These are the
 references that the kernels' plain versions (spectrum/transit_kernel.py,
 spectrum/emission_kernel.py) are held to in the tests; the emission
 one also runs them itself.
@@ -13,9 +14,14 @@ import scipy.special as ss
 import torch
 import torch.nn.functional as F
 
+from .. import constants as pc
+from ..ops.planck import blackbody_wn
+from ..ops.special import exp1
+
 __all__ = [
     'transit_depth', 'transmission_spectrum', 'plane_parallel_depth',
-    'plane_parallel_intensity', 'gauss_quadrature',
+    'plane_parallel_intensity', 'gauss_quadrature', 'two_stream',
+    'internal_flux',
 ]
 
 
@@ -156,3 +162,72 @@ def plane_parallel_intensity(depth, bbody, mu, ideep, rtop=0):
     intensity = b_last * torch.exp(-taumax / mu[:, None]) - integral
     single = ((ideep - rtop) == 1)[..., None, :]
     return torch.where(single, b_last, intensity)
+
+
+def two_stream(depth, bbody, wn, flux_down_top, f_int):
+    """Heng et al. (2014) two-stream up and down fluxes through each
+    layer (pyratbay_tpu spectrum/rt.py two_stream, over leading axes).
+
+    depth, bbody [..., l, W]: the optical depth (no early stop) and the
+    Planck function at the layer temperatures; wn [W]; flux_down_top
+    [..., W] or [W]: the stellar irradiation at the top; f_int [..., W]
+    or [W]: the internal flux, normalised to sigma Tint^4.  Returns
+    flux_up, flux_down [..., l, W].
+
+    The two sweeps are loops of l - 1 steps over [..., W] (the
+    reference's lax.scan), each step as the reference writes it: a
+    closed form by cumulative products would lose precision where the
+    transmission is near 0.  Both branches of each guard are evaluated,
+    so exp1 takes 1 where dtau = 0 and bp divides by 1 there: no NaN
+    reaches the result.
+    """
+    dtau0 = depth[..., 1:, :] - depth[..., :-1, :]
+    positive = dtau0 > 0
+    safe_dtau = torch.where(positive, dtau0, torch.ones_like(dtau0))
+    # Transmission with diffusivity (Heng et al. 2014, eq. B5):
+    trans = (1.0 - dtau0) * torch.exp(-dtau0) + dtau0**2 * torch.where(
+        positive, exp1(safe_dtau), torch.zeros_like(dtau0))
+    bp = (bbody[..., 1:, :] - bbody[..., :-1, :]) / torch.where(
+        dtau0 == 0, torch.ones_like(dtau0), dtau0)
+    one_m_etau = -torch.expm1(-dtau0)
+    nlayers = depth.shape[-2]
+
+    fdown = flux_down_top.expand(depth[..., 0, :].shape)
+    downs = [fdown]
+    for i in range(nlayers - 1):
+        t_i, bp_i = trans[..., i, :], bp[..., i, :]
+        fdown = (
+            t_i * fdown
+            + np.pi * bbody[..., i, :] * (1.0 - t_i)
+            + np.pi * bp_i * (
+                -2.0 / 3.0 * one_m_etau[..., i, :]
+                + dtau0[..., i, :] * (1.0 - t_i / 3.0))
+        )
+        downs.append(fdown)
+    flux_down = torch.stack(downs, dim=-2)
+
+    # Upward sweep (bottom boundary: down flux + internal flux):
+    fup = flux_down[..., -1, :] + f_int
+    ups = [fup]
+    for i in range(nlayers - 2, -1, -1):
+        t_i, bp_i = trans[..., i, :], bp[..., i, :]
+        fup = (
+            t_i * fup
+            + np.pi * bbody[..., i + 1, :] * (1.0 - t_i)
+            + np.pi * bp_i * (
+                2.0 / 3.0 * one_m_etau[..., i, :]
+                - dtau0[..., i, :] * (1.0 - t_i / 3.0))
+        )
+        ups.append(fup)
+    flux_up = torch.stack(ups[::-1], dim=-2)
+    return flux_up, flux_down
+
+
+def internal_flux(wn, tint):
+    """Internal heat flux spectrum [W] normalised to sigma Tint^4
+    bolometric: the Planck function at tint over wn [W] (tensor)."""
+    f_int = blackbody_wn(wn, tint)
+    total = torch.trapezoid(f_int, wn)
+    scale = torch.where(total > 0, pc.sigma_sb * tint**4 / total,
+                        torch.zeros_like(total))
+    return f_int * scale

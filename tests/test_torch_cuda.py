@@ -944,3 +944,132 @@ def test_cuda_interp_sed_at_the_grid_ends(cuda):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
     np.testing.assert_array_equal(want[0], fluxes[0])
     np.testing.assert_array_equal(want[-1], fluxes[-1])
+
+
+# ----------------------------------------------------------------------
+# Equilibrium chemistry and two-stream emission (no kernel of their own:
+# the float64 solve and the two-stream recurrences on the card)
+
+def _network(nlayers=51):
+    from pyratbay_tpu_torch.atmosphere import chem
+    press = np.logspace(-6, 2, nlayers)
+    temp = np.linspace(600.0, 2800.0, nlayers)
+    return chem, chem.Network(press, temp,
+                              'H2 He H H2O CH4 CO CO2 Na K'.split())
+
+
+def _chains(net, nb, seed):
+    rng = np.random.default_rng(seed)
+    nlayers = len(net.pressure)
+    temps = net.temperature[None] + rng.uniform(-400.0, 400.0,
+                                                (nb, nlayers))
+    metal = rng.uniform(-1.0, 2.0, nb)
+    ratio = rng.uniform(0.1, 1.5, nb)
+    ic = list(net.elements).index('C')
+    io = list(net.elements).index('O')
+    return temps, metal, ratio, ic, io
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('temp_dtype', [torch.float64, torch.float32])
+def test_cuda_equilibrium_solve_matches_cpu(cuda, temp_dtype):
+    """The float64 solve of 64 chains x 51 layers on the card against
+    the same solve on the CPU (rtol 1e-10 on VMRs above 1e-30); the
+    temperatures given in the forward's float32 or in float64."""
+    chem, net = _network()
+    temps, metal, ratio, ic, io = _chains(net, 64, seed=5)
+    temps = torch.as_tensor(temps).to(temp_dtype).double()
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        fn = chem.equilibrium_fn(net, dev)
+        on = lambda a: torch.as_tensor(a, device=dev)
+        vmr = fn(temps.to(dev, temp_dtype), on(metal), None,
+                 ((ic, io, on(ratio)),))
+        assert vmr.dtype == torch.float64
+        out[dev.type] = vmr.cpu().numpy()
+    live = out['cpu'] > 1e-30
+    np.testing.assert_allclose(out['cuda'][live], out['cpu'][live],
+                               rtol=1e-10)
+    np.testing.assert_allclose(out['cpu'].sum(axis=-1), 1.0, rtol=1e-12)
+
+
+@pytest.mark.cuda
+def test_cuda_equilibrium_solve_syncs_nothing(cuda):
+    """The 152 Newton steps read no device value on the host: under
+    torch's sync debug mode 'error' a synchronising call would raise (a
+    prototype that does not see every synchronisation), and a
+    torch.profiler trace of one solve holds no synchronising runtime call
+    or scalar read beyond those of an empty trace (its runtime calls are
+    recorded: kernel launches are there).  A timing behind a busy kernel
+    cannot tell: ~9,500 launches fill the launch queue, which blocks the
+    host as a synchronisation would."""
+    from torch.profiler import ProfilerActivity, profile
+    chem, net = _network()
+    temps, metal, ratio, ic, io = _chains(net, 512, seed=6)
+    fn = chem.equilibrium_fn(net, cuda)
+    on = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    args = (on(temps), on(metal), None, ((ic, io, on(ratio)),))
+    fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        vmr = fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(vmr).all()
+    torch.cuda.synchronize()
+
+    def synchronising_calls(work):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            work()
+            torch.cuda.synchronize()
+        calls = {evt.key: evt.count for evt in prof.key_averages()}
+        return calls, {name: count for name, count in calls.items()
+                       if 'Synchronize' in name or name in (
+                           'aten::item', 'aten::_local_scalar_dense',
+                           'cudaMemcpy', 'aten::nonzero')}
+
+    # The profiler and the trailing synchronize add their own calls: a
+    # trace of nothing but those is the baseline.
+    _, baseline = synchronising_calls(lambda: None)
+    calls, syncs = synchronising_calls(lambda: fn(*args))
+    assert any('LaunchKernel' in name for name in calls), sorted(calls)
+    assert syncs == baseline, (syncs, baseline)
+
+
+@pytest.mark.cuda
+def test_cuda_two_stream_float32_against_float64(cuda):
+    """spectrum/rt.py two_stream over [64, 51, 3209] on the card in
+    float32 against float64 on the CPU (relative to each column's
+    largest flux; the emission bound, 1e-4), with layers of zero optical
+    depth in one chain.  Both take the same float32-representable depths
+    and temperatures: the layer depths are differences of the
+    cumulative depth, and a float32 depth of ~20 carries layer depths of
+    1e-5 to only a few digits whatever the code does with them."""
+    from pyratbay_tpu_torch.ops.planck import blackbody_wn
+    from pyratbay_tpu_torch.spectrum import rt
+    rng = np.random.default_rng(7)
+    nb, nlayers, nwave = 64, 51, 3209
+    dtau = rng.lognormal(-3.0, 2.0, (nb, nlayers - 1, nwave))
+    dtau[0, 10:14] = 0.0
+    depth = np.concatenate([np.zeros((nb, 1, nwave)),
+                            np.cumsum(dtau, axis=1)], axis=1)
+    wn = np.linspace(5800.0, 9100.0, nwave)
+    temp = np.linspace(900.0, 2200.0, nlayers)[None] \
+        + rng.uniform(-100.0, 100.0, (nb, nlayers))
+    depth, temp = (a.astype(np.float32).astype(float) for a in (depth, temp))
+    fdown = rng.uniform(0.0, 1e4, nwave)
+    out = {}
+    for dev, dt in ((cuda, torch.float32), (torch.device('cpu'),
+                                            torch.float64)):
+        on = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+        bbody = blackbody_wn(on(wn), on(temp)[..., None])
+        f_int = rt.internal_flux(on(wn), 100.0)
+        up, down = rt.two_stream(on(depth), bbody, on(wn), on(fdown), f_int)
+        out[dev.type] = (up.double().cpu().numpy(),
+                         down.double().cpu().numpy())
+    for got, want in zip(out['cuda'], out['cpu']):
+        assert np.isfinite(got).all()
+        scale = np.abs(want).max(axis=1, keepdims=True)
+        assert np.max(np.abs(got - want) / scale) < EMISSION_TOL

@@ -54,3 +54,40 @@ def test_cli_help():
     )
     assert proc.returncode == 0, proc.stderr
     assert '--device' in proc.stdout
+
+
+_BLOCKED = """
+import importlib, sys
+
+class _Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'pyratbay_tpu'):
+            raise ImportError(f'{name} is blocked')
+        return None
+
+sys.meta_path.insert(0, _Blocked())
+module = importlib.import_module(sys.argv[1])
+loaded = [m for m in sys.modules
+          if m.split('.')[0] in ('jax', 'jaxlib', 'pyratbay_tpu')]
+print('LOADED', sorted(loaded), module.__name__)
+"""
+
+
+@pytest.mark.parametrize('module', [
+    'pyratbay_tpu_torch.atmosphere.chem',
+    'pyratbay_tpu_torch.spectrum.convection',
+    'pyratbay_tpu_torch.spectrum.radeq',
+    'pyratbay_tpu_torch.spectrum.rt',
+    'pyratbay_tpu_torch.benchmark',
+])
+def test_chemistry_and_radeq_modules_import_with_jax_blocked(module):
+    """The modules of the equilibrium-chemistry, two-stream and radeq
+    slice import in a process where importing jax, jaxlib or
+    pyratbay_tpu raises, and load none of them."""
+    proc = subprocess.run(
+        [sys.executable, '-c', _BLOCKED, module],
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert f'LOADED [] {module}' in proc.stdout, proc.stdout
