@@ -100,7 +100,26 @@ solve, the forward, the device's idle share, DEMC).  Then the radeq
 phase (run_radeq): runmode = radeq through the driver, configured and
 with equilibrium chemistry, each's first 10 iterations against a CPU
 float64 run, a warm restart, the two-stream Model.run and a convective
-run.
+run.  Then the nested phase (run_nested): the transit flagship with
+sampler = multinest and nlive = 400 through the driver, its dead points
+cut to 4,000 of the default 20,000 by wrapping the driver's
+sample_nested (--nested-max-iter; 0 runs the default), K1 at every walk
+step (B = 25) and at the live set's start (B = 400); finite logz,
+logz_err and posterior inside the prior box; the best fit's and a first
+scan step's float32 log-likelihoods against CPU float64; K1 against its
+plain version at B = 25; a scan step that reads nothing back to the
+host (torch.profiler); an analytic Gaussian's evidence on the card; and
+timings (walk forwards/s, dead points/s, the run's seconds, launches a
+walk step).  Then the lbl_retrieval phase (run_lbl_retrieval): the
+transit flagship with H2O from make_lbl_flagship's 50,000-line TLI file
+(the opacity phase's list) in place of the line sample, 512 chains x 10 generations through the
+driver and its post-processing, every forward through the direct engine
+(K4 and K5 on each budget-sized block of cells, then K1); K4 and K5
+against their plain versions on one of the forward's blocks; GPU float32
+against CPU float64 on 2 chains x 51 layers (extinction, spectrum,
+log-posterior); and timings (the forward at B = 512, K4, K5 and the line
+factors' device ms, peak memory, DEMC generations/s, K4 and K5 at the
+retrieval's block).  The whole script's seconds close the phases.
 The line before the last is the kernel table; the last line is the
 result.
 """
@@ -1135,19 +1154,18 @@ def masked_rel(got, want, floor=1e-6):
     return float(np.max(diff[mask] / np.abs(want[mask]))), float(diff.max())
 
 
-def lbl_operands(direct, cells, nspec):
-    """Operands of K4 and K5 on per-line factors (the main path's), of
-    their window-layout kernels and of K6, for the cells (temps, dens,
-    pf) of a DirectLBL engine: kernel -> (args, kwargs)."""
+def lbl_operands(direct, cells, nspec, windows=True):
+    """Operands of K4 and K5 on per-line factors (the main path's), and
+    with `windows` of their window-layout kernels and of K6, for the
+    cells (temps, dens, pf) of a DirectLBL engine: kernel -> (args,
+    kwargs)."""
     tables = direct.tables()
     line = direct._line_factors(tables, *cells)
-    fac = direct._cell_factors(tables, *cells, 'wf_')
-    fac_w = direct._cell_factors(tables, *cells, 'w_')
     spec = lambda pre: tables[pre + 'spec'] if nspec > 1 else None
     wing_kw = dict(margin=direct.margin, cutoff=direct.cutoff, nspec=nspec)
     core_kw = dict(margin=direct.margin, nspec=nspec)
     lines = (tables['l_lwn_hi'], tables['l_lwn_lo'])
-    return {
+    out = {
         'wing_lines': ((
             tables['wn_wf_hi'], tables['wn_wf_lo'], tables['starts_wf'],
             *lines, line['c1'], line['y2'], line['inv_ad'], spec('l_')),
@@ -1157,6 +1175,12 @@ def lbl_operands(direct, cells, nspec):
             tables['starts_core'], *lines, line['scale'], line['y'],
             line['inv_ad'], spec('l_')),
             dict(lmax=direct.lmax_core, **core_kw)),
+    }
+    if not windows:
+        return out
+    fac = direct._cell_factors(tables, *cells, 'wf_')
+    fac_w = direct._cell_factors(tables, *cells, 'w_')
+    out.update({
         'wing_grouped': ((
             tables['wn_wf_hi'], tables['wn_wf_lo'], tables['wf_lwn_hi'],
             tables['wf_lwn_lo'], fac['c1_w'], fac['y2_w'], fac['inv_ad_w'],
@@ -1169,7 +1193,8 @@ def lbl_operands(direct, cells, nspec):
             tables['wn_tiles_hi'], tables['wn_tiles_lo'], tables['w_lwn_hi'],
             tables['w_lwn_lo'], fac_w['c1_w'], fac_w['y2_w'],
             fac_w['inv_ad_w'], spec('w_')), wing_kw),
-    }
+    })
+    return out
 
 
 def lbl_bound(key, operands, kw):
@@ -2912,13 +2937,573 @@ def run_radeq(workdir, dev, args, card):
                     'ending in a synchronize')
 
 
+# ----------------------------------------------------------------------
+# The nested phase: sampler = multinest on the transit flagship
+
+NESTED_NLIVE = 400      # the driver's default nlive
+NESTED_MAX_ITER = 4000  # dead points of the phase's run (default 50 nlive)
+NESTED_WALK = 25        # the sampler's default nsteps_walk
+NESTED_INIT_CHECKED = 64   # init chains held against the CPU
+
+
+def counted_run(counters, fn):
+    """fn() between zeroed launch counters (each kernel's `launches`, and
+    the transit kernel's single-chain and tall counts); returns (fn's
+    result, {counter name: launches})."""
+    import torch
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+    for counter in counters:
+        counter.launches = 0
+    tk.transit_rt_cuda.single_chain_launches = 0
+    tk.transit_rt_cuda.tall_launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {c.__name__: c.launches for c in counters}
+    got['transit_rt_single_chain'] = tk.transit_rt_cuda.single_chain_launches
+    return out, got
+
+
+def batch_sizes(fn):
+    """fn() with the model's transit wrapper wrapped: (fn's result, the
+    number of wrapper calls by batch size)."""
+    from pyratbay_tpu_torch import model as model_mod
+    real = model_mod.transit_spectrum_ensemble
+    sizes = {}
+
+    def wrapper(ec_parts, path, radius, *a, **kw):
+        nb = int(radius.shape[0])
+        sizes[nb] = sizes.get(nb, 0) + 1
+        return real(ec_parts, path, radius, *a, **kw)
+
+    model_mod.transit_spectrum_ensemble = wrapper
+    try:
+        out = fn()
+    finally:
+        model_mod.transit_spectrum_ensemble = real
+    return out, sizes
+
+
+def synchronising_calls(work):
+    """torch.profiler's host calls of work() that read the device back
+    (a synchronize, a scalar read, a blocking copy, a nonzero)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        work()
+        torch.cuda.synchronize()
+    calls = {evt.key: evt.count for evt in prof.key_averages()}
+    return {name: count for name, count in calls.items()
+            if 'Synchronize' in name or name in (
+                'aten::item', 'aten::_local_scalar_dense', 'cudaMemcpy',
+                'aten::nonzero')}
+
+
+def run_nested(workdir, dev, args, card):
+    """The nested phase: the transit flagship (51 x 3209, 7 parameters)
+    with sampler = multinest and nlive = 400 through the driver on the
+    card, its dead points cut to args.nested_max_iter (0: the default
+    50 nlive) by wrapping the driver's sample_nested.  Checks: finite
+    logz, logz_err and posterior, the posterior inside the prior box, K1
+    at every walk step (B = 25) and at the live set's start (B = 400),
+    the best fit's log-posterior against a CPU float64 one within what
+    the spectrum bound allows, the card's float32 log-likelihoods of a
+    first scan step on injected draws against CPU float64 within the
+    same allowance, K1 against its plain version at the walk's B = 25,
+    a scan step of the flagship that reads nothing back to the host, and
+    an analytic Gaussian's evidence on the card within 0.5.  Times: walk
+    forwards/s, dead points/s, the run's seconds, launches a walk step.
+    Returns each kernel's launches on this path and K1's largest
+    difference from its plain version."""
+    import torch
+    from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch.benchmark import make_flagship
+    from pyratbay_tpu_torch.driver import run
+    from pyratbay_tpu_torch.model import Model
+    from pyratbay_tpu_torch.retrieval import driver as rdriver
+    from pyratbay_tpu_torch.retrieval import nested
+    from pyratbay_tpu_torch.retrieval.batched import (
+        build_forward_batched, build_log_posterior_batched)
+    from pyratbay_tpu_torch.retrieval.params import RetrievalParams
+    from pyratbay_tpu_torch.spectrum import emission_kernel as ek
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+
+    spec = KERNELS['transit']
+    _, obs, _, forward, p0 = make_flagship(workdir, device=dev)
+    band0 = forward(p0)['bandflux'].cpu().numpy()
+    uncert = np.full(len(band0), NOISE)
+    data = band0 + np.random.default_rng(1).normal(0, uncert)
+    filters = [f'tophat {band.wl0:.4f} {band.half_width}'
+               for band in obs.filters]
+    cfg_file = os.path.join(workdir, 'nested.cfg')
+    write_retrieval_cfg(
+        os.path.join(workdir, 'flagship.cfg'), cfg_file, data, uncert,
+        filters, os.path.join(workdir, 'nested.log'),
+        extra=('sampler = multinest', f'nlive = {NESTED_NLIVE}'))
+
+    # The main path through the driver, its dead points cut:
+    max_iter = args.nested_max_iter or 50 * NESTED_NLIVE
+    batch = NESTED_NLIVE // 16
+    n_scan = -(-max_iter // batch)
+    real_nested = rdriver.sample_nested
+    sampler_s = []
+
+    def cut(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_nested(*a, max_iter=max_iter, **kw)
+        sampler_s.append(time.perf_counter() - t0)
+        return out
+
+    rdriver.sample_nested = cut
+    t0 = time.perf_counter()
+    try:
+        (rmodel, sizes), launches = counted_run(
+            (tk.transit_rt_cuda, ek.emission_rt_cuda),
+            lambda: batch_sizes(lambda: run(cfg_file, seed=0)))
+    finally:
+        rdriver.sample_nested = real_nested
+    main_s = time.perf_counter() - t0
+    out = np.load(os.path.join(workdir, 'nested.npz'))
+    ret = rmodel.ret
+    post = out['posterior']
+    checks = {
+        'on_the_card': rmodel.device.type == 'cuda',
+        'finite': all(bool(np.all(np.isfinite(out[k]))) for k in (
+            'logz', 'logz_err', 'posterior', 'bestp', 'spec_best',
+            'bandflux_best')),
+        'logz_err_positive': float(out['logz_err']) > 0,
+        'posterior_in_prior_box': bool(np.all(
+            (post >= ret.pmin) & (post <= ret.pmax))),
+        'k1_every_walk_step': sizes.get(batch, 0) == n_scan * NESTED_WALK,
+        'k1_live_set': sizes.get(NESTED_NLIVE, 0) >= 1,
+        'one_launch_a_call': sum(sizes.values())
+        == launches['transit_rt_cuda'],
+    }
+    emit('main_path_nested', seconds=main_s, sampler_seconds=sampler_s[0],
+         nlive=NESTED_NLIVE, batch=batch, nsteps_walk=NESTED_WALK,
+         scan_steps=n_scan, max_iter=max_iter,
+         cut=None if max_iter == 50 * NESTED_NLIVE else
+         f'max_iter {50 * NESTED_NLIVE} -> {max_iter} (the driver\'s '
+         'sample_nested wrapped)',
+         logz=float(out['logz']), logz_err=float(out['logz_err']),
+         n_dead_used=int(len(post)), best_log_post=float(
+             out['best_log_post']),
+         acceptance_rate=float(out['acceptance_rate']),
+         k1_calls_by_batch={str(k): v for k, v in sorted(sizes.items())},
+         launches=launches, checks=checks)
+    if not all(checks.values()):
+        fail(f'nested main path: {checks}')
+
+    # The best fit's log-posterior against CPU float64, and the first scan
+    # step on injected draws: every log-likelihood the card computed
+    # against CPU float64 at the same parameters.
+    gpu_lp = build_log_posterior_batched(rmodel, rmodel.obs, ret)
+    cpu_model = Model(cfg_file, device='cpu')
+    cpu_obs = rdriver._observation(cpu_model)
+    cpu_ret = RetrievalParams(cpu_model, cpu_obs)
+    cpu_lp = build_log_posterior_batched(cpu_model, cpu_obs, cpu_ret)
+    gpu_fb = build_forward_batched(rmodel, rmodel.obs, ret)
+    transform = rdriver.unit_cube_prior(ret, dev)
+    rng = np.random.default_rng(2)
+    ndim = len(ret.ifree)
+    on = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    live_u = on(rng.uniform(size=(NESTED_NLIVE, ndim)))
+    pick = torch.as_tensor(rng.integers(0, NESTED_NLIVE - batch, batch),
+                           device=dev)
+    normal = on(rng.standard_normal((NESTED_WALK, batch, ndim)))
+    scales = np.tile([1.0, 0.3, 0.1], 9)[:NESTED_WALK]
+    seen = []
+
+    def log_like(u, record=True):
+        theta = transform(u)
+        lp = gpu_lp(theta)
+        if record:
+            seen.append((theta, lp, gpu_fb(theta)['bandflux']))
+        return lp.double()
+
+    with torch.no_grad():
+        live_logl = log_like(live_u)
+        nested.scan_step(log_like, live_u, live_logl, pick, normal, batch,
+                         scales)
+        theta_best = on(out['bestp'][None])
+        seen_best = (theta_best, on([float(out['best_log_post'])]),
+                     gpu_fb(theta_best)['bandflux'])
+        t0 = time.perf_counter()
+        rows = []
+        for i, (theta, lp, band) in enumerate([seen_best] + seen):
+            if i == 1:
+                theta, lp, band = (v[:NESTED_INIT_CHECKED]
+                                   for v in (theta, lp, band))
+            theta_cpu = theta.cpu()
+            lp_cpu = torch.cat(chunked_cpu(cpu_lp, theta_cpu)).numpy()
+            rows.append((lp.double().cpu().numpy(), lp_cpu,
+                         band.double().cpu().numpy()))
+        cpu_s = time.perf_counter() - t0
+    lp_checks = {}
+    largest = {}
+    for name, part in (('best_fit', rows[:1]), ('scan_step', rows[1:])):
+        lp_g = np.concatenate([r[0] for r in part])
+        lp_c = np.concatenate([r[1] for r in part])
+        band = np.concatenate([r[2] for r in part])
+        fin = np.isfinite(lp_c)
+        bound = _lp_bound(lp_c[fin], np.where(np.isfinite(band[fin]),
+                                              band[fin], 0), uncert,
+                          FORWARD_TOL)
+        diff = np.abs(lp_g[fin] - lp_c[fin])
+        lp_checks[name] = bool(np.array_equal(np.isfinite(lp_g), fin)) \
+            and bool(np.all(diff <= bound))
+        largest[name] = dict(
+            chains=int(len(lp_c)), finite=int(fin.sum()),
+            max_abs_diff=float(diff.max()) if fin.any() else None,
+            largest_share_of_bound=float((diff / bound).max())
+            if fin.any() else None)
+    emit('gpu_vs_cpu_nested', card=card, cpu_seconds=cpu_s,
+         walk_steps=NESTED_WALK, init_chains_checked=NESTED_INIT_CHECKED,
+         tol=FORWARD_TOL, log_posterior=largest, checks=lp_checks)
+    if not all(lp_checks.values()):
+        fail(f'nested: GPU f32 log-likelihoods against CPU f64 {largest}')
+
+    # K1 against its plain version at the walk's B = 25, on the operands
+    # of one walk forward:
+    theta_walk = seen[1][0]
+    call, = record_calls(((model_mod, 'transit_spectrum_ensemble'),),
+                         lambda: gpu_fb(theta_walk))
+    case_abs = check_kernel(spec['name'], tk.transit_rt_cuda,
+                            tk.transit_rt_plain,
+                            {f'B{batch}_nested_walk': wrapper_case(
+                                'transit', rmodel, call)}, spec['tol'])
+
+    # A flagship scan step reads nothing back to the host:
+    step = lambda: nested.scan_step(
+        lambda u: log_like(u, record=False), live_u, live_logl, pick,
+        normal, batch, scales)
+    with torch.no_grad():
+        step()
+        baseline = synchronising_calls(lambda: None)
+        syncs = synchronising_calls(step)
+    sync_ok = syncs == baseline
+
+    # An analytic Gaussian's evidence on the card (tests/test_nested.py):
+    d = 3
+    t0 = time.perf_counter()
+    gauss = nested.sample_nested(
+        lambda th: -0.5 * torch.sum(th**2, dim=1) - 0.5 * d * np.log(
+            2 * np.pi),
+        lambda u: 10.0 * u - 5.0, d, nlive=400, max_iter=6000,
+        nsteps_walk=40, generator=torch.Generator(device=dev).manual_seed(1),
+        device=dev, dtype=torch.float64)
+    gauss_s = time.perf_counter() - t0
+    gauss_ok = bool(abs(gauss['logz'] + d * np.log(10.0)) < 0.5)
+
+    # Times: a walk forward (B = 25) by events and its launches.
+    theta_walk = theta_walk.float()
+    with torch.no_grad():
+        walk_ms = float(np.median(cuda_times(lambda: gpu_lp(theta_walk))))
+        _, walk_device_ms, walk_launches = device_ms(
+            lambda: gpu_lp(theta_walk), spec['name'], reps=5)
+    forwards = n_scan * NESTED_WALK + 1
+    checks = {'scan_step_syncs_nothing': sync_ok,
+              'gaussian_evidence': gauss_ok}
+    emit('times_nested', card=card, run_seconds=sampler_s[0],
+         main_path_seconds=main_s, walk_forwards=forwards,
+         walk_forwards_per_s=forwards / sampler_s[0],
+         dead_points_per_s=n_scan * batch / sampler_s[0],
+         walk_forward_ms=walk_ms, walk_forward_device_ms=walk_device_ms,
+         launches_per_walk_step=walk_launches,
+         scan_step_synchronising_calls=syncs, baseline_calls=baseline,
+         gaussian_logz=gauss['logz'], gaussian_logz_true=-d * np.log(10.0),
+         gaussian_seconds=gauss_s, checks=checks,
+         times_note='run_seconds: host clock around the driver\'s '
+                    'sample_nested (its result on the host); walk_forward_ms: '
+                    'CUDA events around runs of 4 log-posterior calls at '
+                    'B = 25; launches and device ms: torch.profiler')
+    if not all(checks.values()):
+        fail(f'nested: {checks}')
+    if args.profile:
+        profile('nested_walk', lambda p: gpu_lp(p), theta_walk, walk_ms)
+    return launches, case_abs[f'B{batch}_nested_walk']
+
+
+# ----------------------------------------------------------------------
+# The lbl_retrieval phase: a retrieval of the transit flagship with H2O
+# from the 50,000-line TLI file in place of the line sample
+
+LBL_NGEN = 10
+LBL_CPU_CHAINS = 2
+
+
+def run_lbl_retrieval(workdir, dev, args, card):
+    """The lbl_retrieval phase: the transit flagship with H2O from
+    make_lbl_flagship's 50,000-line TLI file (tlifile in place of the
+    line-sample table), 512 chains x 10 generations through the driver
+    and its post-processing on the card: every forward computes the
+    extinction of 26,112 cells by the direct engine (K4 and K5 a pass,
+    DirectLBL.factor_block cells a pass), then K1.  Checks: finite
+    results, K4 and K5 on every forward, K4 and K5 against their plain
+    versions on one of the forward's own blocks, GPU float32 against
+    CPU float64 on 2 chains x 51 layers (the extinction within the
+    line-by-line bound, 2e-4 relative above 1e-6 of the maximum; the
+    spectrum within it of the row maximum; the log-posterior within
+    what that allows).  Times: the forward at B = 512 by events, K4, K5
+    and the line factors' device ms, peak memory, DEMC generations/s,
+    and K4 and K5's kernel, plain and bound ms at the retrieval's block.
+    Returns each kernel's launches on this path, the two line kernels'
+    times at the block and their largest differences from the plain
+    versions."""
+    import torch
+    from pyratbay_tpu_torch.benchmark import make_flagship, make_lbl_flagship
+    from pyratbay_tpu_torch.driver import run
+    from pyratbay_tpu_torch.model import Model
+    from pyratbay_tpu_torch.opacity import lbl_kernel as lk
+    from pyratbay_tpu_torch.opacity.lbl_direct import DirectLBL
+    from pyratbay_tpu_torch.retrieval import driver as rdriver
+    from pyratbay_tpu_torch.retrieval.batched import (
+        build_forward_batched, build_log_posterior_batched)
+    from pyratbay_tpu_torch.retrieval.params import RetrievalParams
+    from pyratbay_tpu_torch.retrieval.samplers import sample_demc
+    from pyratbay_tpu_torch.spectrum import emission_kernel as ek
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+
+    t0 = time.perf_counter()
+    _, tli_cfg, _ = make_lbl_flagship(workdir, nlines=NLINES)
+    run(tli_cfg)
+    tli = os.path.join(workdir, 'flagship_h2o.tli')
+    _, obs, _, forward, p0 = make_flagship(workdir, device=dev)
+    inputs_s = time.perf_counter() - t0
+    flag_cfg = os.path.join(workdir, 'flagship.cfg')
+    with open(flag_cfg) as f:
+        text = f.read()
+    lbl_cfg = os.path.join(workdir, 'flagship_lbl.cfg')
+    with open(lbl_cfg, 'w') as f:
+        f.write('\n'.join(f'tlifile = {tli}' if ln.startswith(
+            'sampled_cross_sec') else ln for ln in text.splitlines()) + '\n')
+    model = Model(lbl_cfg, device=dev)
+    types = [m[0] for m in model.opacity_models]
+    if 'lbl' not in types or 'line_sample' in types:
+        fail(f'lbl_retrieval: opacity models {types}')
+    ret = RetrievalParams(model, obs)
+    forward_b = build_forward_batched(model, obs, ret)
+    band0 = forward_b(p0[None])['bandflux'][0].cpu().numpy()
+    uncert = np.full(len(band0), NOISE)
+    data = band0 + np.random.default_rng(1).normal(0, uncert)
+    filters = [f'tophat {band.wl0:.4f} {band.half_width}'
+               for band in obs.filters]
+    cfg_file = os.path.join(workdir, 'lbl_retrieval.cfg')
+    write_retrieval_cfg(lbl_cfg, cfg_file, data, uncert, filters,
+                        os.path.join(workdir, 'lbl_retrieval.log'),
+                        ngen=LBL_NGEN)
+    lbl = model.opacity_models[types.index('lbl')][1]
+    direct = model.direct_lbl(lbl)
+    block = direct.factor_block()
+    ncell = NCHAINS * NLAYERS
+    passes = -(-ncell // block)
+
+    # The main path through the driver:
+    counters = (lk.wing_sigma_lines_cuda, lk.core_sigma_lines_cuda,
+                tk.transit_rt_cuda, ek.emission_rt_cuda)
+    t0 = time.perf_counter()
+    rmodel, launches = counted_run(counters, lambda: run(cfg_file, seed=0))
+    main_s = time.perf_counter() - t0
+    out = np.load(os.path.join(workdir, 'lbl_retrieval.npz'))
+    base = os.path.join(workdir, 'lbl_retrieval')
+    forwards = LBL_NGEN + 1
+    checks = {
+        'on_the_card': rmodel.device.type == 'cuda',
+        'finite': all(bool(np.all(np.isfinite(out[k]))) for k in (
+            'posterior', 'bestp', 'spec_best', 'bandflux_best')),
+        'accepted': float(out['acceptance_rate']) > 0,
+        'k4_every_forward':
+            launches['wing_sigma_lines_cuda'] >= forwards * passes,
+        'k5_every_forward':
+            launches['core_sigma_lines_cuda'] >= forwards * passes,
+        'k1_every_generation': launches['transit_rt_cuda'] >= forwards,
+        'post_processing': all(os.path.isfile(base + s) for s in POST_FILES),
+    }
+    emit('main_path_lbl_retrieval', seconds=main_s, inputs_seconds=inputs_s,
+         nchains=NCHAINS, generations=LBL_NGEN, cells_per_forward=ncell,
+         block=block, passes_per_forward=passes,
+         nlines_pad=int(direct.tables()['l_lwn_hi'].shape[0]),
+         acceptance_rate=float(out['acceptance_rate']),
+         best_log_post=float(out['best_log_post']), launches=launches,
+         checks=checks)
+    if not all(checks.values()):
+        fail(f'lbl_retrieval main path: {checks}')
+
+    # K4 and K5 against their plain versions on one of a B = 512
+    # forward's blocks (the first, full one):
+    rng = np.random.default_rng(0)
+    pb = np.clip(p0 + ret.pstep * rng.standard_normal((NCHAINS, len(p0))),
+                 ret.pmin, ret.pmax)
+    pb_t = torch.as_tensor(pb, dtype=torch.float32, device=dev)
+    blocks = []
+    real_batch = DirectLBL._cross_section_batch
+
+    def first_block(self, tables, *cells):
+        if not blocks:
+            blocks.append(cells)
+        return real_batch(self, tables, *cells)
+
+    DirectLBL._cross_section_batch = first_block
+    try:
+        with torch.no_grad():
+            forward_b(pb_t)
+    finally:
+        DirectLBL._cross_section_batch = real_batch
+    ops = lbl_operands(direct, blocks[0], 1, windows=False)
+    max_abs, block_ms, block_plain_ms, bounds = {}, {}, {}, {}
+    for key, (operands, kw) in ops.items():
+        kernel = getattr(lk, LBL[key]['fn'] + '_cuda')
+        plain = getattr(lk, LBL[key]['fn'] + '_plain')
+        got = kernel(*operands, **kw)
+        want = plain(*operands, **kw)
+        torch.cuda.synchronize()
+        rel, max_abs[key] = masked_rel(got, want)
+        emit('kernel_check', kernel=LBL[key]['name'],
+             case='lbl_retrieval_block', shape=list(got.shape),
+             max_rel_err=rel, max_abs_err=max_abs[key], tol=LBL_TOL)
+        if not rel < LBL_TOL:
+            fail(f'{LBL[key]["name"]} lbl_retrieval_block: kernel disagrees '
+                 f'with plain ({rel})')
+        del got, want
+        block_ms[key] = float(np.median(cuda_times(
+            lambda: kernel(*operands, **kw), repeats=5, inner=2)))
+        block_plain_ms[key] = float(np.median(cuda_times(
+            lambda: plain(*operands, **kw), repeats=1, warmup=1, inner=1)))
+        bounds[key] = lbl_bound(key, operands, kw)
+    del ops
+
+    # GPU float32 against CPU float64 on 2 chains x 51 layers: the
+    # extinction each forward's direct engine returns, the spectra, the
+    # band fluxes and the log-posterior.
+    cpu_model = Model(cfg_file, device='cpu')
+    cpu_obs = rdriver._observation(cpu_model)
+    cpu_ret = RetrievalParams(cpu_model, cpu_obs)
+    p2 = np.stack([out['bestp'], pb[1]])
+    ecs = []                # the extinction of each call, in turn
+    real_fn = DirectLBL.extinction_fn
+
+    def recording(self, block=None):
+        fn = real_fn(self, block)
+
+        def ec_fn(temp, dens):
+            ecs.append(fn(temp, dens))
+            return ecs[-1]
+
+        return ec_fn
+
+    DirectLBL.extinction_fn = recording
+    try:
+        gpu_fb = build_forward_batched(model, obs, ret)
+        cpu_fb = build_forward_batched(cpu_model, cpu_obs, cpu_ret)
+    finally:
+        DirectLBL.extinction_fn = real_fn
+    with torch.no_grad():
+        gpu_out = gpu_fb(p2)
+        t0 = time.perf_counter()
+        cpu_out = cpu_fb(p2)
+        cpu_s = time.perf_counter() - t0
+        lp_g = build_log_posterior_batched(rmodel, rmodel.obs, rmodel.ret)(
+            p2).double().cpu().numpy()
+    ec_rel, ec_abs = masked_rel(*ecs)
+    spec_rel, spec_abs = rel_err(gpu_out['spectrum'], cpu_out['spectrum'])
+    band_g = gpu_out['bandflux'].double().cpu().numpy()
+    band_c = cpu_out['bandflux'].numpy()
+    # The flagship's log-posterior from the CPU's band fluxes (no priors,
+    # offsets or scalings; the two chains inside the bounds):
+    lp_c = -0.5 * np.sum(((band_c - data) / uncert)**2, axis=1)
+    bound = _lp_bound(lp_c, band_c, uncert, LBL_TOL)
+    lp_diff = np.abs(lp_g - lp_c)
+    checks = {'extinction': ec_rel < LBL_TOL,
+              'spectrum': spec_rel < LBL_TOL,
+              'log_posterior': bool(np.all(lp_diff <= bound))}
+    emit('gpu_vs_cpu_lbl_retrieval', card=card, chains=LBL_CPU_CHAINS,
+         nlayers=NLAYERS, extinction_max_rel_err=ec_rel,
+         extinction_max_abs_err=ec_abs, spectrum_max_rel_err=spec_rel,
+         spectrum_max_abs_err=spec_abs,
+         bandflux_max_rel_err=float(np.max(np.abs(band_g / band_c - 1))),
+         log_posterior_abs_diff=lp_diff.tolist(),
+         log_posterior_bound=bound.tolist(), tol=LBL_TOL,
+         cpu_seconds=cpu_s, checks=checks,
+         note='each side\'s forward from the same parameters (its own '
+              'state: float32 on the card); the CPU log-posterior from its '
+              'band fluxes, -0.5 sum(((band - data) / uncert)^2)')
+    if not all(checks.values()):
+        fail(f'lbl_retrieval: GPU f32 against CPU f64 {checks}')
+    del cpu_model, cpu_fb, ecs
+
+    # Times: the forward at B = 512, its device time by kernel, peak
+    # memory, DEMC generations/s.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        forward_ms = float(np.median(cuda_times(
+            lambda: forward_b(pb_t), repeats=3, warmup=1, inner=1)))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        k4_ms, total_ms, forward_launches = device_ms(
+            lambda: forward_b(pb_t), 'wing_lines', reps=2)
+        k5_ms, _, _ = device_ms(lambda: forward_b(pb_t), 'core_lines',
+                                reps=2)
+        _, factors_ms, factor_launches = device_ms(
+            lambda: direct._line_factors(direct.tables(), *blocks[0]),
+            'line_factors', reps=3)
+    log_post_b = build_log_posterior_batched(rmodel, rmodel.obs, rmodel.ret)
+    gens = 5
+    gen_times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample_demc(log_post_b, rmodel.ret.params, nsamples=NCHAINS * gens,
+                    nchains=NCHAINS, pstep=rmodel.ret.pstep,
+                    pmin=rmodel.ret.pmin, pmax=rmodel.ret.pmax, device=dev,
+                    dtype=rmodel.dtype)
+        torch.cuda.synchronize()
+        gen_times.append(time.perf_counter() - t0)
+    named = lambda values, pick=lambda v: v: {
+        LBL[k]['name']: pick(v) for k, v in values.items()}
+    block_times = dict(
+        cells=int(blocks[0][0].shape[0]), kernel_ms=named(block_ms),
+        plain_ms=named(block_plain_ms),
+        bound_ms=named(bounds, lambda v: v[0]),
+        bound_by=named(bounds, lambda v: v[1]),
+        issue_bound_ms=named(bounds, lambda v: v[2]))
+    emit('times_lbl_retrieval', card=card, block=block, passes=passes,
+         forward_ms=forward_ms,
+         forward_spectra_per_s=NCHAINS / (forward_ms * 1e-3),
+         forward_device_ms=total_ms, forward_launches=forward_launches,
+         device_idle_share=1.0 - total_ms / forward_ms,
+         k4_device_ms=k4_ms, k5_device_ms=k5_ms,
+         line_factors_device_ms=factors_ms * passes,
+         line_factor_launches_a_pass=factor_launches,
+         peak_device_gb=peak_gb,
+         demc_generations_per_s=gens / float(np.median(gen_times)),
+         retrieval_block=block_times,
+         times_note='forward_ms: CUDA events around single calls (each '
+                    'hundreds of ms), median of 3; device ms and launches: '
+                    'torch.profiler, a forward; line factors: one pass '
+                    'times the passes; DEMC: host clock, 5 generations '
+                    'with the initial ensemble, median of 2')
+    if args.profile:
+        profile('lbl_retrieval', forward_b, pb_t, forward_ms, reps=1)
+    entries = {LBL[k]['name']: dict(
+        cells=block_times['cells'], ms=block_ms[k],
+        plain_ms=block_plain_ms[k], bound_ms=bounds[k][0],
+        bound_by=bounds[k][1]) for k in ('wing_lines', 'core_lines')}
+    return launches, entries, {LBL[k]['name']: max_abs[k] for k in max_abs}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--profile', action='store_true',
                         help='also print torch.profiler kernel breakdowns')
     parser.add_argument('--seed', type=int, default=1,
                         help='seed of the hires_eclipse phase\'s noise')
+    parser.add_argument('--nested-max-iter', type=int,
+                        default=NESTED_MAX_ITER,
+                        help='dead points of the nested phase\'s run (0: '
+                             'the sampler\'s default, 50 nlive)')
     args = parser.parse_args()
+    script_t0 = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, 'pyratbay_tpu_torch')):
         fail('pyratbay_tpu_torch/ is not beside this script: run it from '
              'the root of a checkout')
@@ -3034,6 +3619,46 @@ def main():
         t0 = time.perf_counter()
         run_radeq(path_dir, dev, args, card)
         emit('phase_seconds', name='radeq', seconds=time.perf_counter() - t0)
+        # Nested sampling (K1 at B = 400, at the walks' B = 25 and at
+        # B = 1) and a retrieval of a TLI model (K4 and K5 on every
+        # forward, then K1):
+        by_name = {entry['name']: entry for entry in kernels}
+        counter_of = {'transit_rt': 'transit_rt_cuda',
+                      'transit_rt_single_chain': 'transit_rt_single_chain',
+                      'emission_rt': 'emission_rt_cuda',
+                      LBL['wing_lines']['name']: 'wing_sigma_lines_cuda',
+                      LBL['core_lines']['name']: 'core_sigma_lines_cuda'}
+
+        def add_launches(path, counts):
+            for name, counter in counter_of.items():
+                if counts.get(counter):
+                    entry = by_name[name]
+                    entry.setdefault('launches_by_path', {})[path] = \
+                        counts[counter]
+                    entry['launches'] += counts[counter]
+
+        path_dir = os.path.join(workdir, 'nested')
+        os.makedirs(path_dir)
+        t0 = time.perf_counter()
+        nested_launches, nested_abs = run_nested(path_dir, dev, args, card)
+        emit('phase_seconds', name='nested', seconds=time.perf_counter() - t0)
+        add_launches('nested', nested_launches)
+        by_name['transit_rt']['max_abs_err'] = max(
+            by_name['transit_rt']['max_abs_err'], nested_abs)
+        path_dir = os.path.join(workdir, 'lbl_retrieval')
+        os.makedirs(path_dir)
+        t0 = time.perf_counter()
+        lbl_launches, lbl_block, lbl_abs = run_lbl_retrieval(
+            path_dir, dev, args, card)
+        emit('phase_seconds', name='lbl_retrieval',
+             seconds=time.perf_counter() - t0)
+        add_launches('lbl_retrieval', lbl_launches)
+        for name, times in lbl_block.items():
+            by_name[name]['retrieval_block'] = times
+            by_name[name]['max_abs_err'] = max(by_name[name]['max_abs_err'],
+                                               lbl_abs[name])
+        emit('phase_seconds', name='all', seconds=time.perf_counter()
+             - script_t0)
         print(json.dumps({'kernels': kernels}), flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

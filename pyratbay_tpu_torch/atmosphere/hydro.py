@@ -17,7 +17,10 @@ __all__ = [
 
 
 def _per_chain(value, like):
-    """Scalar or [B] parameter -> [B] tensor matching `like` [B, l]."""
+    """Scalar or [B] parameter -> [B] tensor matching `like` [B, l] (a
+    scalar filled on the device: no copy from the host)."""
+    if not torch.is_tensor(value) and np.ndim(value) == 0:
+        return like.new_full((like.shape[0],), float(value))
     return torch.as_tensor(
         value, dtype=like.dtype, device=like.device,
     ).expand(like.shape[0])

@@ -58,17 +58,32 @@ def _xi(gamma, tau):
     )
 
 
+def _constant(values):
+    """fn(like) -> `values` (host numpy) as a tensor of like's dtype and
+    device, made once for each: a copy from the host on every call
+    would wait for the device's stream to drain."""
+    made = {}
+
+    def on(like):
+        key = (like.dtype, like.device)
+        if key not in made:
+            made[key] = torch.as_tensor(values, dtype=like.dtype,
+                                        device=like.device)
+        return made[key]
+
+    return on
+
+
 def guillot_tp(press):
     """Guillot (2010) / Line (2013) profile model.
 
     params = [log10(kappa'), log10(gamma1), log10(gamma2), alpha,
               T_irr, T_int];  press in bar (numpy).
     """
-    press_barye = np.asarray(press) * pc.bar
+    press_barye = _constant(np.asarray(press) * pc.bar)
 
     def temp_fn(params):
-        pb = torch.as_tensor(
-            press_barye, dtype=params.dtype, device=params.device)
+        pb = press_barye(params)
         col = lambda i: params[..., i:i + 1]
         kappa = 10.0 ** col(0)
         gamma1 = 10.0 ** col(1)
@@ -95,12 +110,19 @@ def _gaussian_kernel1d(sigma, radius):
     return phi / phi.sum()
 
 
+_KERNELS = {}      # gaussian_filter1d's kernels by sigma, dtype and device
+
+
 def gaussian_filter1d(y, sigma):
     """scipy's gaussian_filter1d in mode 'nearest' along the last axis
     of y [..., l], as a static convolution."""
     radius = int(4.0 * sigma + 0.5)
-    kernel = torch.as_tensor(
-        _gaussian_kernel1d(sigma, radius), dtype=y.dtype, device=y.device)
+    key = (sigma, y.dtype, y.device)
+    if key not in _KERNELS:
+        _KERNELS[key] = torch.as_tensor(
+            _gaussian_kernel1d(sigma, radius), dtype=y.dtype,
+            device=y.device)
+    kernel = _KERNELS[key]
     edge = lambda v: v.expand(*v.shape[:-1], radius)
     ypad = torch.cat([edge(y[..., :1]), y, edge(y[..., -1:])], dim=-1)
     return ypad.unfold(-1, 2 * radius + 1, 1) @ kernel
@@ -119,9 +141,10 @@ def madhu_tp(press):
     fsmooth = 0.33 / dlogp
     loge = np.log10(np.e)
 
+    logp_of = _constant(logp_np)
+
     def temp_fn(params):
-        logp = torch.as_tensor(logp_np, dtype=params.dtype,
-                               device=params.device)
+        logp = logp_of(params)
         logp1, logp2, logp3, a1, a2, t0 = (
             params[..., i:i + 1] for i in range(6))
         t1 = t0 + ((logp1 - logp0) / (a1 * loge)) ** 2

@@ -6,6 +6,8 @@ Port of pyratbay_tpu/atmosphere/vmr.py.
 import numpy as np
 import torch
 
+from ..device import index_tensor
+
 __all__ = [
     'uniform_vmr', 'iso_vmr', 'scale_vmr', 'slant_vmr',
     'bulk_ratio', 'balance_bulk', 'vmr_scale', 'qcapcheck',
@@ -42,17 +44,18 @@ def bulk_ratio(vmr, ibulk):
     """Bulk abundance ratios to the first bulk species:
     (bratio [..., nlayers, nbulk], invsrat [..., nlayers])."""
     ibulk = list(ibulk)
-    bratio = vmr[..., ibulk] / vmr[..., ibulk[:1]]
+    bratio = vmr[..., index_tensor(ibulk, vmr.device)] \
+        / vmr[..., index_tensor(ibulk[:1], vmr.device)]
     bratio[..., 0] = 1.0
     return bratio, 1.0 / torch.sum(bratio, dim=-1)
 
 
 def balance_bulk(vmr, ibulk, bratio, invsrat):
     """Re-set bulk-species VMRs so each layer sums to one."""
-    ibulk = list(ibulk)
+    ibulk = index_tensor(ibulk, vmr.device)
     is_bulk = torch.zeros(vmr.shape[-1], dtype=torch.bool,
                           device=vmr.device)
-    is_bulk[ibulk] = True
+    is_bulk.index_fill_(0, ibulk, True)   # a scalar: no copy from the host
     sum_traces = torch.sum(
         torch.where(is_bulk, torch.zeros_like(vmr), vmr), dim=-1)
     remainder = 1.0 - sum_traces

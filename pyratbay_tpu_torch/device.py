@@ -1,7 +1,9 @@
 """Device and dtype policy of the port."""
+import functools
+
 import torch
 
-__all__ = ['resolve']
+__all__ = ['resolve', 'index_tensor']
 
 
 def resolve(device=None):
@@ -21,3 +23,16 @@ def resolve(device=None):
     if device.type != 'cpu':
         raise ValueError(f'Unsupported device {device}')
     return device, torch.float64
+
+
+def index_tensor(indices, device):
+    """A host list of indices as an int64 tensor on `device`, made once
+    for each list and device: indexing a CUDA tensor with a host list
+    copies it to the card on every call, and such a copy waits for the
+    stream to drain (a host synchronisation)."""
+    return _index_tensor(tuple(int(i) for i in indices), str(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _index_tensor(indices, device):
+    return torch.as_tensor(indices, dtype=torch.int64, device=device)

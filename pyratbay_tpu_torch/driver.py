@@ -5,9 +5,10 @@ file), atmosphere (the atmospheric profiles to output_atmfile),
 spectrum (one forward spectrum, Model.run, to specfile), opacity (a
 cross-section table from TLI files through Model.compute_opacity's
 default engine, the parity engine), radeq (radiative equilibrium of a
-two-stream model, spectrum/radeq.py) and retrieval (DEMC with
-checkpoints, resume and post-processing); the nested sampler is not
-ported yet (ROADMAP.md A10).
+two-stream model, spectrum/radeq.py) and retrieval (the snooker DEMC
+with checkpoints and resume, or the nested sampler of `sampler =
+multinest`, then the post-processing; a model with TLI files retrieves
+through the direct line-by-line engine on the device).
 """
 import os
 
@@ -51,8 +52,8 @@ def run(cfile, device=None, root=None, seed=0):
     cfg = cfg_parser.parse(cfile, root=root)
     if cfg.runmode not in _RUNMODES:
         raise NotImplementedError(
-            f'runmode = {cfg.runmode} is not ported to pyratbay_tpu_torch '
-            'yet (ROADMAP.md A10)'
+            f'runmode = {cfg.runmode} is not a run mode of '
+            f'pyratbay_tpu_torch ({", ".join(_RUNMODES)})'
         )
     log = Log(
         logname=cfg.logfile, verb=cfg.verb if cfg.verb is not None else 2,

@@ -16,8 +16,10 @@ the opacity types line_sample, cia (files, or the bundled tables by
 basename), alkali, rayleigh (H, H2, He, e-), cloud (deck, ccsgray,
 lecavelier), h_ion and patchy clouds (fpatchy); line-by-line opacity
 from TLI files (tlifile) through the parity engine (opacity/lbl.py,
-host numpy float64: compute_opacity's default, Model.run and get_ec)
-or the direct engine on the device (compute_opacity(engine='direct'));
+host numpy float64: compute_opacity's default, Model.run and get_ec,
+as in the JAX package) or the direct engine on the device
+(compute_opacity(engine='direct') and the batched forward of a
+retrieval, retrieval/batched.py);
 and the per-chain forward of runmode = spectrum, Model.run, whose
 plane-parallel and transit spectra come from the RT kernels at B = 1.
 Other options raise NotImplementedError naming their ROADMAP.md item.

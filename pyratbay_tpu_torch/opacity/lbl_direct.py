@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import constants as pc
-from ..device import resolve
+from ..device import index_tensor, resolve
 from .lbl_kernel import (
     LINE_ALIGN, core_sigma_lines, core_sigma_plain, wing_sigma_lines,
     wing_sigma_plain,
@@ -57,6 +57,12 @@ _ISO_KEYS = ('w_iso', 'c_iso', 'wf_iso', 'iso_spec', 'l_iso')
 _SPEC_KEYS = ('w_spec', 'c_spec', 'wf_spec', 'l_spec', 'starts_wf',
               'starts_core')
 _BOOL_KEYS = ('l_kmask',)
+# extinction_fn's passes: the per-line factors a cell holds at once
+# (_line_factors: kmax aside, c1, y2, scale, y, inv_ad and log_k), the
+# device memory they may take, and the cells one kernel launch takes.
+_LINE_FACTORS = 6
+_FACTOR_BUDGET = 2 << 30
+_MAX_CELLS = 65535
 
 
 def _split_hi_lo(values):
@@ -550,15 +556,29 @@ class DirectLBL:
         w = torch.clamp(x - i0, 0.0, 1.0)
         return (grid[:, i0] * (1.0 - w) + grid[:, i0 + 1] * w).T
 
-    def extinction_fn(self, block=64):
+    def factor_block(self):
+        """Cells a pass of extinction_fn takes: as many as the per-line
+        factors of _line_factors ([ncell, nlines_pad], _LINE_FACTORS of
+        them) fit in _FACTOR_BUDGET bytes, at least 1 and at most the
+        65,535 cells a kernel launch takes."""
+        nlines = int(self._tables['l_lwn_hi'].shape[0])
+        itemsize = torch.finfo(self.dtype).bits // 8
+        per_cell = _LINE_FACTORS * nlines * itemsize
+        return int(min(max(1, _FACTOR_BUDGET // per_cell), _MAX_CELLS))
+
+    def extinction_fn(self, block=None):
         """fn(temp [B, nlayers], dens [B, nlayers, nmol]) -> ec [B,
         nlayers, nwave] (cm-1): live line-by-line extinction over a
-        batch of atmospheres, `block` cells per pass."""
+        batch of atmospheres, `block` cells per pass (default
+        factor_block(): the passes of a retrieval's forward hold their
+        line factors within a fixed budget).  The result does not depend
+        on the block."""
         tables = self.tables()
-        imol_of_spec = [
+        imol_of_spec = index_tensor([
             int(self.iso_imol[np.argmax(self.iso_spec == s)])
             for s in range(self.nspec)
-        ]
+        ], self.device)
+        block = self.factor_block() if block is None else int(block)
 
         def ec_fn(temp, dens):
             nb, nlayers = temp.shape

@@ -17,9 +17,12 @@ extinction parts are [B, l, W].
   the clouds are dense parts kept apart from the gas;
 * H- and active alkali lines: one elementwise dense part; alkali lines
   with no on-grid support are pruned statically;
-* line-by-line opacity from TLI files (Model.run only): the parity
-  engine's extinction, host float64, as one dense part (lbl_extinction);
-  the batched forward of an lbl model raises (ROADMAP.md A12);
+* line-by-line opacity from TLI files: one dense part [B, l, W].  The
+  batched forward computes it on the device through the direct engine
+  (opacity/lbl_direct.py DirectLBL.extinction_fn: the line factors,
+  then K4 and K5, a budget of cells a pass), as the JAX package's
+  forward does (lbl_engine='direct'); Model.run through the parity
+  engine, host float64 (lbl_extinction), that package's default;
 * deck: the surface triple that bounds the integration;
 * the size rule transit_kernel.fit_operands keeps the operands within
   what the kernels take (rank-1 terms, CIA rows, dense parts);
@@ -59,6 +62,7 @@ import torch
 
 from .forward import build_state
 from .. import constants as pc
+from ..device import index_tensor
 from ..atmosphere import geometry
 from ..atmosphere import vmr as vmr_models
 from ..ops.planck import blackbody_wn
@@ -70,6 +74,7 @@ from ..spectrum.transit_kernel import (
 
 __all__ = ['build_forward_batched', 'build_log_posterior_batched',
            'line_sample_table', 'assemble_opacity', 'lbl_extinction',
+           'direct_lbl_engine',
            'summed_extinction', 'spectra', 'rt_diagnostics',
            'two_stream_rt']
 
@@ -89,13 +94,16 @@ def line_sample_table(model):
 
 
 def assemble_opacity(model, temp, dens, radius, pars_list, ls_tab,
-                     skip=()):
+                     skip=(), lbl_engine=None):
     """The extinction sources of B chains as RT-kernel operands.
 
     temp, radius [B, l]; dens [B, l, nspecies]; pars_list: per opacity
     model [B, npars] or None; ls_tab from line_sample_table; skip: names
     or types of the models to leave out, or species of a line-sample
-    table (pyratbay_tpu Model.extinction's skip).  Returns a dict of
+    table (pyratbay_tpu Model.extinction's skip); lbl_engine: fn(lbl
+    model, temp, dens, skip) -> [B, l, W], the extinction of a
+    line-by-line model (default lbl_extinction, the parity engine;
+    the batched forward passes direct_lbl_engine).  Returns a dict of
     operand lists: parts (dense gas parts: line-sample einsums, then the
     elementwise sum of alkali and H-), r1_cols / r1_rows, cia_ws /
     cia_tabs, ls_ws, cloud (a patchy model's clouds, summed into one
@@ -114,7 +122,7 @@ def assemble_opacity(model, temp, dens, radius, pars_list, ls_tab,
             deck = m.surface(radius, temp, pars)
             continue
         if mtype == 'line_sample':
-            density = dens[:, :, imol]
+            density = dens[:, :, index_tensor(imol, dens.device)]
             if skip:
                 keep = [mol not in skip for mol in m.species]
                 density = density * torch.as_tensor(
@@ -125,10 +133,12 @@ def assemble_opacity(model, temp, dens, radius, pars_list, ls_tab,
                 parts.append(m.extinction(temp, density, pars))
             continue
         if mtype == 'lbl':
-            parts.append(lbl_extinction(m, temp, dens, skip))
+            engine = lbl_extinction if lbl_engine is None else lbl_engine
+            parts.append(engine(m, temp, dens, skip))
             continue
         if mtype == 'cia':
-            cia_ws.append(m.kernel_weights(temp, dens[:, :, imol]))
+            cia_ws.append(m.kernel_weights(
+                temp, dens[:, :, index_tensor(imol, dens.device)]))
             cia_tabs.append(m._tab)
             continue
         if mtype == 'rayleigh':
@@ -177,6 +187,21 @@ def lbl_extinction(lbl, temp, dens, skip=()):
     ec = np.stack([lbl.extinction(t, d, skip=skip)
                    for t, d in zip(temp_h, dens_h)])
     return torch.as_tensor(ec, dtype=temp.dtype).to(temp.device)
+
+
+def direct_lbl_engine(model):
+    """The direct engine's extinction of the model's line-by-line
+    models, in assemble_opacity's lbl_engine form.  Each DirectLBL and
+    its device tables are built here, once, when the forward is built.
+    Like the JAX package's direct route (pyratbay_tpu/model.py:921-925),
+    it computes every species of the TLI files: `skip` is not read."""
+    fns = {id(m): model.direct_lbl(m).extinction_fn()
+           for mtype, m, _ in model.opacity_models if mtype == 'lbl'}
+
+    def engine(lbl, temp, dens, skip=()):
+        return fns[id(lbl)](temp, dens)
+
+    return engine
 
 
 def _shared_operands(ops, ls_tab):
@@ -318,11 +343,6 @@ def build_forward_batched(model, obs=None, ret=None):
     [B], and bbody, depth_clear, ideep_clear, clear, cloudy where the
     RT path makes them (rt_diagnostics; clear and cloudy before the
     emission's post-scalings).  The log-posterior does not ask."""
-    if any(mtype == 'lbl' for mtype, _, _ in model.opacity_models):
-        raise NotImplementedError(
-            'A batched forward of a line-by-line (tlifile) model is not '
-            'ported yet (ROADMAP.md A12 (the direct engine in the batched '
-            'forward)); Model.run computes its spectrum')
     dev, dt = model.device, model.dtype
     if dev.type == 'cuda':
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -351,6 +371,7 @@ def build_forward_batched(model, obs=None, ret=None):
         hires = hires_stage(model, obs)
     retrieve_rv = ret is not None and ret.irv is not None
     ls_tab = line_sample_table(model)
+    lbl_engine = direct_lbl_engine(model)
 
     def forward_b(params_b=None, diagnostics=False):
         if params_b is not None:
@@ -358,7 +379,8 @@ def build_forward_batched(model, obs=None, ret=None):
         st = state(params_b)
         temp = st['temp']
         ops = assemble_opacity(
-            model, temp, st['dens'], st['radius'], st['pars_list'], ls_tab)
+            model, temp, st['dens'], st['radius'], st['pars_list'], ls_tab,
+            lbl_engine=lbl_engine)
         spectrum, cloudy, clear = spectra(
             model, ops, temp, st['radius'], st['rtop'], ls_tab,
             st['fpatchy'])

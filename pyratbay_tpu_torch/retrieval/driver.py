@@ -1,11 +1,13 @@
 """Retrieval run-mode driver: config -> observation -> parameter space
--> batched posterior -> DEMC (checkpointed, resumable) -> best-fit
-spectrum -> results .npz -> post-processing.
+-> batched posterior -> sampler -> best-fit spectrum -> results .npz ->
+post-processing.
 
-Port of pyratbay_tpu/retrieval/driver.py for the DEMC (snooker)
-sampler; the nested sampler is not ported yet (ROADMAP.md A10).  Like
-the reference, the posterior keeps every generation after the burn-in:
-`thinning` is read by neither.
+Port of pyratbay_tpu/retrieval/driver.py.  `sampler = multinest` runs
+the batched nested sampler (retrieval/nested.py) over a uniform
+unit-cube prior on [pmin, pmax]; every other sampler (snooker, demc, or
+none) runs the snooker DEMC (retrieval/samplers.py), checkpointed and
+resumable.  Like the reference, the DEMC posterior keeps every
+generation after the burn-in: `thinning` is read by neither.
 
 Unlike the reference, the numeric post-processing steps (the
 temperature and spectrum envelopes, the median atmosphere, the band
@@ -23,10 +25,12 @@ from .. import constants as pc
 from ..observation import Observation
 from .batched import build_forward_batched, build_log_posterior_batched
 from .forward import build_forward
+from .nested import sample_nested
 from .params import RetrievalParams
 from .samplers import gelman_rubin, sample_demc
 
-__all__ = ['run_retrieval', 'posterior_post_processing', 'post_process']
+__all__ = ['run_retrieval', 'posterior_post_processing', 'post_process',
+           'unit_cube_prior']
 
 
 def _observation(model):
@@ -35,20 +39,56 @@ def _observation(model):
         cfg, model.wn, root=os.path.dirname(cfg.config_file) + '/')
 
 
-def run_retrieval(model, seed=0):
-    """Run the MCMC retrieval configured in model.cfg on model.device.
+def unit_cube_prior(ret, device):
+    """The prior transform of `sampler = multinest`: u [n, nfree] in the
+    unit cube -> params [n, npars] (float64 on `device`), the free
+    parameters uniform over their [pmin, pmax], the fixed ones at their
+    values."""
+    free = torch.as_tensor(np.asarray(ret.ifree), device=device)
+    base = torch.as_tensor(np.asarray(ret.params, float), device=device)
+    lo = base.new_tensor(ret.pmin[ret.ifree])
+    span = base.new_tensor(ret.pmax[ret.ifree] - ret.pmin[ret.ifree])
+    return lambda u: base.expand(u.shape[0], -1).index_copy(
+        1, free, lo + span * u)
 
-    Stores results on the model (.posterior, .bestp, .spec_best, ...),
-    writes <logfile>.npz with posterior, bestp, best_log_post,
-    spec_best and bandflux_best, checkpoints the sampler to
+
+def _run_nested(model, ret, log_post_b, seed):
+    """The nested-sampling run of `sampler = multinest` over
+    unit_cube_prior: nlive live points (400 by default), the generator
+    seeded from `seed`; the result in the DEMC contract too (bestp and
+    best_log_post at the largest log-likelihood, acceptance_rate the
+    walks' efficiency, chain_history the posterior as one record, so
+    that no Gelman-Rubin is computed)."""
+    dev = model.device
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        results = sample_nested(
+            log_post_b, unit_cube_prior(ret, dev), ndim=len(ret.ifree),
+            nlive=model.cfg.nlive or 400, generator=generator, device=dev,
+            dtype=torch.float64)
+    log_like = results['log_like']
+    ibest = int(np.argmax(log_like))
+    results['bestp'] = results['samples'][ibest]
+    results['best_log_post'] = float(log_like[ibest])
+    results['acceptance_rate'] = results['efficiency']
+    results['chain_history'] = results['posterior'][None]
+    return results
+
+
+def run_retrieval(model, seed=0):
+    """Run the retrieval configured in model.cfg on model.device: the
+    nested sampler for `sampler = multinest`, the snooker DEMC
+    otherwise.
+
+    Stores results on the model (.posterior, .bestp, .spec_best, ...,
+    and .logz, .logz_err of a nested run), writes <logfile>.npz with
+    posterior, bestp, best_log_post, spec_best and bandflux_best (and
+    logz, logz_err), checkpoints the DEMC sampler to
     <logfile>_checkpoint.npz when dt_retrieval_snapshot or resume is
     set, then post-processes (post_process).  Returns the sampler's
     result dict.
     """
     cfg = model.cfg
-    if cfg.sampler not in (None, 'snooker'):
-        raise NotImplementedError(
-            f'sampler = {cfg.sampler} is not ported yet (ROADMAP.md A10)')
     obs = _observation(model)
     has_lowres = obs.data is not None and obs.nbands > 0
     if not has_lowres and obs.data_hires is None:
@@ -72,23 +112,42 @@ def run_retrieval(model, seed=0):
         checkpoint_file = os.path.splitext(cfg.logfile)[0] + '_checkpoint.npz'
     log.head(
         f'Retrieval: {len(ret.ifree)} free parameters, {nchains} '
-        f'chains, {nsamples} samples (snooker sampler) on {model.device}'
+        f'chains, {nsamples} samples ({ret.sampler or "snooker"} sampler) '
+        f'on {model.device}'
     )
-    generator = torch.Generator(device=model.device).manual_seed(seed)
+    if ret.sampler == 'multinest':
+        # What runs is not pymultinest but this package's sampler:
+        log.msg(
+            'sampler = multinest runs the batched nested sampler '
+            '(retrieval/nested.py): MultiNest-style evidence and posterior '
+            'from a live-point ensemble on the device, with '
+            'friends-of-friends mode separation (per-mode evidences in '
+            "results['mode_logz']) and a Monte-Carlo (volume-resampling) "
+            'logz_err.')
+        results = _run_nested(model, ret, log_post_b, seed)
+    else:
+        generator = torch.Generator(device=model.device).manual_seed(seed)
+        with torch.no_grad():
+            results = sample_demc(
+                log_post_b, ret.params, nsamples=nsamples,
+                generator=generator, nchains=nchains, pstep=ret.pstep,
+                pmin=ret.pmin, pmax=ret.pmax, burnin=burnin_gens,
+                checkpoint_file=checkpoint_file,
+                checkpoint_dt=cfg.dt_retrieval_snapshot,
+                resume=bool(cfg.resume), log=log,
+                dtype=model.dtype, device=model.device,
+            )
     with torch.no_grad():
-        results = sample_demc(
-            log_post_b, ret.params, nsamples=nsamples, generator=generator,
-            nchains=nchains, pstep=ret.pstep, pmin=ret.pmin, pmax=ret.pmax,
-            burnin=burnin_gens, checkpoint_file=checkpoint_file,
-            checkpoint_dt=cfg.dt_retrieval_snapshot,
-            resume=bool(cfg.resume), log=log,
-            dtype=model.dtype, device=model.device,
-        )
         forward = build_forward(model, obs, ret)
         best = forward(torch.as_tensor(results['bestp']))
 
     model.ret = ret
     model.obs = obs
+    extra = {}
+    if 'logz' in results:
+        model.logz = results['logz']
+        model.logz_err = results['logz_err']
+        extra = dict(logz=model.logz, logz_err=model.logz_err)
     model.posterior = results['posterior']
     model.bestp = results['bestp']
     model.best_log_post = float(results['best_log_post'])
@@ -105,6 +164,7 @@ def run_retrieval(model, seed=0):
         outfile = os.path.splitext(cfg.logfile)[0] + '.npz'
         np.savez(
             outfile,
+            **extra,
             posterior=model.posterior,
             bestp=model.bestp,
             pnames=np.asarray(ret.pnames),

@@ -10,6 +10,7 @@ import torch
 
 from .. import constants as pc
 from ..atmosphere import hydro
+from ..device import index_tensor
 
 __all__ = ['build_state', 'build_forward', 'build_log_posterior']
 
@@ -39,7 +40,15 @@ def build_state(model, ret=None):
         tensor(m.pars) if getattr(m, 'npars', 0) > 0 else None
         for _, m, _ in model.opacity_models
     ]
-    base_vmr_pars = model.vmr_pars
+    # Made here once, as the index lists below: host data copied to
+    # the card on every call would wait for its stream to drain.
+    base_vmr_pars = None if model.vmr_pars is None else [
+        None if p is None else tensor(p) for p in model.vmr_pars]
+    index = lambda idx: index_tensor(idx, dev)
+    if ret is not None:
+        itemp, map_temp = index(ret.itemp), index(ret.map_temp)
+        iopacity = [(index(idx), index(slots)) if idx else None
+                    for idx, slots in zip(ret.iopacity, ret.map_opacity)]
     runits = pc.u(model.cfg.runits or 'rjup')
     mass_units = pc.u(model.cfg.mass_units or 'mjup')
 
@@ -49,7 +58,7 @@ def build_state(model, ret=None):
         vmr_par_list = None
         if base_vmr_pars is not None:
             vmr_par_list = [
-                None if p is None else tensor(p).expand(nb, -1)
+                None if p is None else p.expand(nb, -1)
                 for p in base_vmr_pars
             ]
         pars_list = [
@@ -69,16 +78,16 @@ def build_state(model, ret=None):
                     base_tpars if base_tpars is not None
                     else torch.zeros(len(ret.map_temp), dtype=dt, device=dev)
                 ).expand(nb, -1).clone()
-                tpars[:, ret.map_temp] = params[:, ret.itemp]
+                tpars[:, map_temp] = params[:, itemp]
             if ret.imol:
                 if vmr_par_list is None:
                     vmr_par_list = [None] * len(model.vmr_var_names)
                 for i_par, slot in zip(ret.imol, ret.map_mol):
                     vmr_par_list[slot] = params[:, i_par:i_par + 1]
-            for j, (idx, slots) in enumerate(
-                    zip(ret.iopacity, ret.map_opacity)):
-                if not idx:
+            for j, indices in enumerate(iopacity):
+                if indices is None:
                     continue
+                idx, slots = indices
                 pars = pars_list[j].clone()
                 pars[:, slots] = params[:, idx]
                 pars_list[j] = pars

@@ -273,9 +273,9 @@ def prep_chains(path, radius, rstar, itop, ibottom,
     hprev_col = F.pad(h, (1, 0))
     r_itop2 = torch.gather(
         radius, 1, itop.clamp(0, nlayers - 1)[:, None])[:, 0] ** 2
-    inv_rstar2 = torch.full(
-        (nb,), 1.0, dtype=dt, device=dev) / torch.as_tensor(
-            rstar, dtype=dt, device=dev) ** 2
+    # rstar filled on the device (no copy from the host):
+    inv_rstar2 = torch.full((nb,), 1.0, dtype=dt, device=dev) / torch.full(
+        (nb,), float(rstar), dtype=dt, device=dev) ** 2
     scal = torch.stack([
         itop_f, ibottom.to(dt), deck_row, apply_deck, w_surf,
         inv_rstar2, r_itop2, torch.zeros(nb, dtype=dt, device=dev),

@@ -1073,3 +1073,135 @@ def test_cuda_two_stream_float32_against_float64(cuda):
         assert np.isfinite(got).all()
         scale = np.abs(want).max(axis=1, keepdims=True)
         assert np.max(np.abs(got - want) / scale) < EMISSION_TOL
+
+
+# ----------------------------------------------------------------------
+# The nested sampler and the line-by-line retrieval's engine
+
+def _gauss_log_like(d):
+    return lambda theta: (-0.5 * torch.sum(theta**2, dim=1)
+                          - 0.5 * d * np.log(2 * np.pi))
+
+
+@pytest.mark.cuda
+def test_cuda_nested_gaussian_evidence(cuda):
+    """Nested sampling on CUDA tensors (the state in float64, as the
+    driver runs it): a unit Gaussian in a [-5, 5]^3 box has
+    logZ = -3 ln 10, within 0.5 (tests/test_nested.py's bound)."""
+    from pyratbay_tpu_torch.retrieval.nested import sample_nested
+    d = 3
+    res = sample_nested(
+        _gauss_log_like(d), lambda u: 10.0 * u - 5.0, d, nlive=400,
+        max_iter=6000, nsteps_walk=40,
+        generator=torch.Generator(device=cuda).manual_seed(1),
+        device=cuda, dtype=torch.float64)
+    assert abs(res['logz'] + d * np.log(10.0)) < 0.5
+    assert np.all(np.abs(res['posterior'].mean(axis=0)) < 0.15)
+    assert res['n_iter'] > 1000 and 0.05 < res['efficiency'] < 0.95
+
+
+@pytest.mark.cuda
+def test_cuda_nested_scan_step_syncs_nothing(cuda):
+    """One scan step (nlive = 400, 7 dimensions, 25 walkers x 25 walk
+    steps, a float32 likelihood as the forward's) reads no device value
+    on the host: under torch's sync debug mode 'error' a synchronising
+    call would raise, and a torch.profiler trace of the step holds no
+    synchronising runtime call or scalar read beyond those of an empty
+    trace (tests: test_cuda_equilibrium_solve_syncs_nothing)."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyratbay_tpu_torch.retrieval.nested import draw_step, scan_step
+    nlive, ndim, batch, nsteps = 400, 7, 25, 25
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    like32 = _gauss_log_like(ndim)
+
+    def log_like(u):
+        return like32((4.0 * u - 2.0).float()).double()
+
+    live_u = torch.rand((nlive, ndim), generator=gen, dtype=torch.float64,
+                        device=cuda)
+    live_logl = log_like(live_u)
+    scales = np.tile([1.0, 0.3, 0.1], 9)[:nsteps]
+    draws = draw_step(gen, nlive, batch, ndim, nsteps, torch.float64, cuda)
+
+    def step():
+        return scan_step(log_like, live_u, live_logl, *draws, batch, scales)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out[1]).all()
+    torch.cuda.synchronize()
+
+    def synchronising_calls(work):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            work()
+            torch.cuda.synchronize()
+        calls = {evt.key: evt.count for evt in prof.key_averages()}
+        return calls, {name: count for name, count in calls.items()
+                       if 'Synchronize' in name or name in (
+                           'aten::item', 'aten::_local_scalar_dense',
+                           'cudaMemcpy', 'aten::nonzero')}
+
+    _, baseline = synchronising_calls(lambda: None)
+    calls, syncs = synchronising_calls(step)
+    assert any('LaunchKernel' in name for name in calls), sorted(calls)
+    assert syncs == baseline, (syncs, baseline)
+
+
+def _retrieval_cells(direct, nb, nlayers=51, seed=8):
+    """Temperatures [nb, nlayers] and densities [nb, nlayers, 9] of nb
+    chains on the flagship's pressures, as the batched forward gives
+    them to extinction_fn."""
+    rng = np.random.default_rng(seed)
+    temps = rng.uniform(400.0, 2800.0, (nb, 1)) + np.linspace(
+        -200.0, 200.0, nlayers)[None]
+    vmr = np.array([0.85, 0.149, 1e-6, 3e-6, 5e-8, 4e-4, 1e-4, 5e-4, 1e-7])
+    dens = vmr * (np.logspace(-6, 2, nlayers)[None, :, None] * 1e6
+                  / (1.380649e-16 * temps[..., None]))
+    on = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                   device=direct.device)
+    return on(temps), on(dens)
+
+
+@pytest.mark.cuda
+def test_cuda_extinction_fn_budget_block_matches_64(cuda):
+    """extinction_fn at the budget block (50,000 lines: ~1,800 cells a
+    pass) against 64-cell passes, on 40 chains x 51 layers (2,040 cells:
+    two budget passes), within the line-by-line bound: a launch of fewer
+    cells splits the wing windows over four warps, another order of the
+    float32 sums."""
+    direct = DirectLBL(_lbl_lines(1, nlines=50_000), device=cuda)
+    temp, dens = _retrieval_cells(direct, 40)
+    assert 1_000 < direct.factor_block() < temp.numel()
+    launches = lk.wing_sigma_lines_cuda.launches
+    got = direct.extinction_fn()(temp, dens)
+    torch.cuda.synchronize()
+    assert lk.wing_sigma_lines_cuda.launches == launches + 2
+    want = direct.extinction_fn(block=64)(temp, dens)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (40, 51, direct.nwave)
+    assert bool(torch.isfinite(got).all()) and bool((got >= 0).all())
+    assert _masked_rel(got, want) < LBL_TOL
+
+
+@pytest.mark.parametrize('kind', ['wing', 'core'])
+@pytest.mark.cuda
+def test_cuda_lbl_line_kernels_at_retrieval_block(cuda, kind):
+    """K4 and K5 on per-line factors against their plain versions on a
+    block of the size a retrieval's forward takes (the budget block of
+    50,000 lines, ~1,800 cells)."""
+    direct = DirectLBL(_lbl_lines(1, nlines=50_000), device=cuda)
+    block = direct.factor_block()
+    args, kw = _line_operands(direct, kind, block)
+    cuda_fn, plain_fn = (getattr(lk, name) for name in _LINE_KERNELS[kind])
+    got = cuda_fn(*args, **kw)
+    want = plain_fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.shape[0] == block
+    assert bool(torch.isfinite(got).all())
+    assert _masked_rel(got, want) < LBL_TOL

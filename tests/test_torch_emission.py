@@ -596,19 +596,40 @@ def test_eclipse_state_from_jax_arrays(eclipse):
     torch.testing.assert_close(after, before, rtol=1e-12, atol=0)
 
 
-def test_unported_rt_path_raises(eclipse, tmp_path):
+def test_unported_rt_path_raises(eclipse, tmp_path, monkeypatch):
     """Every rt_path is ported (two-stream emission since
-    tests/test_torch_radeq.py's slice): the eclipse flagship builds as
-    emission_two_stream; what A10 still names, the nested sampler,
-    raises with its label."""
-    from pyratbay_tpu_torch.retrieval.driver import run_retrieval
+    tests/test_torch_radeq.py's slice), and so is the nested sampler
+    (A10): the eclipse flagship built as emission_two_stream with
+    sampler = multinest retrieves, the run cut to 16 dead points by
+    wrapping sample_nested: a finite evidence, a posterior inside the
+    prior box, and best_log_post the log-posterior of bestp."""
+    from pyratbay_tpu_torch.retrieval import driver as rdriver
+    from pyratbay_tpu_torch.retrieval.forward import build_log_posterior
+    workdir = os.path.dirname(eclipse[0])
     with open(eclipse[0]) as f:
         text = f.read().replace(
-            'rt_path = eclipse', 'rt_path = emission_two_stream')
+            'rt_path = eclipse', 'rt_path = emission_two_stream').replace(
+            f'logfile = {workdir}/flagship.log',
+            f'logfile = {tmp_path}/two_stream.log')
     cfg_file = str(tmp_path / 'two_stream.cfg')
     with open(cfg_file, 'w') as f:
-        f.write(text + 'sampler = multinest\n')
+        f.write(text + 'sampler = multinest\nnlive = 16\n')
     model = Model(cfg_file, device='cpu')
     assert model.two_stream
-    with pytest.raises(NotImplementedError, match='A10'):
-        run_retrieval(model)
+    cfg = model.cfg
+    cfg.filters = [f'tophat {wl0:.4f} 0.01'
+                   for wl0 in np.linspace(1.13, 1.27, 8)]
+    cfg.data, cfg.uncert = np.full(8, 2e4), np.full(8, 5e2)
+    real = rdriver.sample_nested
+    monkeypatch.setattr(rdriver, 'sample_nested', lambda *a, **kw: real(
+        *a, max_iter=16, nsteps_walk=3, **kw))
+    monkeypatch.setattr(rdriver, '_plots', lambda *a: None)
+    results = rdriver.run_retrieval(model, seed=0)
+    assert np.isfinite(model.logz) and model.logz_err >= 0
+    ret = model.ret
+    assert np.all((results['posterior'] >= ret.pmin)
+                  & (results['posterior'] <= ret.pmax))
+    lp = build_log_posterior(model, model.obs, ret)(model.bestp)
+    np.testing.assert_allclose(float(lp), model.best_log_post, rtol=1e-12)
+    with np.load(str(tmp_path / 'two_stream.npz')) as out:
+        assert float(out['logz']) == model.logz

@@ -457,9 +457,17 @@ def test_opacity_config_reads_no_line_sample(workflow, tmp_path):
 
 
 # ----------------------------------------------------------------------
-# What is not ported yet raises, naming its ROADMAP item
+# What is not ported yet raises, naming its ROADMAP item; the batched
+# forward of a TLI model (A12) runs
 
-def test_unported_parts_raise(workflow, tmp_path):
+def test_unported_parts_raise(workflow, tmp_path, monkeypatch):
+    """The line-list readers and partition sources of A13 raise naming
+    it.  The batched forward of a TLI model runs the direct engine's
+    passes (K4 and K5's wrappers, their plain versions on the CPU) and
+    gives the JAX package's direct forward (build_forward, lbl_engine =
+    'direct') at the config's state, rtol 1e-10."""
+    from pyratbay_tpu.retrieval.forward import build_forward as jforward
+    from pyratbay_tpu_torch.opacity import lbl_direct
     with pytest.raises(NotImplementedError, match='A13'):
         get_linelist_reader('exomol')
     with pytest.raises(NotImplementedError, match='A13'):
@@ -470,7 +478,23 @@ def test_unported_parts_raise(workflow, tmp_path):
             'runmode = opacity', 'runmode = retrieval\nrt_path = transit')
     with open(cfg, 'w') as f:
         f.write('\n'.join(ln for ln in text.splitlines()
-                          if not ln.startswith('sampled_cross_sec')))
+                          if not ln.startswith('sampled_cross_sec'))
+                + '\ntmodel = isothermal\ntpars = 1500.0\n'
+                'rstar = 1.27 rsun\nrplanet = 1.0 rjup\n'
+                'mplanet = 0.6 mjup\nrefpressure = 0.1 bar\n'
+                'radmodel = hydro_m\n')
     model = Model(cfg, device='cpu')
-    with pytest.raises(NotImplementedError, match='A12'):
-        build_forward_batched(model)
+    passes = []
+    for name in ('wing_sigma_lines', 'core_sigma_lines'):
+        real = getattr(lbl_direct, name)
+        monkeypatch.setattr(lbl_direct, name, lambda *a, _n=name, _r=real,
+                            **kw: passes.append(_n) or _r(*a, **kw))
+    got = build_forward_batched(model)()
+    assert passes == ['wing_sigma_lines', 'core_sigma_lines']
+    # Eager, as the file's 1e-10 comparisons (jit folds the float32
+    # Lorentz constants another way, ~5e-10 here):
+    want = jforward(JModel(cfg))()
+    assert bool(got['good'][0]) and bool(want['good'])
+    np.testing.assert_allclose(got['spectrum'][0].numpy(),
+                               np.asarray(want['spectrum']), rtol=RTOL,
+                               atol=0)

@@ -12,8 +12,8 @@ float64 on the CPU.
 * Model.run from a TLI file (runmode = spectrum, transit and eclipse)
   against the JAX package's eager Model.run at rtol 1e-8, and the
   per-model diagnostic Model.get_ec.
-* The batched forward of a line-by-line model raises, naming ROADMAP.md
-  A12.
+* The batched forward of a line-by-line model runs through the direct
+  engine, as the JAX package's forward does, at rtol 1e-10 against it.
 
 At test size: 3000 synthetic HITRAN H2O lines (~670 in the window),
 1.1-1.2 um at 1 cm-1 (758 points), 21 layers, a 10 x 10 profile grid.
@@ -226,6 +226,21 @@ def test_get_ec_matches_jax(workflow, layer):
 
 
 def test_batched_forward_of_lbl_model_raises(workflow):
+    """The batched forward of a TLI model runs (A12): through the direct
+    engine on the model's device, as the JAX package's forward does
+    (lbl_engine = 'direct'), at rtol 1e-10 against it; Model.run keeps
+    the parity engine, that package's default."""
+    from pyratbay_tpu.retrieval.forward import build_forward as jforward
     model = Model(workflow['transit'], device='cpu')
-    with pytest.raises(NotImplementedError, match='A12'):
-        build_forward_batched(model)
+    jmodel = JModel(workflow['transit'])
+    got = build_forward_batched(model)()['spectrum'][0].numpy()
+    # Eager: under jit XLA folds the float32 Lorentz constants another
+    # way (~5e-10; tests/test_torch_lbl.py):
+    want = np.asarray(jforward(jmodel)()['spectrum'])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=0)
+    lbl = model.opacity_models[0][1]
+    assert list(model._direct_lbl) == [(id(lbl), 'cpu')]
+    # Model.run's parity engine differs from the direct engine by its
+    # profile grid's quantization:
+    parity = model.run()['spectrum'].numpy()
+    assert not np.allclose(parity, want, rtol=RTOL, atol=0)
