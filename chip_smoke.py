@@ -119,7 +119,18 @@ against their plain versions on one of the forward's blocks; GPU float32
 against CPU float64 on 2 chains x 51 layers (extinction, spectrum,
 log-posterior); and timings (the forward at B = 512, K4, K5 and the line
 factors' device ms, peak memory, DEMC generations/s, K4 and K5 at the
-retrieval's block).  The whole script's seconds close the phases.
+retrieval's block).  Then the line_lists phase (run_line_lists): line
+lists in every format the readers take (1,000,000 synthetic H2O lines as
+HITRAN, ExoMol and repack files, 200,000 as P&S, Schwenke TiO and Plez
+VO, 20,000 VALD Fe records) through runmode = tli and read back, the
+native HITRAN parse and TLI range read against their numpy versions, the
+ExoMol TLI into the direct table on the card (K4, K5: a block against
+the plain versions, 4 cells against CPU float64) and through the parity
+engine on the native grouping and scatter (each native function's call
+count checked), the CLI's -cs hitran and -pf tips in processes of their
+own, and a spectrum on the card (K1 at B = 1) from that table and the
+CLI's CIA table against CPU float64.  The whole script's seconds close
+the phases.
 The line before the last is the kernel table; the last line is the
 result.
 """
@@ -795,11 +806,13 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS):
 
 
 def write_spectrum_cfg(workdir, name, rt_path, atmfile=None, nlayers=None,
-                       rayleigh=('H2', 'He', 'H'), extra=(), tli=None):
+                       rayleigh=('H2', 'He', 'H'), extra=(), tli=None,
+                       cia=BUNDLED_CIA, sampled=None):
     """The flagship config (runmode = spectrum) with this phase's
     sources, as <workdir>/<name>.cfg writing <workdir>/<name>.dat; with
     `tli`, H2O from that TLI file (the parity engine) in place of the
-    line-sampled table."""
+    line-sampled table; with `sampled`, that table in its place; the CIA
+    files `cia`."""
     with open(os.path.join(workdir, 'flagship.cfg')) as f:
         lines = f.read().splitlines()
     out, in_clouds = [], False
@@ -814,11 +827,12 @@ def write_spectrum_cfg(workdir, name, rt_path, atmfile=None, nlayers=None,
             continue
         line = {
             'continuum_cross_sec':
-                'continuum_cross_sec = ' + ' '.join(BUNDLED_CIA),
+                'continuum_cross_sec = ' + ' '.join(cia),
             'rt_path': f'rt_path = {rt_path}',
             'logfile': f'logfile = {workdir}/{name}.log',
             'atmfile': f'atmfile = {atmfile}' if atmfile else line,
-            'sampled_cross_sec': f'tlifile = {tli}' if tli else line,
+            'sampled_cross_sec': f'tlifile = {tli}' if tli
+            else f'sampled_cross_sec = {sampled}' if sampled else line,
         }.get(key, line)
         out.append(line)
     out += [f'specfile = {workdir}/{name}.dat',
@@ -879,6 +893,7 @@ def run_spectrum(workdir, dev, args, card):
     launches and what the tall function's entry takes from the phase."""
     import torch
     from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch import runtime
     from pyratbay_tpu_torch.benchmark import make_flagship, make_lbl_flagship
     from pyratbay_tpu_torch.driver import run
     from pyratbay_tpu_torch.io import io as pio
@@ -925,6 +940,7 @@ def run_spectrum(workdir, dev, args, card):
         'eclipse_tli': ('eclipse', dict(tli=tli), 0, 0, 0, 1),
     }
     counters = (tk.transit_rt_cuda, ek.emission_rt_cuda)
+    natives = (runtime.lbl_group, runtime.lbl_scatter)
     total = {'transit_rt': 0, 'transit_rt_single_chain': 0,
              'transit_rt_tall': 0, 'emission_rt': 0}
     cfgs, models = {}, {}
@@ -932,6 +948,8 @@ def run_spectrum(workdir, dev, args, card):
         cfgs[name] = cfg = write_spectrum_cfg(workdir, name, rt_path, **opts)
         for counter in counters:
             counter.launches = 0
+        for fn in natives:
+            fn.calls = 0
         tk.transit_rt_cuda.single_chain_launches = 0
         tk.transit_rt_cuda.tall_launches = 0
         torch.cuda.synchronize()
@@ -945,6 +963,9 @@ def run_spectrum(workdir, dev, args, card):
                 tk.transit_rt_cuda.single_chain_launches,
             'transit_rt_tall': tk.transit_rt_cuda.tall_launches,
             'emission_rt': ek.emission_rt_cuda.launches}
+        # The parity engine's grouping and scatter in the native runtime
+        # (a TLI file's H2O): one grouping a model, a scatter a layer.
+        native_calls = {fn.__name__: fn.calls for fn in natives}
         for key, value in launches.items():
             total[key] += value
         models[name] = model
@@ -962,9 +983,12 @@ def run_spectrum(workdir, dev, args, card):
             'read_back': bool(np.allclose(spec, model.spectrum, rtol=1e-8,
                                           atol=0)),
             'gpu_vs_cpu': rel < FORWARD_TOL,
+            'native_runtime': 'tli' not in opts or all(
+                n > 0 for n in native_calls.values()),
         }
         emit('main_path_spectrum', run=name, rt_path=rt_path,
              nlayers=model.nlayers, nwave=model.nwave, seconds=seconds,
+             native_calls=native_calls,
              cpu_seconds=cpu_s, star=star_of(model),
              launches=launches, expected=expect, gpu_vs_cpu_max_rel_err=rel,
              gpu_vs_cpu_max_abs_err=absolute, tol=FORWARD_TOL, checks=checks,
@@ -3492,6 +3516,345 @@ def run_lbl_retrieval(workdir, dev, args, card):
     return launches, entries, {LBL[k]['name']: max_abs[k] for k in max_abs}
 
 
+# The line_lists phase (run_line_lists): line lists as users have them.
+# benchmark.make_line_lists writes every format the readers take over
+# the flagship's 5800-9200 cm-1 from one draw of synthetic H2O-like
+# lines: HITRAN (161 MB), ExoMol (.trans with .states.bz2 over
+# LL_NSTATES states) and repack with LL_NLINES lines each; P&S, Schwenke
+# TiO and Plez VO with LL_NLINES_SMALL; VALD with LL_NLINES_VALD Fe
+# lines.  HITEMP H2O holds ~1.1e8 lines: the lists are cut for the
+# script's time.  The CPU float64 check of the direct table takes
+# LL_CPU_POINTS wavenumbers of 4 cells: the CPU's exact Voigt sums over
+# 943,477 lines take 0.05-0.07 s a point and cell on the card machine's
+# host (PERF.md, section 5).
+LL_NLINES = 1_000_000
+LL_NLINES_SMALL = 200_000
+LL_NLINES_VALD = 20_000
+LL_NSTATES = 20_000
+LL_CPU_POINTS = 64
+LL_RANGE = (6500.0, 8500.0)     # cm-1, the range read of the HITRAN TLI
+LL_PARITY_LAYERS = 5            # the parity engine's table on the list
+LL_BUDGET_S = 150.0
+
+
+def run_line_lists(workdir, dev, args, card):
+    """The line_lists phase: each format through runmode = tli (the
+    driver) and read back; the native HITRAN parse and TLI range read
+    against their numpy versions; the ExoMol TLI into the direct table
+    on the card (K4, K5) and the parity engine's table (the native
+    grouping and scatter); the CLI's -cs hitran and -pf tips in
+    processes of their own; a spectrum on the card (K1 at B = 1) from
+    the ExoMol table and the CLI's CIA table.  Checks: the TLI files
+    read back whole, the native functions equal their numpy versions
+    and each ran (its call counter > 0), K4 and K5 against their plain
+    versions on a main-path block (LBL_TOL), the table against CPU
+    float64 on 4 cells (LBL_TOL on entries above 1e-4 of their row's
+    maximum), K1 against its plain version and the spectrum against a
+    CPU float64 Model.run (FORWARD_TOL).  Returns each kernel's launches
+    on this path and the kernels' largest differences from their plain
+    versions."""
+    import torch
+    from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch import runtime
+    from pyratbay_tpu_torch.benchmark import (
+        make_flagship, make_line_lists, synthetic_cia_hitran,
+        write_opacity_cfg)
+    from pyratbay_tpu_torch.driver import run
+    from pyratbay_tpu_torch.io import io as pio
+    from pyratbay_tpu_torch.model import Model
+    from pyratbay_tpu_torch.opacity import lbl_kernel as lk
+    from pyratbay_tpu_torch.opacity.lbl_direct import DirectLBL
+    from pyratbay_tpu_torch.opacity.linelists import Exomol
+    from pyratbay_tpu_torch.opacity.tli import read_tli
+    from pyratbay_tpu_torch.spectrum import emission_kernel as ek
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+
+    phase_t0 = time.perf_counter()
+    natives = (runtime.parse_hitran_records, runtime.tli_extract_range,
+               runtime.lbl_group, runtime.lbl_scatter)
+    for fn in natives:
+        fn.calls = 0
+    t0 = time.perf_counter()
+    runtime.build_library()
+    build_s = time.perf_counter() - t0
+
+    # 1. The inputs, from one seed.
+    t0 = time.perf_counter()
+    lists = make_line_lists(workdir, nlines=LL_NLINES,
+                            nlines_small=LL_NLINES_SMALL,
+                            nlines_vald=LL_NLINES_VALD, nstates=LL_NSTATES)
+    cia_src = synthetic_cia_hitran(os.path.join(workdir, 'H2-H2.cia'))
+    inputs_s = time.perf_counter() - t0
+    emit('line_lists_inputs', seconds=inputs_s, runtime_build_seconds=build_s,
+         files={fmt: {'file': os.path.basename(e['dbfile']),
+                      'bytes': os.path.getsize(e['dbfile']),
+                      'pflist': os.path.basename(e['pflist'])}
+                for fmt, e in lists.items()})
+
+    # 2. runmode = tli through the driver for each format, read back.
+    tli_s = {}
+    for fmt, entry in lists.items():
+        t0 = time.perf_counter()
+        summary = run(entry['tli_cfg'])
+        tli_s[fmt] = time.perf_counter() - t0
+        _, wn, gf, elow, iso = read_tli(entry['tlifile'])
+        s0 = summary[0]
+        same_iso = iso[1:] == iso[:-1]
+        checks = {
+            'read_back': len(wn) == int(s0['n_lines']) > 0,
+            'finite': bool(np.all(np.isfinite(wn)) and np.all(np.isfinite(gf))
+                           and np.all(np.isfinite(elow))),
+            'sorted': bool(np.all(np.diff(wn)[same_iso] >= 0))
+            and bool(np.all(np.diff(iso) >= 0)),
+            'positive_gf': bool(np.all(gf > 0)),
+        }
+        emit('main_path_tli', format=fmt, seconds=tli_s[fmt],
+             lines_per_s=len(wn) / tli_s[fmt], molecule=s0['molecule'],
+             n_lines=int(s0['n_lines']),
+             isotopes=[str(i) for i in s0['isotopes']],
+             n_lines_iso=[int(n) for n in s0['n_lines_iso']],
+             ntemp=int(s0['ntemp']),
+             tli_bytes=os.path.getsize(entry['tlifile']), checks=checks)
+        if not all(checks.values()):
+            fail(f'line_lists {fmt}: {checks}')
+    t0 = time.perf_counter()
+    exomol = Exomol(lists['exomol']['dbfile'], lists['exomol']['pflist'])
+    exomol_init_s = time.perf_counter() - t0
+
+    # The native HITRAN parse against the numpy parse of the same bytes,
+    # and the native range read against the numpy mask:
+    with open(lists['hitran']['dbfile'], 'rb') as f:
+        raw = f.read()
+    recsize = raw.index(b'\n') + 1
+    parse = {}
+    for name, fn in (('native', runtime.parse_hitran_records),
+                     ('native_1_thread', lambda r, n: runtime.
+                      parse_hitran_records(r, n, 1)),
+                     ('numpy', runtime.parse_hitran_records_plain)):
+        t0 = time.perf_counter()
+        parse[name] = (fn(raw, recsize), time.perf_counter() - t0)
+    parse_equal = all(
+        all(np.array_equal(a, b) for a, b in zip(parse[name][0],
+                                                 parse['numpy'][0]))
+        for name in ('native', 'native_1_thread'))
+    _, wn, gf, elow, iso = read_tli(lists['hitran']['tlifile'])
+    counts = np.unique(iso, return_counts=True)[1]
+    ranged = {}
+    for name, fn in (('native', runtime.tli_extract_range),
+                     ('numpy', runtime.tli_extract_range_plain)):
+        t0 = time.perf_counter()
+        ranged[name] = (fn(wn, iso, elow, gf, counts, *LL_RANGE),
+                        time.perf_counter() - t0)
+    range_equal = all(np.array_equal(a, b) for a, b in zip(
+        ranged['native'][0], ranged['numpy'][0]))
+    mlines = len(raw) // recsize / 1e6
+    emit('line_lists_native', card=card, hitran_lines=len(raw) // recsize,
+         hitran_bytes=len(raw), threads=runtime.NTHREADS,
+         parse_seconds={k: v[1] for k, v in parse.items()},
+         parse_s_per_mlines={k: v[1] / mlines for k, v in parse.items()},
+         parse_equal=parse_equal, range_cm1=list(LL_RANGE),
+         range_lines=len(ranged['native'][0][0]),
+         range_seconds={k: v[1] for k, v in ranged.items()},
+         range_equal=range_equal, exomol_states=int(len(exomol.e_state)),
+         exomol_reader_init_seconds=exomol_init_s,
+         note='host CPU of the card\'s machine; numpy: the JAX package\'s '
+              'numpy fallbacks, kept as the plain versions')
+    if not (parse_equal and range_equal):
+        fail(f'line_lists: native and numpy differ (parse {parse_equal}, '
+             f'range {range_equal})')
+    del raw, parse, ranged, wn, gf, elow, iso
+
+    # 3. The ExoMol TLI into the direct table on the card (K4, K5).
+    table_file = os.path.join(workdir, 'exomol_h2o_lbl.npz')
+    opacity_cfg = write_opacity_cfg(
+        os.path.join(workdir, 'exomol_opacity.cfg'),
+        lists['exomol']['tlifile'], table_file)
+    t0 = time.perf_counter()
+    model = Model(opacity_cfg, device=dev)
+    setup_s = time.perf_counter() - t0
+    lbl = model.opacity_models[0][1]
+    kernels = {key: getattr(lk, LBL[key]['fn'] + '_cuda')
+               for key in ('wing_lines', 'core_lines')}
+    plains = {key: getattr(lk, LBL[key]['fn'] + '_plain')
+              for key in kernels}
+    counters = (*kernels.values(), tk.transit_rt_cuda, ek.emission_rt_cuda)
+    (call,), table_counts = counted_run(counters, lambda: record_calls(
+        ((DirectLBL, '_cross_section_batch'),),
+        lambda: model.compute_opacity(engine='direct')))
+    table = model.cs_table
+    direct = model.direct_lbl(lbl)
+    t0 = time.perf_counter()
+    model.compute_opacity(engine='direct')
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    ncells = table.shape[0] * table.shape[1]
+    nblocks = -(-ncells // 64)
+    _, species, _, _, _, read = pio.read_opacity(table_file)
+    checks = {
+        'shape': list(table.shape) == [10, NLAYERS, NWAVE],
+        'finite': bool(np.all(np.isfinite(table))),
+        'non_negative': bool(np.all(table >= 0)),
+        'read_back': bool(np.array_equal(read, table)) and species == 'H2O',
+        'launches': all(table_counts[fn.__name__] >= nblocks
+                        for fn in kernels.values()),
+    }
+    # One main-path block: K4 and K5 against their plain versions, their
+    # times (CUDA events around back-to-back launches) and bounds:
+    _, tables, t_blk, d_blk, pf_blk = call[0]
+    ops = lbl_operands(direct, (t_blk, d_blk, pf_blk), 1, windows=False)
+    max_abs, block = {}, {}
+    for key, (operands, kw) in ops.items():
+        got = kernels[key](*operands, **kw)
+        want = plains[key](*operands, **kw)
+        torch.cuda.synchronize()
+        rel, max_abs[key] = masked_rel(got, want)
+        checks[f'{key}_vs_plain'] = rel < LBL_TOL
+        run_kernel = lambda: kernels[key](*operands, **kw)
+        # The plain versions take ~1 s a block at a million lines: timed
+        # twice, after one warm-up call.
+        plain_ms = float(np.median(cuda_times(
+            lambda: plains[key](*operands, **kw), 2, warmup=1, inner=1)))
+        bound = lbl_bound(key, operands, kw)
+        block[LBL[key]['name']] = dict(
+            max_rel_err=rel, max_abs_err=max_abs[key], tol=LBL_TOL,
+            ms=float(np.median(cuda_times(run_kernel, 5))),
+            plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+            lmax=int(kw['lmax']))
+    del ops
+    # Four cells on LL_CPU_POINTS wavenumbers against CPU float64:
+    it, il = [0, 9], [0, NLAYERS - 1]
+    i0 = (NWAVE - LL_CPU_POINTS) // 2
+    cpu_model = Model(opacity_cfg, device='cpu')
+    sub_wn = cpu_model.wn[i0:i0 + LL_CPU_POINTS]
+    t0 = time.perf_counter()
+    cpu = DirectLBL(cpu_model.opacity_models[0][1], wn=sub_wn,
+                    device='cpu').tabulate(
+        model.cs_temps[it], cpu_model.press[il], cpu_model.base_vmr[il])
+    cpu_s = time.perf_counter() - t0
+    gpu = table[it][:, il][..., i0:i0 + LL_CPU_POINTS]
+    strong = np.abs(cpu) > 1e-4 * np.abs(cpu).max(axis=-1, keepdims=True)
+    table_rel = float(np.max(np.abs(gpu - cpu)[strong] / np.abs(cpu[strong])))
+    checks['gpu_vs_cpu'] = table_rel < LBL_TOL
+    emit('line_lists_table', card=card, tli=os.path.basename(
+        lists['exomol']['tlifile']), lines_on_grid=int(lbl.ntransitions),
+         table_shape=list(table.shape), blocks=nblocks,
+         seconds=table_s, setup_seconds=setup_s,
+         points_per_s=table.size / table_s, launches=table_counts,
+         block_64_cells=block, gpu_vs_cpu_max_rel_err=table_rel,
+         gpu_vs_cpu_cells=[[float(model.cs_temps[t]), int(layer)]
+                           for t in it for layer in il],
+         gpu_vs_cpu_points=[int(i0), int(i0 + LL_CPU_POINTS)],
+         cpu_seconds=cpu_s, tol=LBL_TOL, checks=checks)
+    if not all(checks.values()):
+        fail(f'line_lists table: {checks}')
+    del model, direct, call, tables, t_blk, d_blk, pf_blk
+    torch.cuda.empty_cache()
+
+    # The parity engine on the ExoMol list (runmode = opacity in this
+    # process: the native grouping and scatter over its lines), one
+    # temperature on LL_PARITY_LAYERS layers and a 10 x 10 profile grid:
+    parity_cfg = os.path.join(workdir, 'exomol_parity.cfg')
+    with open(opacity_cfg) as f:
+        text = f.read()
+    text = text.replace(table_file, os.path.join(workdir, 'parity.npz'))
+    text = text.replace(f'nlayers = {NLAYERS}',
+                        f'nlayers = {LL_PARITY_LAYERS}')
+    text = text.replace('tmin = 300\ntmax = 3000\ntstep = 300',
+                        'tmin = 1500\ntmax = 1500\ntstep = 300')
+    with open(parity_cfg, 'w') as f:
+        f.write(text + 'ndop = 10\nnlor = 10\n')
+    t0 = time.perf_counter()
+    parity = run(parity_cfg, device='cpu').cs_table
+    parity_s = time.perf_counter() - t0
+    calls = {fn.__name__: fn.calls for fn in natives}
+    checks = {'parity_finite': bool(np.all(np.isfinite(parity)))
+              and parity.shape == (1, LL_PARITY_LAYERS, NWAVE)
+              and bool(np.any(parity > 0)),
+              'native_calls': all(n > 0 for n in calls.values())}
+    emit('line_lists_parity', card=card, seconds=parity_s,
+         layers=LL_PARITY_LAYERS, seconds_per_layer=parity_s
+         / LL_PARITY_LAYERS, native_calls=calls, checks=checks)
+    if not all(checks.values()):
+        fail(f'line_lists parity engine: {checks}')
+
+    # 4. The CLI's table tools in processes of their own, then a
+    # spectrum on the card from the ExoMol table and the CLI's CIA.
+    cli_dir = os.path.join(workdir, 'cli')
+    os.makedirs(cli_dir)
+    cli_s, written = {}, []
+    for tool, cli_args in (('cs', ['-cs', 'hitran', cia_src]),
+                           ('pf', ['-pf', 'tips', 'H2O'])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'pyratbay_tpu_torch', *cli_args],
+            cwd=cli_dir, env=dict(os.environ, PYTHONPATH=HERE),
+            capture_output=True, text=True, timeout=300)
+        cli_s[tool] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f'line_lists: the CLI {cli_args} exited {proc.returncode}: '
+                 f'{proc.stderr[-2000:]}')
+        written += [line.split("'")[1] for line in proc.stdout.splitlines()
+                    if line.startswith('Written')]
+    cia_file = os.path.join(cli_dir, written[0])
+    with open(os.path.join(cli_dir, written[1]), 'rb') as f, open(
+            lists['exomol']['pflist'], 'rb') as g:
+        pf_same = f.read() == g.read()
+    make_flagship(workdir, device=dev)
+    cfg = write_spectrum_cfg(workdir, 'exomol_spectrum', 'transit',
+                             cia=(cia_file,), sampled=table_file)
+    spec = {}
+    t0 = time.perf_counter()
+    _, spec_counts = counted_run(counters, lambda: spec.update(
+        call=record_calls(((model_mod, 'transit_spectrum_ensemble'),),
+                          lambda: spec.update(model=run(cfg)))[0]))
+    spec_s = time.perf_counter() - t0
+    model = spec['model']
+    k1_abs, = check_kernel(
+        KERNELS['transit']['name'], tk.transit_rt_cuda, tk.transit_rt_plain,
+        {'B1_line_lists': wrapper_case('transit', model, spec['call'])},
+        KERNELS['transit']['tol']).values()
+    _, spectrum = pio.read_spectrum(
+        os.path.join(workdir, 'exomol_spectrum.dat'))
+    t0 = time.perf_counter()
+    cpu = Model(cfg, device='cpu').run()['spectrum']
+    cpu_s = time.perf_counter() - t0
+    rel, absolute = rel_err(torch.as_tensor(model.spectrum)[None], cpu[None])
+    checks = {
+        'on_the_card': model.device.type == 'cuda',
+        'launches': spec_counts['transit_rt_cuda'] == 1
+        and spec_counts['transit_rt_single_chain'] == 1,
+        'sources': {'line sampling', 'CIA H2-H2'} <= {
+            m.name for _, m, _ in model.opacity_models},
+        'finite': bool(np.all(np.isfinite(spectrum)))
+        and spectrum.shape == (NWAVE,),
+        'read_back': bool(np.allclose(spectrum, model.spectrum, rtol=1e-8,
+                                      atol=0)),
+        'cli_pf_file': pf_same,
+        'gpu_vs_cpu': rel < FORWARD_TOL,
+    }
+    emit('line_lists_spectrum', card=card, seconds=spec_s, cpu_seconds=cpu_s,
+         cli_seconds=cli_s, cli_files=written, launches=spec_counts,
+         gpu_vs_cpu_max_rel_err=rel, gpu_vs_cpu_max_abs_err=absolute,
+         tol=FORWARD_TOL, opacity_models=[m.name for _, m, _ in
+                                          model.opacity_models],
+         checks=checks)
+    if not all(checks.values()):
+        fail(f'line_lists spectrum: {checks}')
+    phase_s = time.perf_counter() - phase_t0
+    emit('times_line_lists', card=card, tli_seconds=tli_s,
+         table_seconds=table_s, parity_seconds=parity_s,
+         spectrum_seconds=spec_s, phase_seconds=phase_s,
+         budget_seconds=LL_BUDGET_S)
+    launches = {'wing_sigma_lines_cuda': table_counts['wing_sigma_lines_cuda'],
+                'core_sigma_lines_cuda': table_counts['core_sigma_lines_cuda'],
+                'transit_rt_cuda': spec_counts['transit_rt_cuda'],
+                'transit_rt_single_chain':
+                    spec_counts['transit_rt_single_chain']}
+    return launches, {'transit_rt': k1_abs,
+                      LBL['wing_lines']['name']: max_abs['wing_lines'],
+                      LBL['core_lines']['name']: max_abs['core_lines']}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--profile', action='store_true',
@@ -3657,6 +4020,18 @@ def main():
             by_name[name]['retrieval_block'] = times
             by_name[name]['max_abs_err'] = max(by_name[name]['max_abs_err'],
                                                lbl_abs[name])
+        # Line lists as users have them (K4 and K5 for a table from an
+        # ExoMol list, K1 at B = 1 for a spectrum from it):
+        path_dir = os.path.join(workdir, 'line_lists')
+        os.makedirs(path_dir)
+        t0 = time.perf_counter()
+        ll_launches, ll_abs = run_line_lists(path_dir, dev, args, card)
+        emit('phase_seconds', name='line_lists',
+             seconds=time.perf_counter() - t0)
+        add_launches('line_lists', ll_launches)
+        for name, err in ll_abs.items():
+            by_name[name]['max_abs_err'] = max(by_name[name]['max_abs_err'],
+                                               err)
         emit('phase_seconds', name='all', seconds=time.perf_counter()
              - script_t0)
         print(json.dumps({'kernels': kernels}), flush=True)

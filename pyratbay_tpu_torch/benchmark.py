@@ -1,7 +1,10 @@
 """Self-contained flagship model: the synthetic opacity tables and the
 config of pyratbay_tpu/benchmark.py::make_flagship, built with the
 port; the inputs of the opacity workflow that makes such a table
-from a line list (make_lbl_flagship); and a synthetic line list that
+from a line list (make_lbl_flagship); synthetic line lists of every
+format the line-list readers take, with their partition-function files,
+and CIA files for the CLI's -cs tool (make_line_lists and the
+synthetic_* writers); a synthetic line list that
 the direct line-by-line engine reads without a TLI file
 (synthetic_lines); the flagship with thermochemical equilibrium in place
 of its free VMRs (equilibrium_flagship_cfg); and the
@@ -22,8 +25,12 @@ import numpy as np
 
 from .io import io as pio
 
-__all__ = ['make_flagship', 'make_lbl_flagship', 'synthetic_lines',
-           'equilibrium_flagship_cfg', 'make_radeq']
+__all__ = ['make_flagship', 'make_lbl_flagship', 'write_opacity_cfg',
+           'make_line_lists', 'synthetic_lines', 'equilibrium_flagship_cfg',
+           'make_radeq', 'synthetic_exomol', 'synthetic_repack',
+           'synthetic_pands', 'synthetic_tioschwenke', 'synthetic_voplez',
+           'synthetic_vald', 'synthetic_pf', 'synthetic_kurucz_pf',
+           'synthetic_cia_hitran', 'synthetic_cia_borysow']
 
 # The equilibrium flagship's network: the species of the flagship's
 # atmosphere file, as pyratbay_tpu's tests/test_chem.py lists them.
@@ -269,24 +276,33 @@ _PAR_RECORD = (
 )
 
 
-def _synthetic_hitran(path, nlines, seed, wn_low=5800.0, wn_high=9200.0):
-    """Write a synthetic H2O line list in the HITRAN .par format.
-
-    The distributions of the JAX bench's synthetic lines
-    (bench.py::_synthetic_lines): centers uniform over [wn_low,
-    wn_high] cm-1, lognormal gf (mu = -8, sigma = 3), Elow uniform up to
-    15,000 cm-1, the four TIPS isotopes; Einstein A from gf and an
-    upper-state degeneracy g' = 2J + 1 (Simeckova et al. 2006, eq. 36,
-    inverted).
-    """
-    from . import constants as pc
+def _line_draws(nlines, seed, wn_low=5800.0, wn_high=9200.0):
+    """Synthetic H2O-like lines: the distributions of the JAX bench's
+    synthetic lines (bench.py::_synthetic_lines): centers uniform over
+    [wn_low, wn_high] cm-1 (sorted), lognormal gf (mu = -8, sigma = 3),
+    Elow uniform up to 15,000 cm-1, the four TIPS isotopes (1-4) and an
+    upper-state degeneracy g' = 2J + 1.  Returns (wn, gf, elow, iso,
+    gup)."""
     rng = np.random.default_rng(seed)
     wn = np.sort(rng.uniform(wn_low, wn_high, nlines))
     gf = rng.lognormal(-8.0, 3.0, nlines)
     elow = rng.uniform(0.0, 15000.0, nlines)
     iso = rng.integers(1, 5, nlines)
     gup = 2.0 * rng.integers(0, 30, nlines) + 1.0
-    a21 = gf * 8.0 * np.pi * pc.c * wn**2 / (gup * pc.C1)
+    return wn, gf, elow, iso, gup
+
+
+def _a21(gf, gup, wn):
+    """Einstein A from gf (Simeckova et al. 2006, eq. 36, inverted)."""
+    from . import constants as pc
+    return gf * 8.0 * np.pi * pc.c * wn**2 / (gup * pc.C1)
+
+
+def _synthetic_hitran(path, nlines, seed, wn_low=5800.0, wn_high=9200.0):
+    """Write a synthetic H2O line list in the HITRAN .par format: the
+    lines of _line_draws, Einstein A from gf and g'."""
+    wn, gf, elow, iso, gup = _line_draws(nlines, seed, wn_low, wn_high)
+    a21 = _a21(gf, gup, wn)
     with open(path, 'w') as f:
         for i in range(nlines):
             f.write(_PAR_RECORD.format(
@@ -294,6 +310,227 @@ def _synthetic_hitran(path, nlines, seed, wn_low=5800.0, wn_high=9200.0):
                 gair=0.07, gself=0.35, elow=max(elow[i], 1e-4), nair=0.7,
                 shift=0.0, quanta='', codes='000000', refs='',
                 gup=gup[i], glow=gup[i]))
+    return path
+
+
+# The writers below put the lines of _line_draws into the other formats
+# the line-list readers take (opacity/linelists.py), and write the
+# partition-function and CIA files the CLI's tools read.  They are
+# inputs, not a feature: the JAX package reads the same files.
+
+# The HITRAN isotopes 1-4 of H2O in exomol notation (TIPS order):
+_H2O_ISO = np.array([116, 118, 117, 126])
+
+
+def _log_code(values):
+    """Kurucz's int16 code of 10^(0.001 (code - 16384))."""
+    return np.clip(np.round(1000.0 * np.log10(values)) + 16384, 0, 32767)
+
+
+def synthetic_exomol(workdir, nlines, seed, nstates=20_000,
+                     wn_low=5800.0, wn_high=9200.0):
+    """Write the lines of _line_draws as an ExoMol pair,
+    workdir/1H2-16O__Synth__05800-09200.trans and its states file
+    1H2-16O__Synth.states.bz2, and return the .trans path.
+
+    `nstates` energies uniform up to 15,000 cm-1 above wn_high (ids from
+    1, g = 2J + 1); each line joins the state nearest its Elow to the
+    state nearest Elow + wn, so its wavenumber lands within a state
+    spacing of the draw's.  Einstein A from the draw's gf and the upper
+    state's g.  Transitions sorted by wavenumber.
+    """
+    import bz2
+    wn, gf, elow, _, _ = _line_draws(nlines, seed, wn_low, wn_high)
+    rng = np.random.default_rng([seed, 1])
+    energy = np.sort(rng.uniform(0.0, 15000.0 + wn_high + 100.0, nstates))
+    energy[0] = 0.0
+    jval = rng.integers(0, 30, nstates)
+    gstate = 2 * jval + 1
+
+    def nearest(values):
+        idx = np.clip(np.searchsorted(energy, values), 1, nstates - 1)
+        return idx - (values - energy[idx - 1] < energy[idx] - values)
+
+    lo = nearest(elow)
+    up = nearest(energy[lo] + wn)
+    line_wn = energy[up] - energy[lo]
+    keep = line_wn > 0
+    lo, up, line_wn, gf = lo[keep], up[keep], line_wn[keep], gf[keep]
+    order = np.argsort(line_wn, kind='stable')
+    lo, up, line_wn, gf = lo[order], up[order], line_wn[order], gf[order]
+    a21 = _a21(gf, gstate[up], line_wn)
+    base = os.path.join(workdir, '1H2-16O__Synth')
+    trans = f'{base}__{int(wn_low):05d}-{int(wn_high):05d}.trans'
+    np.savetxt(trans, np.column_stack([up + 1, lo + 1, a21]),
+               fmt=['%12d', '%12d', '%10.4e'])
+    rows = '\n'.join(
+        f'{i + 1:12d} {e:12.6f} {g:6d} {j:7d}'
+        for i, (e, g, j) in enumerate(zip(energy, gstate, jval)))
+    with bz2.open(base + '.states.bz2', 'wt') as f:
+        f.write(rows + '\n')
+    return trans
+
+
+def synthetic_repack(path, nlines, seed, wn_low=5800.0, wn_high=9200.0):
+    """Write the lines of _line_draws in the repack binary format: (wn,
+    elow, gf, iso) as float64 x 3 and int32 records, sorted by
+    wavenumber, isotopes by exomol name.  The reader takes the molecule
+    and database from the file name, MOLECULE_DBTYPE_...: name `path`
+    so (e.g. H2O_synth_lbl.dat)."""
+    wn, gf, elow, iso, _ = _line_draws(nlines, seed, wn_low, wn_high)
+    data = np.zeros(nlines, np.dtype([
+        ('wn', 'f8'), ('elow', 'f8'), ('gf', 'f8'), ('iso', 'i4')]))
+    data['wn'], data['elow'], data['gf'] = wn, elow, gf
+    data['iso'] = _H2O_ISO[iso - 1]
+    data.tofile(path)
+    return path
+
+
+def synthetic_pands(path, nlines, seed, wn_low=5800.0, wn_high=9200.0):
+    """Write the lines of _line_draws in the Partridge & Schwenke (1997)
+    binary format: (uint32 log-wavelength index, int16 Elow, int16 gf
+    code) records by increasing wavelength, the isotope (0-3) in the
+    sign bits of Elow (2) and gf (1); Elow at least 1 cm-1."""
+    from . import constants as pc
+    from .opacity.linelists import Pands
+    wn, gf, elow, iso, _ = _line_draws(nlines, seed, wn_low, wn_high)
+    iso = iso - 1
+    data = np.zeros(nlines, np.dtype(
+        [('iw', '<u4'), ('ielo', '<i2'), ('igf', '<i2')]))
+    data['iw'] = np.round(np.log(1.0 / (wn * pc.nm)) / Pands._RATIOLOG)
+    sign_elo = np.where(iso & 2, -1, 1)
+    sign_gf = np.where(iso & 1, -1, 1)
+    data['ielo'] = sign_elo * np.clip(np.round(elow), 1, 32767)
+    data['igf'] = sign_gf * np.maximum(_log_code(gf / 4.0), 1)
+    data[np.argsort(data['iw'], kind='stable')].tofile(path)
+    return path
+
+
+def synthetic_tioschwenke(path, nlines, seed, wn_low=5800.0,
+                          wn_high=9200.0):
+    """Write the lines of _line_draws as a Schwenke (1998) TiO binary
+    list (Kurucz's 16-byte records: int32 log-wavelength index, int16
+    isotope code 8950 + iso with a random sign, int16 Elow and gf codes,
+    6 bytes of padding), by increasing wavelength; isotopes 0-3."""
+    from . import constants as pc
+    from .opacity.linelists import Tioschwenke
+    wn, gf, elow, iso, _ = _line_draws(nlines, seed, wn_low, wn_high)
+    rng = np.random.default_rng([seed, 2])
+    data = np.zeros(nlines, np.dtype([
+        ('iw', '<i4'), ('ieli', '<i2'), ('ielo', '<i2'), ('igf', '<i2'),
+        ('pad', 'V6')]))
+    data['iw'] = np.round(np.log(1.0 / (wn * pc.nm))
+                          / Tioschwenke._RATIOLOG)
+    data['ieli'] = (8950 + iso - 1) * rng.choice([-1, 1], nlines)
+    data['ielo'] = _log_code(np.maximum(elow, 1.0))
+    data['igf'] = _log_code(gf)
+    data[np.argsort(data['iw'], kind='stable')].tofile(path)
+    return path
+
+
+def synthetic_voplez(path, nlines, seed, wn_low=5800.0, wn_high=9200.0):
+    """Write the lines of _line_draws as a Plez (1998) VO ASCII list:
+    53-byte records by increasing wavelength, the wavelength in A
+    (0-11), lower J (11-21), gf (21-32), the wavenumber (33-43) and Elow
+    in eV (44-50)."""
+    from . import constants as pc
+    wn, gf, elow, _, gup = _line_draws(nlines, seed, wn_low, wn_high)
+    with open(path, 'w') as f:
+        for i in np.argsort(-wn, kind='stable'):
+            f.write(f'{1e8 / wn[i]:11.3f}{(gup[i] - 1) / 2:10.1f}'
+                    f'{gf[i]:11.4e} {wn[i]:10.3f} {elow[i] / pc.eV:6.4f}'
+                    '  \n')
+    return path
+
+
+def synthetic_vald(path, nlines, seed, ion='Fe', wn_low=5800.0,
+                   wn_high=9200.0):
+    """Write the lines of _line_draws as a VALD extract of `ion`
+    ('ION N', wavenumber, Elow, log gf, ... CSV records) with every
+    tenth record of the next ion stage between them, which the reader
+    skips.  The reader takes the ion from the file name, ..._ION.dat:
+    name `path` so (e.g. VALD_Fe.dat)."""
+    wn, gf, elow, _, _ = _line_draws(nlines, seed, wn_low, wn_high)
+    with open(path, 'w') as f:
+        f.write('# synthetic VALD extract: species, wavenumber (cm-1), '
+                'Elow (cm-1), log gf, Rad, Stark, Waals\n')
+        for i in range(nlines):
+            stage = 2 if i % 10 == 9 else 1
+            f.write(f"'{ion} {stage}',{wn[i]:12.4f},{elow[i]:12.4f},"
+                    f'{np.log10(gf[i]):8.3f}, 8.000,-5.500,-7.600\n')
+    return path
+
+
+def synthetic_pf(path, isotopes, tmin=100.0, tmax=6000.0, tstep=100.0):
+    """Write a partition-function file (io.write_pf) for `isotopes`: a
+    power law Q = q0 (T / 296)^1.5, q0 = 25, 50, ... by isotope."""
+    temp = np.arange(tmin, tmax + 0.5 * tstep, tstep)
+    pf = np.array([25.0 * (i + 1) * (temp / 296.0)**1.5
+                   for i in range(len(isotopes))])
+    pio.write_pf(path, pf, isotopes, temp)
+    return path
+
+
+def synthetic_kurucz_pf(path, molecule='H2O'):
+    """Write a Kurucz partition-function table of H2O (6 header lines,
+    4 isotopes) or TiO (1 header line, 5 isotopes): T from 10 to 6000 K
+    in steps of 10, then power-law Q columns.  partitions.kurucz takes
+    the molecule from the file name: name `path` with h2o or tio in it."""
+    header = {'H2O': 6, 'TiO': 1}[molecule]
+    niso = {'H2O': 4, 'TiO': 5}[molecule]
+    temp = np.arange(10.0, 6001.0, 10.0)
+    with open(path, 'w') as f:
+        for i in range(header):
+            f.write(f'# synthetic Kurucz {molecule} partition function, '
+                    f'header line {i + 1}\n')
+        for t in temp:
+            row = ''.join(f'{30.0 * (i + 1) * (t / 296.0)**1.5:14.4f}'
+                          for i in range(niso))
+            f.write(f'{t:8.1f}{row}\n')
+    return path
+
+
+def _cia(wn, temp):
+    """A smooth positive CIA band in cm5 molec-2: centered at 4,200
+    cm-1, growing with temperature."""
+    return 1e-45 * np.exp(-((wn - 4200.0) / 3000.0)**2) * (
+        0.5 + temp / 2000.0)
+
+
+def synthetic_cia_hitran(path, pair='H2-H2', temps=None, wn=None):
+    """Write a CIA file in the HITRAN format: for each temperature a
+    header (pair, wavenumber range, points, temperature, maximum,
+    resolution, comments, reference) and `points` (wavenumber, cross
+    section in cm5 molec-2) rows.  The defaults: 200-3000 K in steps of
+    200, 20-10,000 cm-1 in steps of 10."""
+    temps = np.arange(200.0, 3001.0, 200.0) if temps is None else temps
+    wn = np.arange(20.0, 10001.0, 10.0) if wn is None else wn
+    with open(path, 'w') as f:
+        for temp in temps:
+            cs = _cia(wn, temp)
+            f.write(f'{pair:>20s}{wn[0]:10.3f}{wn[-1]:10.3f}{len(wn):7d}'
+                    f'{temp:7.1f}{cs.max():10.3e}{0.0:6.3f}'
+                    f'{"synthetic":>27s}{1:3d}\n')
+            f.write(''.join(f'{w:10.4f} {c:10.3e}\n'
+                            for w, c in zip(wn, cs)))
+    return path
+
+
+def synthetic_cia_borysow(path, temps=None, wn=None):
+    """Write a CIA table in Borysow's format: a comment line, the
+    temperatures as 'wn 200K 400K ...', a units line, then (wavenumber,
+    cross section for each temperature) rows (cm-1 amagat-2)."""
+    from . import constants as pc
+    temps = np.arange(200.0, 3001.0, 200.0) if temps is None else temps
+    wn = np.arange(20.0, 10001.0, 10.0) if wn is None else wn
+    with open(path, 'w') as f:
+        f.write('# synthetic collision-induced absorption\n')
+        f.write('wn ' + ' '.join(f'{t:.0f}K' for t in temps) + '\n')
+        f.write('# cm-1, cm-1 amagat-2\n')
+        for w in wn:
+            row = ' '.join(f'{_cia(w, t) * pc.amagat**2:12.5e}'
+                           for t in temps)
+            f.write(f'{w:10.2f} {row}\n')
     return path
 
 
@@ -328,14 +565,28 @@ tlifile = {tli_file}
 wl_low = 1.05 um
 wl_high = 1.75 um
 """)
-    opacity_cfg = os.path.join(workdir, 'flagship_opacity.cfg')
-    with open(opacity_cfg, 'w') as f:
+    opacity_cfg = write_opacity_cfg(
+        os.path.join(workdir, 'flagship_opacity.cfg'), tli_file,
+        os.path.join(workdir, 'flagship_h2o_lbl.npz'), nlayers=nlayers,
+        wl_low=wl_low, wl_high=wl_high, wnstep=wnstep)
+    return par_file, tli_cfg, opacity_cfg
+
+
+def write_opacity_cfg(cfg_file, tli_file, table_file, nlayers=51,
+                      wl_low=1.1, wl_high=1.7, wnstep=1.0):
+    """Write a runmode = opacity config that tabulates the flagship's H2O
+    cross sections from `tli_file` into `table_file`: wl_low to wl_high
+    um at wnstep cm-1, `nlayers` layers from 1e-6 to 100 bar, H2/He/H2O,
+    10 temperatures from 300 to 3000 K; its log beside the config."""
+    workdir = os.path.dirname(cfg_file)
+    logfile = os.path.splitext(os.path.basename(cfg_file))[0] + '.log'
+    with open(cfg_file, 'w') as f:
         f.write(f"""[pyrat]
 runmode = opacity
 verb = -1
-logfile = {workdir}/flagship_opacity.log
+logfile = {workdir}/{logfile}
 tlifile = {tli_file}
-sampled_cross_sec = {workdir}/flagship_h2o_lbl.npz
+sampled_cross_sec = {table_file}
 wl_low = {wl_low} um
 wl_high = {wl_high} um
 wnstep = {wnstep}
@@ -349,7 +600,76 @@ tmin = 300
 tmax = 3000
 tstep = 300
 """)
-    return par_file, tli_cfg, opacity_cfg
+    return cfg_file
+
+
+LINE_LIST_FORMATS = ('hitran', 'exomol', 'repack', 'pands', 'tioschwenke',
+                     'voplez', 'vald')
+
+
+def make_line_lists(workdir, nlines=1_000_000, nlines_small=200_000,
+                    nlines_vald=20_000, nstates=20_000, seed=0,
+                    wl_low=1.05, wl_high=1.75):
+    """Write a synthetic line list of every format the readers take
+    (LINE_LIST_FORMATS) over the flagship's 5800-9200 cm-1, its
+    partition functions and a runmode = tli config for it.
+
+    HITRAN, ExoMol and repack hold the `nlines` lines of one draw
+    (ExoMol over `nstates` states); P&S, Schwenke TiO and Plez VO
+    `nlines_small` each; VALD `nlines_vald` Fe lines.  The pflist
+    entries: tips (HITRAN, repack), the file `-pf tips H2O` writes
+    (ExoMol), Kurucz tables reformatted by partitions.kurucz (P&S, TiO),
+    poly (VO) and a PF file (Fe).  Returns {format: dict(dbfile, pflist,
+    dbtype, tli_cfg, tlifile)}; the configs compile wl_low to wl_high um.
+    """
+    from .opacity import partitions
+    os.makedirs(workdir, exist_ok=True)
+    path = lambda name: os.path.join(workdir, name)
+    pf_tips = path('PF_tips_H2O.dat')
+    pf, isotopes, temp = partitions.tips('H2O')
+    pio.write_pf(pf_tips, pf, isotopes, temp)
+    pf_h2o = path('PF_kurucz_H2O.dat')
+    partitions.kurucz(synthetic_kurucz_pf(path('kurucz_h2opartfn.dat')),
+                      outfile=pf_h2o)
+    pf_tio = path('PF_kurucz_TiO.dat')
+    partitions.kurucz(
+        synthetic_kurucz_pf(path('kurucz_tiopartfn.dat'), 'TiO'),
+        outfile=pf_tio)
+    inputs = {
+        'hitran': (_synthetic_hitran(path('synth_h2o.par'), nlines, seed),
+                   'tips'),
+        'exomol': (synthetic_exomol(workdir, nlines, seed, nstates),
+                   pf_tips),
+        'repack': (synthetic_repack(path('H2O_synth_lbl.dat'), nlines,
+                                    seed), 'tips'),
+        'pands': (synthetic_pands(path('synth_h2ofastfix.bin'),
+                                  nlines_small, seed), pf_h2o),
+        'tioschwenke': (synthetic_tioschwenke(path('synth_tioschwenke.bin'),
+                                              nlines_small, seed), pf_tio),
+        'voplez': (synthetic_voplez(path('synth_vo_plez.dat'), nlines_small,
+                                    seed), 'poly'),
+        'vald': (synthetic_vald(path('VALD_Fe.dat'), nlines_vald, seed),
+                 synthetic_pf(path('PF_Fe.dat'), ['Fe'])),
+    }
+    out = {}
+    for dbtype, (dbfile, pflist) in inputs.items():
+        tli_cfg = path(f'{dbtype}_tli.cfg')
+        tlifile = path(f'{dbtype}.tli')
+        with open(tli_cfg, 'w') as f:
+            f.write(f"""[pyrat]
+runmode = tli
+verb = -1
+logfile = {path(dbtype + '_tli.log')}
+dblist = {dbfile}
+pflist = {pflist}
+dbtype = {dbtype}
+tlifile = {tlifile}
+wl_low = {wl_low} um
+wl_high = {wl_high} um
+""")
+        out[dbtype] = dict(dbfile=dbfile, pflist=pflist, dbtype=dbtype,
+                           tli_cfg=tli_cfg, tlifile=tlifile)
+    return out
 
 
 def synthetic_lines(wn, nlines, seed=0, nspec=1, pad=100.0):

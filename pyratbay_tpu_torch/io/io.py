@@ -1,6 +1,6 @@
 """File formats: atmospheric profiles, spectra, opacity tables, CIA
-tables, observations, and species data (the subset the port's run modes
-read and write).
+tables, partition functions, observations, and species data (the subset
+the port's run modes and CLI tools read and write).
 
 Formats are byte-compatible with the reference framework
 (pyratbay/io/io.py) so users can exchange files between the two.
@@ -17,6 +17,7 @@ __all__ = [
     'write_spectrum', 'read_spectrum', 'read_spectra',
     'read_cs', 'write_cs',
     'read_opacity', 'write_opacity',
+    'read_pf', 'write_pf',
     'read_molecs', 'species_properties',
     'read_observations', 'write_observations',
 ]
@@ -307,6 +308,50 @@ def write_cs(csfile, cs, species, temp, wn, header=None):
         for i, w in enumerate(wn):
             row = ' '.join(f'{val:.3e}' for val in cs[:, i])
             f.write(f'{w:8.1f}  {row}\n')
+
+
+# --------------------------------------------------------------------------
+# Partition functions
+
+def read_pf(pffile):
+    """Read a partition-function file.
+
+    Returns (pf [niso, ntemp], isotopes, temps).
+    """
+    with open(pffile) as f:
+        lines = [
+            line for line in f.readlines()
+            if line.strip() != '' and not line.strip().startswith('#')
+        ]
+    isotopes = None
+    rows = []
+    for line in lines:
+        if line.startswith('@ISOTOPES'):
+            continue
+        if isotopes is None:
+            isotopes = line.split()
+            continue
+        if line.startswith('@DATA'):
+            continue
+        rows.append(line.split())
+    data = np.array(rows, float)
+    temps = data[:, 0]
+    pf = data[:, 1:].T.copy()
+    return pf, np.array(isotopes), temps
+
+
+def write_pf(pffile, pf, isotopes, temp, header=None):
+    """Write a partition-function file."""
+    with open(pffile, 'w') as f:
+        if header is not None:
+            f.write(header)
+        f.write('@ISOTOPES\n            ' +
+                ''.join(f'{iso:>15s}' for iso in isotopes) + '\n\n')
+        f.write('# Temperature (K), partition function for each isotope:\n')
+        f.write('@DATA\n')
+        for i, t in enumerate(temp):
+            row = ''.join(f'{val:15.4f}' for val in pf[:, i])
+            f.write(f'{t:12.1f}{row}\n')
 
 # --------------------------------------------------------------------------
 # Species physical data

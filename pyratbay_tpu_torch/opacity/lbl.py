@@ -18,16 +18,18 @@ published golden files --
   to the coarse output grid.
 
 Host-side numpy copy of pyratbay_tpu/opacity/lbl.py.  The same-bin
-co-adding and the windowed adds are the JAX package's plain loops (its
-fallback when its native runtime is missing); the co-adding groups
-depend on the line list and the fine grid only, so they are formed once
-a model and reused by every layer.  The line data also feed the direct
-engine (opacity/lbl_direct.py::DirectLBL), which computes exact-Voigt
-cross sections on the device through the CUDA kernels.
+co-adding and the windowed adds run in the native runtime
+(runtime.lbl_group, runtime.lbl_scatter), as the JAX package's do; the
+co-adding groups depend on the line list and the fine grid only, so
+they are formed once a model and reused by every layer.  The line data
+also feed the direct engine (opacity/lbl_direct.py::DirectLBL), which
+computes exact-Voigt cross sections on the device through the CUDA
+kernels.
 """
 import numpy as np
 
 from .. import constants as pc
+from .. import runtime
 from .tli import read_tli
 from .voigt_grid import cached_grid
 
@@ -262,20 +264,8 @@ class LineByLine:
         cached under `key` (the skipped species)."""
         cache = self._group_cache
         if key not in cache:
-            wavn = awavn.tolist()
-            iso = aiso.tolist()
-            cand = anchor_cand.tolist()
-            group_id = [0] * len(wavn)
-            gid = 0
-            anchor_wn, anchor_iso = cand[0], iso[0]
-            ownstep = self.ownstep
-            for j in range(1, len(wavn)):
-                if not (iso[j] == anchor_iso
-                        and abs(wavn[j] - anchor_wn) < ownstep):
-                    gid += 1
-                    anchor_wn, anchor_iso = cand[j], iso[j]
-                group_id[j] = gid
-            cache[key] = (np.asarray(group_id, int), gid + 1)
+            cache[key] = runtime.lbl_group(awavn, aiso, anchor_cand,
+                                           self.ownstep)
         return cache[key]
 
     def _sample_layer(self, temp, densities, iso_pf, skip_spec=()):
@@ -390,16 +380,9 @@ class LineByLine:
             maxj = np.minimum(maxj, maxcut)
 
         # Each strong group adds its strided profile window, in group
-        # order (plain loops over Python scalars):
-        profile = vg.profile
-        rows = list(ktmp)
-        sel = np.nonzero(strong & (maxj > minj))[0]
-        start = pindex[sel] + ofactor * minj[sel] - offset[sel]
-        for spec, j0, j1, kg, st in zip(
-                g_spec[sel].tolist(), minj[sel].tolist(),
-                maxj[sel].tolist(), k_group[sel].tolist(), start.tolist()):
-            rows[spec][j0:j1] += kg * profile[
-                st:st + (j1 - j0) * ofactor:ofactor]
+        # order:
+        runtime.lbl_scatter(strong, g_spec, minj, maxj, pindex, offset,
+                            ofactor, k_group, vg.profile, ktmp)
         return ktmp, ofactor, dnwn
 
     def _to_output_grid(self, ktmp, ofactor, dnwn):

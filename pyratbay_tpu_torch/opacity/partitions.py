@@ -1,20 +1,16 @@
-"""Partition functions: TIPS 2021 tables.
+"""Partition functions: TIPS 2021 tables, ExoMol .pf files, Kurucz
+tables and polynomial expressions.
 
-Host-side numpy copy of pyratbay_tpu/opacity/partitions.py (tips,
-get_tips_molname).  ExoMol .pf files, Kurucz tables and polynomial
-expressions are not ported yet (ROADMAP.md A13).
+Host-side numpy copy of pyratbay_tpu/opacity/partitions.py.
+Reference behavior: pyratbay/opacity/partitions/partitions.py.
 """
 import numpy as np
 from scipy.interpolate import CubicSpline
 
 from ..data import tips_table, isotopes_table
+from ..io import io as pio
 
 __all__ = ['tips', 'get_tips_molname', 'exomol_pf', 'kurucz', 'poly_pf']
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f'{what} is not ported to pyratbay_tpu_torch yet (ROADMAP.md A13)')
 
 
 def get_tips_molname(mol_id):
@@ -79,15 +75,48 @@ def tips(molecule, isotopes=None, db_type='as_exomol'):
 
 
 def exomol_pf(pf_file):
-    """ExoMol .pf partition files (not ported)."""
-    raise _not_ported('ExoMol partition functions (exomol_pf)')
+    """Read an ExoMol .pf partition file: (pf, isotope, temp)."""
+    data = np.loadtxt(pf_file)
+    return data[:, 1], None, data[:, 0]
 
 
 def kurucz(pf_file, outfile=None):
-    """Kurucz partition-function tables (not ported)."""
-    raise _not_ported('Kurucz partition functions (kurucz)')
+    """Reformat a Kurucz partition-function table (H2O or TiO).
+
+    Returns (pf [niso, ntemp], isotopes, temp); optionally writes a
+    standard PF file.  Isotope labels use the short (exomol-style)
+    notation consistent with the rest of the framework.
+    """
+    if 'h2o' in pf_file.lower():
+        molecule = 'H2O'
+        isotopes = ['116', '117', '118', '126']
+        skiprows = 6
+    elif 'tio' in pf_file.lower():
+        molecule = 'TiO'
+        isotopes = ['66', '76', '86', '96', '06']
+        skiprows = 1
+    else:
+        raise ValueError('Invalid Kurucz partition-function file')
+    data = np.loadtxt(pf_file, skiprows=skiprows, unpack=True)
+    temp = data[0]
+    pf_data = data[1:]
+    if outfile == 'default':
+        outfile = f'PF_kurucz_{molecule}.dat'
+    if outfile is not None:
+        pio.write_pf(
+            outfile, pf_data, isotopes, temp,
+            header=f'# Kurucz {molecule} partition function\n\n',
+        )
+    return pf_data, isotopes, temp
 
 
 def poly_pf(coeffs, temp=None):
-    """Polynomial partition functions (not ported)."""
-    raise _not_ported('Polynomial partition functions (poly_pf)')
+    """Polynomial log-PF (Irwin 1981, ApJS 45, 621, eq. 2)."""
+    if temp is None:
+        temp = np.arange(1000.0, 7001.0, 50.0)
+    logt = np.log(temp)
+    coeffs = np.atleast_2d(coeffs)
+    log_pf = sum(
+        coeffs[:, i][:, None] * logt[None, :]**i for i in range(6)
+    )
+    return np.exp(log_pf), temp

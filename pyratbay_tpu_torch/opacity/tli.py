@@ -3,9 +3,8 @@
 Host-side numpy copy of pyratbay_tpu/opacity/tli.py: byte-compatible
 with the reference's Lineread 6.x format (pyratbay/opacity/lread.py
 writer, pyratbay/pyrat/line_by_line.py reader), so TLI files exchange
-freely between the packages.  The wavenumber-range extraction is the
-numpy selection (the JAX package's native tli_extract_range is a host
-accelerator of the same selection).
+freely between the packages.  A finite wavenumber range is extracted by
+the native runtime's binary search (runtime.tli_extract_range).
 
 Layout: [endian char][3h version][2d wn range][h n_databases]
 then per database: name, molecule (length-prefixed strings),
@@ -20,6 +19,7 @@ import sys
 import numpy as np
 
 from .. import constants as pc
+from .. import runtime
 from .linelists import get_linelist_reader
 
 __all__ = ['make_tli', 'read_tli', 'TliDatabase']
@@ -259,10 +259,10 @@ def read_tli(tli_file, wn_low=-np.inf, wn_high=np.inf):
 
     # Per-isotope wavenumber-range extraction (arrays are sorted by
     # isotope then wavenumber):
-    keep = np.zeros(n_transitions, bool)
-    start = 0
-    for count in niso_tran:
-        seg = slice(start, start + count)
-        keep[seg] = (wn[seg] >= wn_low) & (wn[seg] <= wn_high)
-        start += count
-    return databases, wn[keep], gf[keep], elow[keep], iso_id[keep]
+    if np.isfinite(wn_low) or np.isfinite(wn_high):
+        wn, iso_id, elow, gf = runtime.tli_extract_range(
+            wn, iso_id, elow, gf, niso_tran, wn_low, wn_high)
+    else:
+        wn, iso_id, elow, gf = runtime.tli_extract_range_plain(
+            wn, iso_id, elow, gf, niso_tran, wn_low, wn_high)
+    return databases, wn, gf, elow, iso_id

@@ -91,3 +91,26 @@ def test_chemistry_and_radeq_modules_import_with_jax_blocked(module):
     )
     assert proc.returncode == 0, proc.stderr
     assert f'LOADED [] {module}' in proc.stdout, proc.stdout
+
+
+@pytest.mark.parametrize('module', [
+    'pyratbay_tpu_torch.runtime',
+    'pyratbay_tpu_torch.opacity.linelists',
+    'pyratbay_tpu_torch.opacity.partitions',
+    'pyratbay_tpu_torch.opacity.tli',
+    'pyratbay_tpu_torch.opacity.lbl',
+    'pyratbay_tpu_torch.tools',
+    'pyratbay_tpu_torch.__main__',
+])
+def test_line_list_modules_import_with_jax_blocked(module):
+    """The modules of the line-list slice (readers, partition sources,
+    the native host runtime, the CLI's table tools) import in a process
+    where importing jax, jaxlib or pyratbay_tpu raises, and load none of
+    them."""
+    proc = subprocess.run(
+        [sys.executable, '-c', _BLOCKED, module],
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert f'LOADED [] {module}' in proc.stdout, proc.stdout

@@ -457,21 +457,38 @@ def test_opacity_config_reads_no_line_sample(workflow, tmp_path):
 
 
 # ----------------------------------------------------------------------
-# What is not ported yet raises, naming its ROADMAP item; the batched
-# forward of a TLI model (A12) runs
+# What is not ported raises, naming its ROADMAP item; the line-list
+# readers and partition sources (A13) and the batched forward of a TLI
+# model (A12) run
 
-def test_unported_parts_raise(workflow, tmp_path, monkeypatch):
-    """The line-list readers and partition sources of A13 raise naming
-    it.  The batched forward of a TLI model runs the direct engine's
+def test_unported_parts_raise():
+    """Every line-list reader and partition source of the JAX package is
+    ported and raises nothing (A13, tested against the JAX package in
+    tests/test_torch_linelists.py); the one refusal left on these paths,
+    the Pallas kernels' layer-major operands, raises naming B1."""
+    from pyratbay_tpu.opacity import linelists as jlinelists
+    from pyratbay_tpu_torch.spectrum import emission_kernel as ek
+    for dbtype in sorted(jlinelists._READERS):
+        assert get_linelist_reader(dbtype).__name__ == \
+            jlinelists.get_linelist_reader(dbtype).__name__
+    assert partitions.poly_pf([1.0, 0, 0, 0, 0, 0])[0].shape == (1, 121)
+    layers = torch.ones((1, 3), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match='B1'):
+        ek.emission_flux_ensemble(
+            [], layers, layers, np.ones(2), np.ones(1), np.ones(1),
+            torch.zeros(1, dtype=torch.int64),
+            torch.full((1,), 3, dtype=torch.int64),
+            ec_parts_lbw=[torch.ones((3, 1, 2), dtype=torch.float64)])
+
+
+def test_batched_forward_of_tli_model_runs_direct_engine(
+        workflow, tmp_path, monkeypatch):
+    """The batched forward of a TLI model runs the direct engine's
     passes (K4 and K5's wrappers, their plain versions on the CPU) and
     gives the JAX package's direct forward (build_forward, lbl_engine =
     'direct') at the config's state, rtol 1e-10."""
     from pyratbay_tpu.retrieval.forward import build_forward as jforward
     from pyratbay_tpu_torch.opacity import lbl_direct
-    with pytest.raises(NotImplementedError, match='A13'):
-        get_linelist_reader('exomol')
-    with pytest.raises(NotImplementedError, match='A13'):
-        partitions.poly_pf([1.0])
     cfg = str(tmp_path / 'spectrum.cfg')
     with open(workflow['opacity_cfg']) as f:
         text = f.read().replace(

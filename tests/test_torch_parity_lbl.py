@@ -5,10 +5,12 @@ float64 on the CPU.
   VoigtGrid) and the width bounds (min_widths, max_widths) equal the
   JAX package's.
 * LineByLine.cross_section (per species, one layer or all) and
-  extinction, with and without a skipped species, at rtol 1e-10.
+  extinction, with and without a skipped species, exactly (both
+  packages group and scatter the lines in their native runtimes, built
+  from one source with one compiler and flags).
 * Model.compute_opacity()'s default engine and the table that
   `runmode = opacity` writes through the CLI's driver, against the JAX
-  package's, at rtol 1e-10.
+  package's, exactly.
 * Model.run from a TLI file (runmode = spectrum, transit and eclipse)
   against the JAX package's eager Model.run at rtol 1e-8, and the
   per-model diagnostic Model.get_ec.
@@ -39,8 +41,11 @@ from pyratbay_tpu_torch.retrieval.batched import (  # noqa: E402
     build_forward_batched,
 )
 
+from test_torch_runtime import jax_native_runtime  # noqa: E402
+
 RTOL = 1e-10
 RUN_RTOL = 1e-8
+PARITY_RTOL = 0     # the parity engine's own output: native = native
 NLAYERS = 21
 
 SPECTRUM_KEYS = """rt_path = {rt_path}
@@ -61,6 +66,7 @@ specfile = {specfile}
 def workflow(tmp_path_factory):
     """make_lbl_flagship at test size, its TLI file, and runmode =
     spectrum configs (transit, eclipse) that read it."""
+    jax_native_runtime()
     workdir = str(tmp_path_factory.mktemp('parity'))
     _, tli_cfg, opacity_cfg = benchmark.make_lbl_flagship(
         workdir, nlines=3000, seed=0, nlayers=NLAYERS, wl_low=1.1,
@@ -144,11 +150,11 @@ def test_cross_section_matches_jax(models, layer):
     got = lbl.cross_section(temps, dens, layer=layer, per_mol=True)
     want = jlbl.cross_section(temps, dens, layer=layer, per_mol=True)
     assert got.shape == (1, model.nlayers, model.nwave)
-    np.testing.assert_allclose(got, want, rtol=RTOL, atol=0)
+    np.testing.assert_allclose(got, want, rtol=PARITY_RTOL, atol=0)
     assert np.count_nonzero(got) > 0
     np.testing.assert_allclose(lbl.cross_section(temps, dens),
                                jlbl.cross_section(temps, dens),
-                               rtol=RTOL, atol=0)
+                               rtol=PARITY_RTOL, atol=0)
 
 
 @pytest.mark.parametrize('skip', [(), ('H2O',)])
@@ -157,7 +163,7 @@ def test_extinction_matches_jax(models, skip):
     temps, dens = layer_state(model, temp=2100.0)
     got = lbl.extinction(temps, dens, skip=skip)
     want = jlbl.extinction(temps, dens, skip=skip)
-    np.testing.assert_allclose(got, want, rtol=RTOL, atol=0)
+    np.testing.assert_allclose(got, want, rtol=PARITY_RTOL, atol=0)
     assert (np.count_nonzero(got) == 0) == bool(skip)
 
 
@@ -166,7 +172,7 @@ def test_compute_opacity_default_engine_matches_jax(workflow, models):
     table = model.compute_opacity()
     jtable = jmodel.compute_opacity()
     assert table.shape == (10, NLAYERS, model.nwave)
-    np.testing.assert_allclose(table, jtable, rtol=RTOL, atol=0)
+    np.testing.assert_allclose(table, jtable, rtol=PARITY_RTOL, atol=0)
 
 
 def test_cli_opacity_matches_jax(workflow, tmp_path):
@@ -190,7 +196,7 @@ def test_cli_opacity_matches_jax(workflow, tmp_path):
             np.testing.assert_array_equal(got[key], want[key])
         assert got['opacity'].shape == (4, NLAYERS, len(got['wavenumber']))
         np.testing.assert_allclose(got['opacity'], want['opacity'],
-                                   rtol=RTOL, atol=0)
+                                   rtol=PARITY_RTOL, atol=0)
 
 
 # ----------------------------------------------------------------------
