@@ -48,7 +48,15 @@ operand), the tall function also on the line sample made a dense part
 (3 dense parts, the operands of its earlier version); and timings:
 Model.run, the kernels at B = 1, the tall function (on both operand
 sets, with its profiler device time) and the emission kernel at B = 512
-on 81 layers.  Then the retrieval_post phase: the transit flagship's
+on 81 layers.  Then the model_io phase (run_model_io): the transit
+retrieval's Model and the eclipse spectrum's saved with io.save_model,
+reopened with io.load_model on the default device and run (K1 at B = 1,
+K3); the spectra against the originals', the result arrays exactly, K1
+and K3 on the reopened models' operands against their plain versions,
+the printed summary against a CPU float64 Model's, the ops helpers in
+float32 on the card against the CPU in float64, and the seconds of the
+save, the load and the reopened run (by the host clock and by
+Model.timestamps).  Then the retrieval_post phase: the transit flagship's
 data in 12 bands whose passbands are filter files the script writes,
 run through the driver with a checkpoint after every chunk for 10
 generations of 512 chains and resumed to 20 (the checkpoint's
@@ -578,10 +586,12 @@ def check_kernel(name, kernel, plain, cases, tol):
     return max_abs
 
 
-def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS):
+def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
+             keep=None):
     """One path end to end on the flagship with `nlayers` layers: kernel
     checks, the main path through pyratbay_tpu_torch's run(), GPU against
-    CPU, and timings.  Returns the kernel entries."""
+    CPU, and timings.  Returns the kernel entries; the dict `keep`, when
+    given, receives the retrieval's Model as 'model'."""
     import torch
     from pyratbay_tpu_torch import model as model_mod
     from pyratbay_tpu_torch.benchmark import make_flagship
@@ -651,6 +661,8 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS):
     rmodel = run(cfg_file, seed=0)       # the default device: the card
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
+    if keep is not None:
+        keep['model'] = rmodel
     tall_launches = tk.transit_rt_cuda.tall_launches
     launches = tall_launches if tall else kernel.launches - tall_launches
     single_launches = tk.transit_rt_cuda.single_chain_launches
@@ -890,7 +902,8 @@ def run_spectrum(workdir, dev, args, card):
     CLI's driver, the kernels against their plain versions beyond their
     operand limits (40 CIA rows, 6 rank-1 terms, 5 dense parts, 81
     layers), GPU against CPU float64, timings.  Returns the kernels'
-    launches and what the tall function's entry takes from the phase."""
+    launches, what the tall function's entry takes from the phase and
+    the phase's Models by run name."""
     import torch
     from pyratbay_tpu_torch import model as model_mod
     from pyratbay_tpu_torch import runtime
@@ -1156,7 +1169,205 @@ def run_spectrum(workdir, dev, args, card):
             fail(f'spectrum: {key} launched no time')
     if total['transit_rt_tall'] < 1:
         fail('spectrum: the tall transit function launched no time')
-    return total, tall
+    return total, tall, models
+
+
+# The model_io phase: the ops helpers on the card in float32 against the
+# CPU in float64, relative above this share of the largest value:
+OPS_TOL = 1e-4
+OPS_FLOOR = 1e-6
+RUN_STAMPS = ('atmosphere', 'extinction', 'spectrum')
+
+
+def ops_on_the_card(dev):
+    """The ops helpers (integration, interpolation, widths, profiles) on
+    float32 tensors on the card against the CPU in float64 on the same
+    float32 inputs: name -> (max relative error above OPS_FLOOR of the
+    maximum, max absolute error)."""
+    import torch
+    from pyratbay_tpu_torch.ops import integrate, interp, special
+    gen = torch.Generator().manual_seed(13)
+    on_card = lambda a: a.to(torch.float32).to(dev)
+    x = on_card(torch.linspace(-30.0, 30.0, 4001, dtype=torch.float64))
+    data = on_card(torch.rand(257, 64, generator=gen, dtype=torch.float64))
+    steps = on_card(torch.rand(256, generator=gen, dtype=torch.float64)
+                    + 0.1)
+    grid = torch.cat([steps[:1] * 0, torch.cumsum(steps, 0)])   # 257
+    temps = on_card(torch.linspace(300.0, 3000.0, 10, dtype=torch.float64))
+    # A positive table within a decade, as a cross-section table's rows
+    # near one wavenumber (a float32 lerp's error is a rounding of its
+    # larger end, so rows spanning decades fail a relative bound):
+    table = on_card(0.5 + torch.rand(10, 3209, generator=gen,
+                                     dtype=torch.float64))
+    slopes = torch.diff(table, dim=0) / torch.diff(temps)[:, None]
+    # A profile inside the table's temperatures, as its callers clamp
+    # them (beyond them the lines extrapolate through zero):
+    tprof = on_card(torch.linspace(300.0, 3000.0, 51, dtype=torch.float64))
+    press = on_card(torch.logspace(-6, 2, 51, dtype=torch.float64))
+    masses = [2.016, 4.003, 18.015]
+    radii = [1.445e-8, 1.09e-8, 1.6e-8]
+    vmr = [0.85, 0.149, 1e-3]
+    calls = {
+        'trapz_intervals': lambda a: integrate.trapz_intervals(
+            a['data'], a['steps'], 0),
+        'simpson_nonuniform': lambda a: integrate.simpson_nonuniform(
+            a['data'], x=a['grid']),
+        'lin_interp_trow': lambda a: interp.lin_interp_trow(
+            a['table'], a['temps'], a['slopes'], a['tprof'], 0, 3000),
+        'doppler_hwhm': lambda a: special.doppler_hwhm(
+            a['tprof'], 18.015, 8000.0),
+        'lorentz_hwhm': lambda a: special.lorentz_hwhm(
+            a['tprof'][:, None], a['press'][:, None], masses, radii, vmr,
+            [0, 2]),
+        'Lorentz': lambda a: special.Lorentz(0.3, 0.7, 2.0)(a['x']),
+        'Gauss': lambda a: special.Gauss(-0.2, 1.3, 0.5)(a['x']),
+        'Voigt_exact': lambda a: special.Voigt(0.1, 0.05, 1.0)(a['x']),
+        'Voigt_rational': lambda a: special.Voigt(0.1, 2.0, 1.0)(a['x']),
+    }
+    gpu = dict(x=x, data=data, steps=steps, grid=grid, temps=temps,
+               table=table, slopes=slopes, tprof=tprof, press=press)
+    cpu = {k: v.double().cpu() for k, v in gpu.items()}
+    errors = {}
+    for name, call in calls.items():
+        got = call(gpu)
+        if got.device.type != 'cuda' or got.dtype != torch.float32:
+            fail(f'model_io: {name} gave {got.dtype} on {got.device}')
+        errors[name] = masked_rel(got.reshape(-1), call(cpu).reshape(-1),
+                                  OPS_FLOOR)
+    return errors
+
+
+def run_model_io(workdir, dev, args, card, transit_model, eclipse_model):
+    """save_model / load_model on the card: the transit retrieval's Model
+    (posterior, bestp, spec_best) and the eclipse flagship's spectrum
+    Model are saved, reopened on the default device and run (K1 at B = 1,
+    K3); the spectra against the originals' within the kernels' bounds,
+    the result arrays exactly, K1 and K3 on the reopened models' operands
+    against their plain versions, the summaries against a CPU float64
+    Model's, the ops helpers against the CPU, and timings (save, load,
+    the reopened run by the host clock and by Model.timestamps).  Returns
+    the main path's launches and the kernels' largest differences."""
+    import torch
+    from pyratbay_tpu_torch import io as pbio
+    from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch.model import Model
+    from pyratbay_tpu_torch.opacity import HydrogenIon
+    from pyratbay_tpu_torch.spectrum import emission_kernel as ek
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+
+    counters = (tk.transit_rt_cuda, ek.emission_rt_cuda)
+    total = {'transit_rt_cuda': 0, 'transit_rt_single_chain': 0,
+             'emission_rt_cuda': 0}
+    max_abs = {}
+    for label, original in (('transit', transit_model),
+                            ('eclipse', eclipse_model)):
+        spec = KERNELS[label]
+        want = torch.as_tensor(original.run()['spectrum'])
+        path = os.path.join(workdir, f'{label}_model.pickle')
+        # The main path: save, reopen on the default device, run.
+        for counter in counters:
+            counter.launches = 0
+        tk.transit_rt_cuda.single_chain_launches = 0
+        tk.transit_rt_cuda.tall_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pbio.save_model(original, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reopened = pbio.load_model(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        restored = {key: getattr(reopened, key)
+                    for key in pbio.io._MODEL_RESULT_ATTRS
+                    if getattr(original, key, None) is not None}
+        t0 = time.perf_counter()
+        got = reopened.run()['spectrum']
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {
+            'transit_rt_cuda': tk.transit_rt_cuda.launches,
+            'transit_rt_single_chain':
+                tk.transit_rt_cuda.single_chain_launches,
+            'emission_rt_cuda': ek.emission_rt_cuda.launches}
+        for key, value in launches.items():
+            total[key] += value
+        rel, absolute = rel_err(got[None], want[None].to(got.device))
+
+        # K1 (B = 1) or K3 on the reopened model's operands:
+        kind = 'transit' if label == 'transit' else 'eclipse'
+        wrapper = 'transit_spectrum_ensemble' if kind == 'transit' \
+            else 'emission_flux_ensemble'
+        kernel, plain = (tk.transit_rt_cuda, tk.transit_rt_plain) \
+            if kind == 'transit' else (ek.emission_rt_cuda,
+                                       ek.emission_rt_plain)
+        call, = record_calls(((model_mod, wrapper),),
+                             lambda: reopened.run())
+        case = wrapper_case(kind, reopened, call)
+        max_abs[spec['name']] = check_kernel(
+            spec['name'], kernel, plain, {'model_io_B1': case},
+            spec['tol'])['model_io_B1']
+
+        # The summaries on the card against a CPU float64 Model of the
+        # same configuration, each run once:
+        cpu_model = Model(reopened.cfg, device='cpu')
+        cpu_model.run()
+        head = lambda m: str(m).split('Last-run timestamps')[0]
+        summaries = {f'{mtype} {m.name}': len(str(m))
+                     for mtype, m, _ in reopened.opacity_models}
+        if label == 'transit':
+            summaries.update({
+                'observation': len(str(original.obs)),
+                'retrieval_params': len(str(original.ret)),
+                'passband': len(str(original.obs.filters[0])),
+                'h_ion': len(str(HydrogenIon(reopened.wn).to(
+                    dev, torch.float32)))})
+
+        equal = {key: bool(np.array_equal(np.asarray(value),
+                                          np.asarray(getattr(original, key))))
+                 for key, value in restored.items()}
+        stamps_s = sum(reopened.timestamps[key] for key in RUN_STAMPS)
+        checks = {
+            'on_the_card': reopened.device.type == 'cuda',
+            'launches': launches == (
+                {'transit_rt_cuda': 1, 'transit_rt_single_chain': 1,
+                 'emission_rt_cuda': 0} if kind == 'transit' else
+                {'transit_rt_cuda': 0, 'transit_rt_single_chain': 0,
+                 'emission_rt_cuda': 1}),
+            'spectrum': rel < spec['tol'],
+            'results_restored': all(equal.values()) and (
+                label != 'transit' or {'posterior', 'bestp', 'spec_best'}
+                <= set(equal)),
+            'summary_as_on_the_cpu': head(reopened) == head(cpu_model),
+            'timestamps': set(RUN_STAMPS) <= set(reopened.timestamps),
+        }
+        emit('model_io', model=label, card=card, file_bytes=os.path.getsize(
+                 path),
+             save_seconds=save_s, load_seconds=load_s,
+             load_note='load_model: the set-up from the pickled '
+                       'configuration onto the card, ended by a '
+                       'synchronize',
+             run_seconds=run_s, timestamps_run_seconds=stamps_s,
+             timestamps={k: reopened.timestamps[k] for k in RUN_STAMPS},
+             run_note='host clock around the reopened Model.run ending in '
+                      'a synchronize, beside the sum of its three stamps',
+             launches=launches, spectrum_max_rel_err=rel,
+             spectrum_max_abs_err=absolute, tol=spec['tol'],
+             restored=equal, summary_chars=len(head(reopened)),
+             other_summaries_chars=summaries, checks=checks)
+        if not all(checks.values()):
+            if not checks['summary_as_on_the_cpu']:
+                emit('model_io_summaries', card_text=head(reopened),
+                     cpu_text=head(cpu_model))
+            fail(f'model_io {label}: {checks}')
+
+    errors = ops_on_the_card(dev)
+    emit('model_io_ops', card=card, tol=OPS_TOL, floor=OPS_FLOOR,
+         errors={name: {'max_rel_err': rel, 'max_abs_err': absolute}
+                 for name, (rel, absolute) in errors.items()})
+    bad = [name for name, (rel, _) in errors.items() if not rel < OPS_TOL]
+    if bad:
+        fail(f'model_io: ops helpers off the CPU float64 values: {bad}')
+    return total, max_abs
 
 
 def star_of(model):
@@ -3906,6 +4117,7 @@ def main():
     workdir = tempfile.mkdtemp(prefix='pbt_chip_smoke_')
     try:
         kernels = []
+        kept = {}       # the transit retrieval's Model, for model_io
         for label, rt_path, nlayers in (
                 ('transit', 'transit', NLAYERS),
                 ('eclipse', 'eclipse', NLAYERS),
@@ -3913,10 +4125,12 @@ def main():
             path_dir = os.path.join(workdir, label)
             os.makedirs(path_dir)
             kernels += run_path(label, rt_path, path_dir, dev, args, card,
-                                nlayers)
+                                nlayers,
+                                keep=kept if label == 'transit' else None)
         path_dir = os.path.join(workdir, 'spectrum')
         os.makedirs(path_dir)
-        spectrum_launches, tall = run_spectrum(path_dir, dev, args, card)
+        spectrum_launches, tall, spectrum_models = run_spectrum(
+            path_dir, dev, args, card)
         # Each kernel's launches on each path that runs it (the tall
         # function's launches are single-chain ones of K1 too):
         spectrum_launches['transit_rt'] -= spectrum_launches['transit_rt_tall']
@@ -3931,6 +4145,25 @@ def main():
         kernels[3]['max_abs_err'] = max(kernels[3]['max_abs_err'],
                                         tall['max_abs_err'])
         kernels[3]['spectrum_operands'] = tall['spectrum_operands']
+        # Model files: the transit retrieval's Model and the eclipse
+        # spectrum's saved, reopened on the card and run (K1 at B = 1,
+        # K3):
+        path_dir = os.path.join(workdir, 'model_io')
+        os.makedirs(path_dir)
+        t0 = time.perf_counter()
+        io_launches, io_abs = run_model_io(
+            path_dir, dev, args, card, kept.pop('model'),
+            spectrum_models.pop('eclipse'))
+        del spectrum_models
+        emit('phase_seconds', name='model_io',
+             seconds=time.perf_counter() - t0)
+        for entry, counter, name in (
+                (kernels[0], 'transit_rt_cuda', 'transit_rt'),
+                (kernels[1], 'transit_rt_single_chain', 'transit_rt'),
+                (kernels[2], 'emission_rt_cuda', 'emission_rt')):
+            entry['launches_by_path']['model_io'] = io_launches[counter]
+            entry['launches'] += io_launches[counter]
+            entry['max_abs_err'] = max(entry['max_abs_err'], io_abs[name])
         # The retrieval as users run it (filter files, the bundled
         # passbands, checkpoints and resume, the post-processing):
         post_launches, envelope_abs = run_retrieval_post(

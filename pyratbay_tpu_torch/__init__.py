@@ -1,12 +1,14 @@
 """pyratbay_tpu_torch: the PyTorch/CUDA port of pyratbay_tpu.
 
-Transit-retrieval slice: config file -> setup -> batched log-posterior
--> snooker DEMC -> best-fit spectrum, with the ensemble transit RT as a
-hand-written CUDA kernel for Hopper (spectrum/transit_kernel.py,
-csrc/transit_rt.cu).
+Line lists -> opacities -> 1D atmospheres -> transit, emission and
+eclipse spectra -> retrievals, with the radiative transfer and the
+line-by-line opacity as hand-written CUDA kernels for Hopper
+(spectrum/transit_kernel.py, spectrum/emission_kernel.py,
+opacity/lbl_kernel.py; csrc/).  The public names are the JAX package's.
 
-Importing the package needs neither a GPU nor nvcc: the kernel builds
-at its first launch on a CUDA tensor.  Host-side numpy modules are
+Importing the package needs neither a GPU nor nvcc nor matplotlib: the
+kernels build at their first launch on a CUDA tensor, and the plots
+import matplotlib when they draw.  Host-side numpy modules are
 copies of the JAX package's, never imports of it (pyratbay_tpu loads
 JAX when imported).
 
@@ -15,4 +17,18 @@ package), float32 on CUDA.
 """
 from .version import __version__
 
-__all__ = ['__version__']
+from . import constants
+from . import ops
+from . import atmosphere
+from . import opacity
+from . import spectrum
+from . import io
+from . import tools
+from .driver import run
+from .model import Model
+
+__all__ = [
+    '__version__',
+    'constants', 'ops', 'atmosphere', 'opacity', 'spectrum', 'io',
+    'tools', 'run', 'Model',
+]

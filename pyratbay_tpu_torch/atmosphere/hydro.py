@@ -12,7 +12,7 @@ from ..ops.interp import interp
 
 __all__ = [
     'hydro_g', 'hydro_m', 'hill_radius', 'mean_weight',
-    'ideal_gas_density',
+    'ideal_gas_density', 'equilibrium_temp',
 ]
 
 
@@ -84,3 +84,18 @@ def ideal_gas_density(vmr, press, temp):
     """Number density (molec cm-3): vmr [..., l, s], press [l] bar,
     temp [..., l] -> [..., l, s]."""
     return vmr * (press / temp)[..., None] * (pc.bar / pc.k)
+
+
+def equilibrium_temp(
+        tstar, rstar, smaxis, albedo=0.0, f=1.0,
+        tstar_unc=0.0, rstar_unc=0.0, smaxis_unc=0.0,
+    ):
+    """Planet equilibrium temperature and its uncertainty (host numpy,
+    pyratbay_tpu/atmosphere/hydro.py)."""
+    teq = ((1.0 - albedo) / f) ** 0.25 * (0.5 * rstar / smaxis) ** 0.5 * tstar
+    teq_unc = teq * np.sqrt(
+        (tstar_unc / tstar) ** 2
+        + (0.5 * smaxis_unc / smaxis) ** 2
+        + (0.5 * rstar_unc / rstar) ** 2
+    )
+    return teq, teq_unc

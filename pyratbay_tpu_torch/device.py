@@ -3,7 +3,7 @@ import functools
 
 import torch
 
-__all__ = ['resolve', 'index_tensor']
+__all__ = ['resolve', 'index_tensor', 'as_tensors']
 
 
 def resolve(device=None):
@@ -36,3 +36,14 @@ def index_tensor(indices, device):
 @functools.lru_cache(maxsize=None)
 def _index_tensor(indices, device):
     return torch.as_tensor(indices, dtype=torch.int64, device=device)
+
+
+def as_tensors(*values):
+    """The values as tensors on the device and in the floating dtype of
+    the first tensor among them (float64 on the CPU when none is one):
+    numpy arrays and numbers passed beside a tensor follow it."""
+    like = next((v for v in values if torch.is_tensor(v)), None)
+    device = 'cpu' if like is None else like.device
+    dtype = like.dtype if like is not None and like.is_floating_point() \
+        else torch.float64
+    return [torch.as_tensor(v, dtype=dtype, device=device) for v in values]

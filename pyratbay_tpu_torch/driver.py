@@ -115,6 +115,9 @@ def run(cfile, device=None, root=None, seed=0):
         from .retrieval.driver import run_retrieval
         result = Model(cfg, device=device, log=log)
         run_retrieval(result, seed=seed)
-    log.summary()
+    # The set-up and last-run timings, where the JAX package's driver
+    # hands them to the summary:
+    log.summary(None if cfg.runmode in ('tli', 'atmosphere')
+                else result.timestamps)
     log.close()
     return result

@@ -1,12 +1,14 @@
 """File formats: atmospheric profiles, spectra, opacity tables, CIA
-tables, partition functions, observations, and species data (the subset
-the port's run modes and CLI tools read and write).
+tables, partition functions, observations, species data and model
+files (save_model / load_model).
 
 Formats are byte-compatible with the reference framework
 (pyratbay/io/io.py) so users can exchange files between the two.
 All IO is host-side numpy; the outputs feed static setup only.
 """
+import importlib
 import os
+import pickle
 
 import numpy as np
 
@@ -20,6 +22,7 @@ __all__ = [
     'read_pf', 'write_pf',
     'read_molecs', 'species_properties',
     'read_observations', 'write_observations',
+    'save_model', 'load_model',
 ]
 
 
@@ -352,6 +355,71 @@ def write_pf(pffile, pf, isotopes, temp, header=None):
         for i, t in enumerate(temp):
             row = ''.join(f'{val:15.4f}' for val in pf[:, i])
             f.write(f'{t:12.1f}{row}\n')
+
+
+# --------------------------------------------------------------------------
+# Model persistence
+
+_MODEL_RESULT_ATTRS = (
+    'spectrum', 'posterior', 'bestp', 'best_log_post',
+    'acceptance_rate', 'logz', 'logz_err', 'spec_best',
+    'bandflux_best', 'grfactor', 'radeq_temps',
+)
+
+
+def save_model(model, pickle_file):
+    """Pickle a Model: its parsed configuration, the configuration's
+    root and the result arrays of its last run or retrieval, as host
+    numpy.  The tables and the device state are rebuilt on load
+    (pyratbay_tpu/io/io.py save_model)."""
+    results = {}
+    for key in _MODEL_RESULT_ATTRS:
+        value = getattr(model, key, None)
+        if value is None:
+            continue
+        if hasattr(value, 'cpu'):         # a tensor
+            value = value.cpu().numpy()
+        results[key] = np.asarray(value)
+    state = {
+        'cfg': model.cfg,
+        'root': getattr(model.cfg, '_root', None),
+        'results': results,
+    }
+    with open(pickle_file, 'wb') as f:
+        pickle.dump(state, f, pickle.HIGHEST_PROTOCOL)
+
+
+class _ModelUnpickler(pickle.Unpickler):
+    """Reads a model file of either package: a class of pyratbay_tpu
+    (the JAX package's files name its Config) is taken from the module
+    of the same path in pyratbay_tpu_torch, so pyratbay_tpu is never
+    imported."""
+
+    def find_class(self, module, name):
+        if module == 'pyratbay_tpu' or module.startswith('pyratbay_tpu.'):
+            port = 'pyratbay_tpu_torch' + module[len('pyratbay_tpu'):]
+            try:
+                return getattr(importlib.import_module(port), name)
+            except (ImportError, AttributeError):
+                raise pickle.UnpicklingError(
+                    f'{module}.{name} of the model file has no counterpart '
+                    f'in pyratbay_tpu_torch ({port}.{name})') from None
+        return super().find_class(module, name)
+
+
+def load_model(pickle_file, device=None):
+    """Rebuild a Model from a save_model file of this package or of
+    pyratbay_tpu on `device` (the card by default): the set-up runs
+    again from the pickled configuration (the configuration file need
+    not exist), then the result arrays are restored as numpy."""
+    from ..model import Model
+    with open(pickle_file, 'rb') as f:
+        state = _ModelUnpickler(f).load()
+    model = Model(state['cfg'], device=device, root=state.get('root'))
+    for key, value in state.get('results', {}).items():
+        setattr(model, key, value)
+    return model
+
 
 # --------------------------------------------------------------------------
 # Species physical data

@@ -54,6 +54,7 @@ from .spectrum import rt
 from .spectrum.emission_kernel import emission_flux_ensemble
 from .spectrum.starspec import bbflux, read_kurucz
 from .spectrum.transit_kernel import transit_spectrum_ensemble
+from .tools import Formatted_Write, Timer
 
 __all__ = ['Model']
 
@@ -71,12 +72,43 @@ class Model:
             from .logger import Log
             log = Log(verb=cfg.verb if cfg.verb is not None else 1)
         self.log = log
+
+        timer = Timer()
+        self.timestamps = {}
         self._setup_spectrum()
+        self.timestamps['setup spectrum'] = timer.clock()
         self._setup_atmosphere()
+        self.timestamps['setup atmosphere'] = timer.clock()
         self._setup_star()
         self._setup_opacity()
         self._setup_quadrature()
+        # The opacity set-up ends with its tables on the device:
         self.to(device)
+        self.timestamps['setup opacity'] = timer.clock()
+        self._log_setup_summary()
+
+    def _log_setup_summary(self):
+        log = self.log
+        log.head(f'Run mode: {self.cfg.runmode} ({self.rt_path})')
+        if self.wn is not None:
+            log.msg(
+                f'Wavenumber grid: {float(self.wn[0]):.3f} -- '
+                f'{float(self.wn[-1]):.3f} cm-1 ({self.nwave} samples)'
+            )
+        log.msg(
+            f'Pressure grid: {float(self.press[0]):.2e} -- '
+            f'{float(self.press[-1]):.2e} bar ({self.nlayers} layers)'
+        )
+        if self.species is not None:
+            log.msg(f'Species: {" ".join(self.species)}')
+        for mtype, opac_model, _ in self.opacity_models:
+            bounds = ''
+            if mtype in self.tmin:
+                bounds = (
+                    f'  T in [{self.tmin[mtype]:.1f}, '
+                    f'{self.tmax[mtype]:.1f}] K'
+                )
+            log.msg(f'Opacity: {opac_model.name} ({mtype}){bounds}')
 
     # ------------------------------------------------------------------
     # Setup (host-side numpy, as pyratbay_tpu/model.py)
@@ -897,6 +929,7 @@ class Model:
         'out_of_bounds'.
         """
         from .retrieval.batched import rt_diagnostics, spectra, two_stream_rt
+        timer = Timer()
         temp = self.eval_temp(tpars) if temp is None else self._tensor(temp)
         oob = self.check_temp_bounds(temp)
         if oob or bool(torch.any(temp <= 0)):
@@ -914,8 +947,14 @@ class Model:
         rtop = self._rtop(radius)
         if fpatchy is None:
             fpatchy = self.fpatchy
+        # The stamps end where the JAX package's do: the atmosphere, the
+        # extinction (here the operands of the RT launch), the spectrum
+        # with its diagnostics.  On the card the stream is drained first,
+        # or the host clock would time the launches only.
+        self.timestamps['atmosphere'] = self._clock(timer)
 
         ops, ls_tab = self._operands(temp, radius, dens, pars_list, skip)
+        self.timestamps['extinction'] = self._clock(timer)
         if self.two_stream:
             # Two-stream fluxes of the summed extinction (no kernel):
             fluxes = two_stream_rt(self, ops, ls_tab, temp[None],
@@ -934,6 +973,7 @@ class Model:
             diag = rt_diagnostics(self, ops, ls_tab, temp[None],
                                   radius[None], rtop[None])
             result.update({key: val[0] for key, val in diag.items()})
+        self.timestamps['spectrum'] = self._clock(timer)
 
         # Eclipse: Fp/Fs scaled by (Rp/Rs)^2 (pyratbay_tpu/model.py:
         # 1142-1156):
@@ -961,8 +1001,22 @@ class Model:
         self.temp = temp.cpu().numpy()
         self.radius = None if radius is None else radius.cpu().numpy()
         self.vmr = vmr.cpu().numpy()
-        self.log.msg(f'Forward model done on {self.device}')
+        self.log.msg(
+            'Forward model done: '
+            + ', '.join(
+                f'{key} {val:.3f}s' for key, val in
+                self.timestamps.items()
+                if key in ('atmosphere', 'extinction', 'spectrum')
+            )
+        )
         return result
+
+    def _clock(self, timer):
+        """Seconds since the timer's last reading, once the device's
+        queued work has run."""
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        return timer.clock()
 
     def get_ec(self, layer, temp=None, vmr=None):
         """Per-model extinction contributions (cm-1) at one layer, the
@@ -1123,6 +1177,129 @@ class Model:
             cia_w=cia_w, cia_tab=cia_tab, r1_cols=r1_cols, r1_rows=r1_rows,
             ls_w=ls_w, ls_tab=ls_tab, maxdepth=self.maxdepth,
         )
+
+    def plot_spectrum(self, spec='model', filename=None, obs=None, **kw):
+        """Plot the latest (spec='model') or best-fit (spec='best')
+        spectrum, with the observation's bands and data when it has
+        them; returns the matplotlib Axes (pyratbay_tpu's
+        Model.plot_spectrum)."""
+        import matplotlib
+        matplotlib.use('Agg')
+        from . import plots
+        if spec == 'best':
+            spectrum = getattr(self, 'spec_best', None)
+            if spectrum is None:
+                raise ValueError(
+                    "plot_spectrum(spec='best') requires a retrieval run"
+                )
+        else:
+            spectrum = getattr(self, 'spectrum', None)
+        if spectrum is None:
+            raise ValueError('Cannot plot spectrum before run()')
+        obs = obs if obs is not None else getattr(self, 'obs', None)
+        rt_key = (
+            'transit' if self.rt_path in pc.TRANSMISSION_RT else
+            'eclipse' if self.rt_path in pc.ECLIPSE_RT else 'emission'
+        )
+        wl = 1.0 / (np.asarray(self.wn) * pc.um)
+        kw.setdefault('rt_path', rt_key)
+        if obs is not None and obs.nbands:
+            kw.setdefault('band_wl', obs.band_wl)
+            kw.setdefault('data', obs.data)
+            kw.setdefault('uncert', obs.uncert)
+        return plots.spectrum(
+            np.asarray(spectrum), wl, filename=filename, **kw,
+        )
+
+    def plot_temperature(self, filename=None, **kw):
+        """Plot the last run's temperature profile (the configured one
+        before a run); returns the matplotlib Axes."""
+        import matplotlib
+        matplotlib.use('Agg')
+        from . import plots
+        temp = getattr(self, 'temp', None)
+        if temp is None:
+            temp = self.eval_temp().cpu().numpy()
+        return plots.temperature(
+            np.asarray(self.press), profiles=[np.asarray(temp)],
+            filename=filename, **kw,
+        )
+
+    def __str__(self):
+        fw = Formatted_Write()
+        fw.write('Radiative-transfer model (pyratbay_tpu_torch):')
+        fw.write('Run mode (runmode): {}', self.cfg.runmode)
+        fw.write('RT path (rt_path): {}', self.rt_path)
+        fw.write(
+            'Wavenumber range: {:.2f} -- {:.2f} cm-1 ({:d} samples)',
+            float(self.wn[0]), float(self.wn[-1]), self.nwave,
+        )
+        fw.write(
+            'Pressure range: {:.2e} -- {:.2e} bar ({:d} layers)',
+            float(self.press[0]), float(self.press[-1]), self.nlayers,
+        )
+        fw.write('Species: {}', [str(s) for s in self.species])
+        fw.write('Opacity models:')
+        for mtype, model, _ in self.opacity_models:
+            bounds = ''
+            if self.tmin.get(mtype) is not None:
+                bounds = (
+                    f'  T = [{self.tmin[mtype]:.1f}, '
+                    f'{self.tmax[mtype]:.1f}] K'
+                )
+            fw.write('  {:22s} ({}){}', model.name, mtype, bounds)
+        if self.temp_model is not None:
+            fw.write('Temperature model: {}', self.cfg.tmodelname)
+        if self.rmodelname is not None:
+            fw.write('Radius model: {}', self.rmodelname)
+        fw.write('System:')
+        if self.rplanet is not None:
+            fw.write(
+                '  Planet radius (rplanet): {:.3f} rjup',
+                float(self.rplanet) / pc.rjup,
+            )
+        if self.mplanet is not None:
+            fw.write(
+                '  Planet mass (mplanet): {:.3f} mjup',
+                float(self.mplanet) / pc.mjup,
+            )
+        if self.rstar is not None:
+            fw.write(
+                '  Stellar radius (rstar): {:.3f} rsun',
+                float(self.rstar) / pc.rsun,
+            )
+        if self.tstar is not None:
+            fw.write(
+                '  Stellar temperature (tstar): {:.1f} K',
+                float(self.tstar),
+            )
+        if self.smaxis is not None:
+            fw.write(
+                '  Semi-major axis (smaxis): {:.4f} au',
+                float(self.smaxis) / pc.au,
+            )
+        if np.isfinite(self.rhill):
+            fw.write(
+                '  Hill radius (rhill): {:.3f} rjup',
+                float(self.rhill) / pc.rjup,
+            )
+        # The last run's optical depth (ideep is a device tensor):
+        ideep = getattr(self, 'ideep', None)
+        if ideep is not None:
+            fw.write('Optical depth (last run):')
+            fw.write('  Maximum depth to integrate (maxdepth): {:.2f}',
+                     float(self.maxdepth))
+            fw.write(
+                '  ideep range (first layer at maxdepth): '
+                '[{:d}, {:d}] of {:d} layers',
+                int(ideep.min()), int(ideep.max()), self.nlayers,
+            )
+        if self.timestamps:
+            fw.write('Last-run timestamps (s):')
+            for key, val in self.timestamps.items():
+                fw.write('  {:12s} {:.4f}', key, val)
+        return fw.text
+
 
 
 def _is_number(value):

@@ -176,6 +176,37 @@ class Observation:
 
         self.units_scale = pc.u(cfg.dunits) if cfg.dunits else 1.0
 
+    def __str__(self):
+        from .tools import Formatted_Write
+        fw = Formatted_Write()
+        fw.write('Observed data:')
+        ndata = 0 if self.data is None else len(self.data)
+        fw.write('Number of data points (ndata): {}', ndata)
+        if self.data is not None:
+            fw.write('Data (data):\n  {}', self.data, fmt={
+                'float': '{:.6e}'.format}, edge=4)
+        if self.uncert is not None:
+            fw.write('Uncertainties (uncert):\n  {}', self.uncert, fmt={
+                'float': '{:.6e}'.format}, edge=4)
+        fw.write('Number of filter bands (nbands): {}', self.nbands)
+        for band in self.filters:
+            fw.write(
+                '  {:24s} wl0 = {:.4f} um', band.name, band.wl0,
+            )
+        if self.offset_inst:
+            fw.write('Instrumental offsets (offset_inst): {}',
+                     self.offset_inst)
+        if self.uncert_scaling:
+            fw.write('Uncertainty scaling (uncert_scaling): {}',
+                     self.uncert_scaling)
+        if self.wn_hires is not None:
+            fw.write(
+                'High-resolution channel: {} points, '
+                'inst_resolution = {:.1f}',
+                len(self.wn_hires), self.inst_resolution,
+            )
+        return fw.text
+
     def to(self, device, dtype):
         """Materialize the band matrix, data and masks as tensors."""
         tensor = lambda a: torch.as_tensor(a, dtype=dtype, device=device)

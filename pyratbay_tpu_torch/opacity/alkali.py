@@ -98,6 +98,16 @@ class VanderWaals:
         """EC (cm-1): T [B, l], density [B, l] of this species."""
         return self.cross_section(temperature) * density[..., None]
 
+    def __str__(self):
+        from ..tools import Formatted_Write
+        fw = Formatted_Write()
+        fw.write('Alkali van der Waals opacity: {}', self.name)
+        fw.write('Species: {}', self.species)
+        fw.write('Line centers (cm-1): {}',
+                 [float(w) for w in np.round(self.wn0, 3)])
+        fw.write('Detuning cutoff (cutoff): {}', self.cutoff)
+        return fw.text
+
 
 class SodiumVdW(VanderWaals):
     """Na D doublet (VALD line data; Burrows et al. 2000)."""

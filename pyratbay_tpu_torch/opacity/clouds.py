@@ -122,3 +122,19 @@ class Deck:
         tsurf = interp(ptop, press, temperature)
         rsurf = interp(ptop, press, radius)
         return itop, rsurf, tsurf
+
+
+def _cloud_str(self):
+    from ..tools import Formatted_Write
+    fw = Formatted_Write()
+    fw.write('Cloud opacity model: {}', self.name)
+    fw.write(
+        'Parameters ({}): {}', self.pnames,
+        [float(p) for p in self.pars],
+    )
+    return fw.text
+
+
+Lecavelier.__str__ = _cloud_str
+CCSgray.__str__ = _cloud_str
+Deck.__str__ = _cloud_str

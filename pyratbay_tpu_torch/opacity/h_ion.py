@@ -78,21 +78,38 @@ class HydrogenIon:
         self._ff = tensor(self._ff_factors)
         return self
 
-    def cross_section(self, temperature):
-        """Bound-free plus free-free cross section (cm5 / H / e-):
-        temperature [B, l] -> [B, l, nwave]."""
+    def cross_section_bound_free(self, temperature):
+        """Bound-free cross section (cm5 / H / e-, eq. 3): temperature
+        [...] -> [..., nwave]."""
         temp = temperature[..., None]
-        bound_free = (
+        return (
             0.75 * temp**-1.5 * pc.k
             * torch.exp(_WN0_BF * self._alpha / temp)
             * -torch.expm1(-self._wn * self._alpha / temp)
             * self._sigma_bf)
+
+    def cross_section_free_free(self, temperature):
+        """Free-free cross section (cm5 / H / e-, eq. 6): temperature
+        [...] -> [..., nwave]."""
         tclip = torch.clamp(temperature, 1000.0, 10080.0)
         beta = torch.sqrt(5040.0 / tclip)
         powers = torch.stack([beta ** (i + 2) for i in range(6)], dim=-1)
-        free_free = (powers @ self._ff.T) * (pc.k * tclip)[..., None]
-        return bound_free + free_free
+        return (powers @ self._ff.T) * (pc.k * tclip)[..., None]
+
+    def cross_section(self, temperature):
+        """Bound-free plus free-free cross section (cm5 / H / e-):
+        temperature [B, l] -> [B, l, nwave]."""
+        return self.cross_section_bound_free(temperature) \
+            + self.cross_section_free_free(temperature)
 
     def extinction(self, temperature, dens_h, dens_e):
         """EC (cm-1): [B, l] profiles -> [B, l, nwave]."""
         return self.cross_section(temperature) * (dens_h * dens_e)[..., None]
+
+    def __str__(self):
+        from ..tools import Formatted_Write
+        fw = Formatted_Write()
+        fw.write('H- bound-free/free-free opacity (John 1988)')
+        fw.write('Species: {}', self.species)
+        fw.write('Wavenumber samples (nwave): {:d}', self.nwave)
+        return fw.text

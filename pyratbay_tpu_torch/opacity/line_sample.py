@@ -263,6 +263,14 @@ class LineSample:
         return w_stl.reshape(
             w_stl.shape[0], self.nspec * self.ntemp, self.nlayers)
 
+    def cross_section(self, temperature, per_mol=False):
+        """CS (cm2 molec-1): temperature [B, l] -> [B, nspec, l, nwave]
+        with per_mol, else summed over the species [B, l, nwave]; the
+        temperature lerp of the device table."""
+        w_t = two_hot(*self._t_weights(temperature), self.ntemp)
+        cs = torch.einsum('btl,stlw->bslw', w_t, self._table)
+        return cs if per_mol else torch.sum(cs, dim=1)
+
     def extinction(self, temperature, density, pars=None):
         """EC (cm-1) over the ensemble: temperature [B, l], density
         [B, l, nspec] -> a dense [B, l, nwave] part.  The TF32 switch of
@@ -271,3 +279,23 @@ class LineSample:
             'bkl,klw->blw',
             self.kernel_weights(temperature, density, pars),
             self.kernel_table)
+
+    def __str__(self):
+        from ..tools import Formatted_Write
+        fw = Formatted_Write()
+        fw.write('Line-sampled cross-section opacity:')
+        fw.write('Number of species (nspec): {:d}', self.nspec)
+        for spec, iso in zip(self.species, self.isotopes):
+            fw.write('  {}{}', spec, f' ({iso})' if iso else '')
+        fw.write(
+            'Temperature range: {:.1f} -- {:.1f} K ({:d} samples)',
+            self.tmin, self.tmax, self.ntemp,
+        )
+        fw.write(
+            'Wavenumber range: {:.3f} -- {:.3f} cm-1 ({:d} samples)',
+            float(self.wn[0]), float(self.wn[-1]), self.nwave,
+        )
+        fw.write('Pressure layers (nlayers): {:d}', self.nlayers)
+        if self.npars:
+            fw.write('Isotope-ratio parameters: {}', self.pnames)
+        return fw.text

@@ -55,3 +55,15 @@ class Rayleigh:
     def ec_rank1(self, density):
         """(layer column [B, l], wave row [B, nwave]) factors of the EC."""
         return density, self._cs.expand(density.shape[0], -1)
+
+    def __str__(self):
+        from ..tools import Formatted_Write
+        fw = Formatted_Write()
+        fw.write('Rayleigh opacity model: {}', self.name)
+        fw.write('Species: {}', self.species)
+        fw.write(
+            'Cross section range: {:.3e} -- {:.3e} cm2 molec-1',
+            float(np.min(self.cross_section)),
+            float(np.max(self.cross_section)),
+        )
+        return fw.text

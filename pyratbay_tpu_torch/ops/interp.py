@@ -1,25 +1,33 @@
-"""Interpolation: host-side natural cubic spline (CIA setup) and a
-batched tensor linear interpolation with jnp.interp's semantics.
+"""Interpolation: host-side natural cubic spline (CIA setup), the
+linear interpolation of a tabulated table's rows on tensors
+(lin_interp_trow) and a batched tensor linear interpolation with
+jnp.interp's semantics.
 
 `second_deriv_ref` reproduces the reference's spline-tension quirk
 (src_c/_spline.c:50-51 divides by x[i+1] - y[i-1]); it is kept, not
 fixed, because the published golden spectra were generated with it.
+`second_deriv` is the textbook natural spline.  Both are host numpy,
+as in pyratbay_tpu/ops/interp.py, like `splinterp` that reads them.
 """
 import numpy as np
 import torch
 
-__all__ = ['second_deriv_ref', 'splinterp', 'interp']
+from ..device import as_tensors
+
+__all__ = ['second_deriv', 'second_deriv_ref', 'splinterp',
+           'lin_interp_trow', 'interp']
 
 
-def second_deriv_ref(y, x):
-    """Reference-compatible natural-spline second derivatives (numpy)."""
+def _second_deriv_impl(y, x, ref_quirk):
+    """Natural cubic-spline second derivatives (host numpy)."""
     y = np.asarray(y, float)
     x = np.asarray(x, float)
     n = len(y) - 1
     y2 = np.zeros(n + 1)
     u = np.zeros(n)
     for i in range(1, n):
-        sig = (x[i] - x[i - 1]) / (x[i + 1] - y[i - 1])
+        denom = (x[i + 1] - y[i - 1]) if ref_quirk else (x[i + 1] - x[i - 1])
+        sig = (x[i] - x[i - 1]) / denom
         p = sig * y2[i - 1] + 2.0
         y2[i] = (sig - 1.0) / p
         ui = (
@@ -31,6 +39,16 @@ def second_deriv_ref(y, x):
         y2[i] = y2[i] * y2[i + 1] + u[i]
     y2[n] = 0.0
     return y2
+
+
+def second_deriv(y, x):
+    """Textbook natural-cubic-spline second derivatives (numpy)."""
+    return _second_deriv_impl(y, x, ref_quirk=False)
+
+
+def second_deriv_ref(y, x):
+    """Reference-compatible natural-spline second derivatives (numpy)."""
+    return _second_deriv_impl(y, x, ref_quirk=True)
 
 
 def splinterp(y, x, y2, xout, extrap=0.0):
@@ -51,6 +69,26 @@ def splinterp(y, x, y2, xout, extrap=0.0):
         + ((a**3 - a) * y2[idx] + (b**3 - b) * y2[idx + 1]) * dx * dx / 6.0
     )
     return yout
+
+
+def lin_interp_trow(table, xin, dy_dx, xout, lo=0, hi=None):
+    """Linear interpolation of a [nx, ncol] table along axis 0 at each
+    value of `xout` [nout] (e.g. a temperature profile), from the slopes
+    `dy_dx` [nx - 1, ncol]; columns outside [lo, hi) are 0, and an
+    `xout` beyond the grid takes its end segment's line
+    (pyratbay_tpu/ops/interp.py).  Numpy arrays or tensors; returns
+    [nout, ncol] on the device of the first tensor among them."""
+    table, xin, dy_dx, xout = as_tensors(table, xin, dy_dx, xout)
+    nx, ncol = table.shape
+    if hi is None:
+        hi = ncol
+    idx = torch.clamp(
+        torch.searchsorted(xin, xout.contiguous(), right=True) - 1,
+        0, nx - 2)
+    out = table[idx] + (xout - xin[idx])[:, None] * dy_dx[idx]
+    col = torch.arange(ncol, device=table.device)
+    in_range = (col >= lo) & (col < hi)
+    return torch.where(in_range[None, :], out, torch.zeros_like(out))
 
 
 def interp(x, xp, fp):

@@ -1,7 +1,8 @@
-"""Special functions on tensors: exponential integrals (Guillot T(p))
-and the reference-compatible Voigt profile (alkali detuning anchors);
-and, host numpy, the Voigt-grid width bounds of the line-by-line
-engine (min_widths, max_widths).
+"""Special functions on tensors: exponential integrals (Guillot T(p)),
+the reference-compatible Voigt profile (alkali detuning anchors), the
+Lorentz, Gauss and Voigt profile objects and the Doppler and Lorentz
+half-widths; and, host numpy, the Voigt-grid width bounds of the
+line-by-line engine (min_widths, max_widths).
 
 Elementwise torch ports of pyratbay_tpu/ops/special.py, with the same
 fixed iteration counts and region selects, so float64 results agree
@@ -13,8 +14,10 @@ import numpy as np
 import torch
 
 from .. import constants as pc
+from ..device import as_tensors
 
 __all__ = ['exp1', 'e2', 'wofz_real', 'voigt_profile', 'voigt_ref',
+           'Lorentz', 'Gauss', 'Voigt', 'doppler_hwhm', 'lorentz_hwhm',
            'min_widths', 'max_widths']
 
 _SQRT_PI = np.sqrt(np.pi)
@@ -193,3 +196,85 @@ def max_widths(min_temp, max_temp, max_wn, min_mass, max_rad, max_press):
         * np.sqrt(1.0 / min_mass + 1.0 / _H2_MASS)
     )
     return dmax, lmax
+
+
+class Lorentz:
+    """Area-normalized 1D Lorentz profile with center x0, half-width
+    hwhm and scale (pyratbay_tpu/ops/special.py); called on a numpy
+    array or a tensor, returns a tensor on the input's device."""
+
+    def __init__(self, x0=0.0, hwhm=1.0, scale=1.0):
+        self.x0 = x0
+        self.hwhm = hwhm
+        self.scale = scale
+
+    def __call__(self, x):
+        x, = as_tensors(x)
+        return (
+            self.scale * self.hwhm / np.pi
+            / (self.hwhm**2 + (x - self.x0)**2)
+        )
+
+
+class Gauss:
+    """Area-normalized 1D Gaussian profile by its HWHM (center x0,
+    scale); called on a numpy array or a tensor."""
+
+    def __init__(self, x0=0.0, hwhm=1.0, scale=1.0):
+        self.x0 = x0
+        self.hwhm = hwhm
+        self.scale = scale
+
+    def __call__(self, x):
+        x, = as_tensors(x)
+        sigma = self.hwhm / np.sqrt(2.0 * np.log(2.0))
+        return (
+            self.scale / (sigma * np.sqrt(2.0 * np.pi))
+            * torch.exp(-0.5 * ((x - self.x0) / sigma)**2)
+        )
+
+
+class Voigt:
+    """Area-normalized 1D Voigt profile (center x0, hwhm_L, hwhm_G,
+    scale) through `voigt_ref`'s branch selection: the exact Faddeeva
+    evaluation for hwhm_L / hwhm_G < 0.1, else the 4-term rational
+    approximation; called on a numpy array or a tensor."""
+
+    def __init__(self, x0=0.0, hwhm_L=1.0, hwhm_G=1.0, scale=1.0):
+        self.x0 = x0
+        self.hwhm_L = hwhm_L
+        self.hwhm_G = hwhm_G
+        self.scale = scale
+
+    def __call__(self, x):
+        x, hwhm_l, hwhm_g = as_tensors(x, self.hwhm_L, self.hwhm_G)
+        return self.scale * voigt_ref(x - self.x0, hwhm_l, hwhm_g)
+
+
+def doppler_hwhm(temperature, mass, wn):
+    """Doppler HWHM (cm-1); mass in amu, wn in cm-1, T in K."""
+    temperature, mass, wn = as_tensors(temperature, mass, wn)
+    return (
+        wn / pc.c
+        * torch.sqrt(2.0 * np.log(2.0) * pc.k * temperature / (mass * pc.amu))
+    )
+
+
+def lorentz_hwhm(temperature, pressure, masses, radii, vmr, imol):
+    """Pressure-broadening Lorentz HWHM (cm-1) of the species `imol`:
+    pressure in bar; masses (amu), radii (cm) and vmr per species."""
+    temperature, pressure, masses, radii, vmr = as_tensors(
+        temperature, pressure, masses, radii, vmr)
+    imol = torch.atleast_1d(
+        torch.as_tensor(imol, dtype=torch.int64, device=masses.device))
+    # Sum over the colliders (last axis) for each species of imol:
+    coll = torch.sum(
+        vmr[None, :] * (radii[None, :] + radii[imol, None])**2
+        * torch.sqrt(1.0 / masses[None, :] + 1.0 / masses[imol, None]),
+        dim=-1,
+    )
+    return (
+        pressure * pc.bar / pc.c
+        * torch.sqrt(2.0 / (np.pi * pc.k * temperature * pc.amu))
+        * coll
+    )

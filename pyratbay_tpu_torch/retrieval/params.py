@@ -214,3 +214,26 @@ class RetrievalParams:
 
         self.ifree = np.where(self.pstep > 0)[0]
         self.nfree = len(self.ifree)
+
+    def __str__(self):
+        from ..tools import Formatted_Write
+        fw = Formatted_Write()
+        fw.write('Retrieval parameters:')
+        fw.write('Number of parameters (nparams): {}', self.nparams)
+        fw.write('Number of free parameters (nfree): {}', self.nfree)
+        fw.write(
+            '  {:16s} {:>10s} {:>10s} {:>10s} {:>8s}',
+            'pname', 'value', 'pmin', 'pmax', 'pstep',
+        )
+        for i, pname in enumerate(self.pnames):
+            fw.write(
+                '  {:16s} {:10.4g} {:10.4g} {:10.4g} {:8.4g}',
+                pname, self.params[i], self.pmin[i], self.pmax[i],
+                self.pstep[i],
+            )
+        fw.write('Sampler: {}', self.sampler)
+        fw.write(
+            'Temperature bounds (tlow, thigh): [{:.1f}, {:.1f}] K',
+            self.tlow, self.thigh,
+        )
+        return fw.text

@@ -134,6 +134,21 @@ class PassBand:
     def __repr__(self):
         return f"pyratbay_tpu_torch.spectrum.PassBand('{self.filter_file}')"
 
+    def __str__(self):
+        from ..tools import Formatted_Write
+        fw = Formatted_Write()
+        fw.write('Instrument passband:')
+        fw.write('Name (name): {}', self.name)
+        fw.write('Central wavelength (wl0): {:.4f} um', self.wl0)
+        fw.write('Counting type: {}', self.counting_type)
+        fw.write(
+            'Wavelength range: {:.4f} -- {:.4f} um ({:d} samples)',
+            float(np.min(self.wl)), float(np.max(self.wl)), len(self.wl),
+        )
+        if self.idx is not None:
+            fw.write('Resampled onto the model grid (idx set)')
+        return fw.text
+
 
 class Tophat(PassBand):
     """Tophat passband centered at wl0 (um) with given half-width (um)."""
