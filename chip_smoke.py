@@ -137,8 +137,17 @@ the plain versions, 4 cells against CPU float64) and through the parity
 engine on the native grouping and scatter (each native function's call
 count checked), the CLI's -cs hitran and -pf tips in processes of their
 own, and a spectrum on the card (K1 at B = 1) from that table and the
-CLI's CIA table against CPU float64.  The whole script's seconds close
-the phases.
+CLI's CIA table against CPU float64.  Then the parallel phase
+(run_parallel): the wave-sharded flagship retrieval (51 x 3209, 512
+chains) on torch.distributed process groups whose ranks are new
+interpreters sharing the card: a world-1 group (mesh (1, 1), NCCL), two
+ranks on (1, 2) (gloo; K1 on 1,605 columns, the eclipse flagship's K3,
+a few TLI forwards' K4 and K5 on each window) and on (2, 1) (K1 at 256
+chains, the nested sampler with the mesh); each rank's kernels against
+their plain versions on its own operands, the gathered log-posterior
+against the unsharded one, generations/s and the collectives' ms; then
+python -m pyratbay_tpu_torch.parallel.mp_probe.  The whole script's
+seconds close the phases.
 The line before the last is the kernel table; the last line is the
 result.
 """
@@ -4066,6 +4075,447 @@ def run_line_lists(workdir, dev, args, card):
                       LBL['core_lines']['name']: max_abs['core_lines']}
 
 
+# The parallel phase (run_parallel): the wave-sharded flagship on
+# several processes sharing the card.  Each mesh's ranks are new
+# interpreters running parallel_rank(); the library is built before they
+# start, so they load it and build nothing.  PAR_GENS generations time
+# the DEMC step, PAR_TIMED_GENS more the collectives (a synchronize
+# around each); the TLI forwards take PAR_TLI_CHAINS chains; the nested
+# run on (2, 1) is cut to PAR_NESTED_MAX_ITER dead points (the nested
+# phase's 4,000 cut again, for the phase's ~90 s).
+PARALLEL_MESHES = (
+    # name, ranks, chain shards, tasks
+    ('world1', 1, 1, ('transit',)),
+    ('wave2', 2, 1, ('transit', 'eclipse', 'tli')),
+    ('chains2', 2, 2, ('transit', 'nested')),
+)
+PAR_GENS = 20
+PAR_TIMED_GENS = 3
+PAR_TLI_CHAINS = 64
+PAR_TLI_FORWARDS = 3
+PAR_NESTED_MAX_ITER = 1000
+PAR_TIMEOUT = 300.0
+PAR_PROBE_ITERS = 20
+
+
+def _rank_flagship(state, mesh, workdir, rt_path):
+    """One rank's part of the main path on the flagship of `rt_path`
+    (51 x 3209, NCHAINS chains, wave-sharded over the mesh): the
+    ensemble's initial log-posterior and PAR_GENS DEMC generations
+    between zeroed launch counters, then PAR_TIMED_GENS with the
+    collectives timed and PAR_TIMED_GENS under torch.profiler (this
+    rank's device time), then the RT kernel against its plain version on
+    the rank's own operands (its chains, its window)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch.parallel.sharded import build_flagship_sharded
+    from pyratbay_tpu_torch.retrieval.batched import build_forward_batched
+    from pyratbay_tpu_torch.spectrum import emission_kernel as ek
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+    model, obs, ret, log_post, step, chains = build_flagship_sharded(
+        mesh, os.path.join(workdir, rt_path), nchains=NCHAINS,
+        rt_path=rt_path)
+    state[rt_path] = (model, obs, ret, log_post)
+    syncs = mesh.host_syncs
+
+    def main_path():
+        logp0 = step.log_post(chains)
+        c, lp = chains, logp0
+        torch.cuda.synchronize()
+        torch.distributed.barrier()     # the ranks' clocks start together
+        t0 = time.perf_counter()
+        for _ in range(PAR_GENS):
+            c, lp = step(c, lp)
+        torch.cuda.synchronize()
+        return logp0, c, lp, time.perf_counter() - t0
+
+    with torch.no_grad():
+        (logp0, c, lp, gen_s), launches = counted_run(
+            (tk.transit_rt_cuda, ek.emission_rt_cuda), main_path)
+        host_syncs = mesh.host_syncs - syncs
+        mesh.timed, mesh.seconds = True, 0.0
+        for _ in range(PAR_TIMED_GENS):
+            c, lp = step(c, lp)
+        mesh.timed = False
+        collective_ms = mesh.seconds / PAR_TIMED_GENS * 1e3
+        # This rank's device time a generation (torch.profiler sees its
+        # own process's kernels and copies):
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAR_TIMED_GENS):
+                c, lp = step(c, lp)
+            torch.cuda.synchronize()
+        busy_ms = sum(evt.device_time_total for evt in prof.key_averages()
+                      if evt.device_type != DeviceType.CPU) \
+            / PAR_TIMED_GENS * 1e-3
+        # The kernel on the operands of the rank's forward of its chains:
+        label = 'transit' if rt_path == 'transit' else 'eclipse'
+        wrapper = ('transit_spectrum_ensemble' if label == 'transit'
+                   else 'emission_flux_ensemble')
+        per = NCHAINS // mesh.shape['chains']
+        mine = chains[mesh.coords['chains'] * per:][:per]
+        call, = record_calls([(model_mod, wrapper)],
+                             lambda: build_forward_batched(
+                                 model, obs, ret)(mine))
+        kernel, plain = ((tk.transit_rt_cuda, tk.transit_rt_plain)
+                         if label == 'transit' else
+                         (ek.emission_rt_cuda, ek.emission_rt_plain))
+        name = KERNELS[label]['name']
+        max_abs = check_kernel(name, kernel, plain, {
+            f'parallel_{rt_path}_rank{torch.distributed.get_rank()}':
+                wrapper_case(label, model, call)}, KERNELS[label]['tol'])
+    return dict(
+        logp0=logp0.double().cpu().tolist(),
+        chains_moved=float(torch.mean((lp != logp0).double())),
+        generations_per_s=PAR_GENS / gen_s,
+        collective_ms_per_generation=collective_ms,
+        device_busy_ms_per_generation=busy_ms,
+        host_syncs_per_generation=host_syncs / (PAR_GENS + 1),
+        launches=launches, kernel=name, max_abs_err=max(max_abs.values()),
+        nwave_local=model.nwave, chains_local=per)
+
+
+def _rank_tli(state, mesh, workdir):
+    """PAR_TLI_FORWARDS wave-sharded forwards of the flagship with H2O
+    from the TLI file (K4 and K5 on the rank's window with the whole line
+    list, then K1), the gathered spectrum written for the parent, and K4
+    and K5 against their plain versions on a block of the rank's
+    forward."""
+    import torch
+    from pyratbay_tpu_torch.model import Model
+    from pyratbay_tpu_torch.observation import Observation
+    from pyratbay_tpu_torch.opacity import lbl_kernel as lk
+    from pyratbay_tpu_torch.opacity.lbl_direct import DirectLBL
+    from pyratbay_tpu_torch.parallel.sharded import (
+        gather_wave, shard_model_tables)
+    from pyratbay_tpu_torch.retrieval.batched import build_forward_batched
+    from pyratbay_tpu_torch.retrieval.params import RetrievalParams
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+    tli_dir = os.environ['PBT_SMOKE_TLI']
+    model = Model(os.path.join(tli_dir, 'flagship_lbl.cfg'))
+    _, obs, _, _ = state['transit']
+    obs = Observation(obs_cfg(obs), model.wn)
+    ret = RetrievalParams(model, obs)
+    pb = torch.as_tensor(np.load(os.path.join(tli_dir, 'params.npy')),
+                         dtype=model.dtype, device=model.device)
+    shard_model_tables(model, obs, mesh)
+    forward_b = build_forward_batched(model, obs, ret)
+    blocks = []
+    real_batch = DirectLBL._cross_section_batch
+
+    def first_block(self, tables, *cells):
+        if not blocks:
+            blocks.append(cells)
+        return real_batch(self, tables, *cells)
+
+    def forwards():
+        for _ in range(PAR_TLI_FORWARDS):
+            out = forward_b(pb)
+        return out
+
+    DirectLBL._cross_section_batch = first_block
+    try:
+        with torch.no_grad():
+            out, launches = counted_run(
+                (lk.wing_sigma_lines_cuda, lk.core_sigma_lines_cuda,
+                 tk.transit_rt_cuda), forwards)
+            spectrum = gather_wave(out['spectrum'], mesh)
+    finally:
+        DirectLBL._cross_section_batch = real_batch
+    if torch.distributed.get_rank() == 0:
+        np.save(os.path.join(workdir, 'tli_spectrum.npy'),
+                spectrum[:, :model.nwave_unpadded].double().cpu().numpy())
+    direct = model.direct_lbl(model.opacity_models[0][1])
+    max_abs = {}
+    for key, (operands, kw) in lbl_operands(
+            direct, blocks[0], 1, windows=False).items():
+        got = getattr(lk, LBL[key]['fn'] + '_cuda')(*operands, **kw)
+        want = getattr(lk, LBL[key]['fn'] + '_plain')(*operands, **kw)
+        torch.cuda.synchronize()
+        rel, max_abs[LBL[key]['name']] = masked_rel(got, want)
+        emit('kernel_check', kernel=LBL[key]['name'],
+             case=f'parallel_tli_rank{torch.distributed.get_rank()}',
+             shape=list(got.shape), max_rel_err=rel,
+             max_abs_err=max_abs[LBL[key]['name']], tol=LBL_TOL)
+        if not rel < LBL_TOL:
+            fail(f'{LBL[key]["name"]} parallel tli: kernel disagrees with '
+                 f'plain ({rel})')
+    return dict(launches=launches, max_abs_err=max_abs,
+                nwave_local=model.nwave, cells_block=int(
+                    blocks[0][0].shape[0]))
+
+
+def _rank_nested(state, mesh, workdir):
+    """sample_nested with the mesh on the transit flagship's sharded
+    log-posterior (nlive 400, 25 walk steps, PAR_NESTED_MAX_ITER dead
+    points): every walk step's batch split over the chain shards."""
+    import torch
+    from pyratbay_tpu_torch.retrieval.driver import unit_cube_prior
+    from pyratbay_tpu_torch.retrieval.nested import sample_nested
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+    model, _, ret, log_post = state['transit']
+    syncs = mesh.host_syncs
+    gen = torch.Generator(device=model.device).manual_seed(0)
+
+    def run():
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        out = sample_nested(
+            log_post, unit_cube_prior(ret, model.device), len(ret.ifree),
+            nlive=NESTED_NLIVE, max_iter=PAR_NESTED_MAX_ITER,
+            nsteps_walk=NESTED_WALK, generator=gen, device=model.device,
+            mesh=mesh)
+        return out, time.perf_counter() - t0
+
+    with torch.no_grad():
+        (out, seconds), launches = counted_run((tk.transit_rt_cuda,), run)
+    batch = NESTED_NLIVE // 16
+    batch -= batch % mesh.shape['chains']
+    walks = -(-PAR_NESTED_MAX_ITER // batch) * NESTED_WALK
+    return dict(logz=float(out['logz']), logz_err=float(out['logz_err']),
+                n_iter=int(out['n_iter']), seconds=seconds, batch=batch,
+                walk_forwards_per_s=walks / seconds,
+                host_syncs=mesh.host_syncs - syncs, walk_steps=walks,
+                finite=bool(np.all(np.isfinite(out['posterior']))),
+                in_prior_box=bool(np.all(
+                    (out['posterior'] >= ret.pmin)
+                    & (out['posterior'] <= ret.pmax))),
+                launches=launches)
+
+
+def parallel_rank():
+    """One rank of a run_parallel group: joins the group (PBT_* variables
+    from the parent), lays the mesh (PBT_CHAINS_AXIS chain shards), runs
+    PBT_SMOKE_TASKS in PBT_SMOKE_DIR (the TLI inputs in PBT_SMOKE_TLI) and
+    writes rank<r>.json there."""
+    import torch
+    from pyratbay_tpu_torch.parallel import distributed
+    from pyratbay_tpu_torch.parallel.sharded import make_mesh
+    distributed.initialize_distributed()
+    mesh = make_mesh(int(os.environ['PBT_CHAINS_AXIS']))
+    rank = distributed.process_index()
+    workdir = os.environ['PBT_SMOKE_DIR']
+    out = dict(rank=rank, backend=mesh.backend,
+               mesh=[mesh.shape['chains'], mesh.shape['wave']],
+               coords=[mesh.coords['chains'], mesh.coords['wave']],
+               device=str(torch.device('cuda', torch.cuda.current_device())))
+    state = {}
+    tasks = {'transit': lambda: _rank_flagship(state, mesh, rank_dir,
+                                               'transit'),
+             'eclipse': lambda: _rank_flagship(state, mesh, rank_dir,
+                                               'eclipse'),
+             'tli': lambda: _rank_tli(state, mesh, rank_dir),
+             'nested': lambda: _rank_nested(state, mesh, rank_dir)}
+    rank_dir = os.path.join(workdir, f'rank{rank}')
+    for task in os.environ['PBT_SMOKE_TASKS'].split(','):
+        out[task] = tasks[task]()
+    out['collectives'] = mesh.calls
+    with open(os.path.join(workdir, f'rank{rank}.json'), 'w') as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_parallel(workdir, dev, args, card):
+    """The parallel phase: the wave-sharded flagship retrieval (51 x 3209,
+    512 chains) on process groups on the one card, every rank a new
+    interpreter (parallel_rank): a world-1 group (mesh (1, 1), NCCL), two
+    ranks sharing the card on (1, 2) (gloo: half the columns each; the
+    eclipse flagship and TLI forwards too) and on (2, 1) (256 chains each;
+    the nested sampler with the mesh), then mp_probe.  Checks: every rank
+    exits 0 within PAR_TIMEOUT; the backend by the rule; each rank's K1
+    / K3 / K4 / K5 launches on its main path and against the plain
+    versions on its own operands (check_kernel fails the rank); the
+    gathered log-posterior of the initial ensemble within the GPU-against-
+    CPU bound (FORWARD_TOL) of the unsharded one, computed here without a
+    group; the gathered TLI spectrum against the unsharded forward's within
+    LBL_TOL; the nested run finite and in the prior box.  Returns the
+    launches of each kernel by counter and each kernel's largest
+    difference from its plain version."""
+    import torch
+    from pyratbay_tpu_torch.benchmark import make_lbl_flagship
+    from pyratbay_tpu_torch.driver import run
+    from pyratbay_tpu_torch.model import Model
+    from pyratbay_tpu_torch.observation import Observation
+    from pyratbay_tpu_torch.parallel.mp_probe import free_port, run_group
+    from pyratbay_tpu_torch.parallel.sharded import (
+        build_flagship_sharded, make_mesh)
+    from pyratbay_tpu_torch.retrieval.batched import build_forward_batched
+    from pyratbay_tpu_torch.retrieval.params import RetrievalParams
+
+    phase_t0 = time.perf_counter()
+    # The unsharded references (no group in this process: a (1, 1) mesh
+    # without collectives):
+    refs = {}
+    for rt_path in ('transit', 'eclipse'):
+        model, obs, ret, _, step, chains = build_flagship_sharded(
+            make_mesh(device=dev), os.path.join(workdir, 'ref', rt_path),
+            device=dev, nchains=NCHAINS, rt_path=rt_path)
+        with torch.no_grad():
+            lp = step.log_post(chains).double().cpu().numpy()
+            band = build_forward_batched(model, obs, ret)(chains)[
+                'bandflux'].double().cpu().numpy()
+        fin = np.isfinite(lp)
+        bound = np.full(len(lp), np.inf)
+        bound[fin] = _lp_bound(lp[fin], band[fin], obs.uncert, FORWARD_TOL)
+        refs[rt_path] = (lp, bound)
+        if rt_path == 'transit':
+            flag_obs = obs
+    # The TLI inputs, and the unsharded forward at PAR_TLI_CHAINS chains:
+    tli_dir = os.path.join(workdir, 'tli')
+    _, tli_cfg, _ = make_lbl_flagship(tli_dir, nlines=NLINES)
+    run(tli_cfg)
+    with open(os.path.join(workdir, 'ref', 'transit', 'flagship.cfg')) as f:
+        text = f.read()
+    lbl_cfg = os.path.join(tli_dir, 'flagship_lbl.cfg')
+    with open(lbl_cfg, 'w') as f:
+        f.write('\n'.join(
+            f'tlifile = {os.path.join(tli_dir, "flagship_h2o.tli")}'
+            if ln.startswith('sampled_cross_sec') else ln
+            for ln in text.splitlines()) + '\n')
+    tli_model = Model(lbl_cfg, device=dev)
+    tli_obs = Observation(obs_cfg(flag_obs), tli_model.wn)
+    tli_ret = RetrievalParams(tli_model, tli_obs)
+    rng = np.random.default_rng(0)
+    pb = np.clip(tli_ret.params + tli_ret.pstep * rng.standard_normal(
+        (PAR_TLI_CHAINS, len(tli_ret.params))), tli_ret.pmin, tli_ret.pmax)
+    np.save(os.path.join(tli_dir, 'params.npy'), pb)
+    with torch.no_grad():
+        tli_ref = build_forward_batched(tli_model, tli_obs, tli_ret)(
+            torch.as_tensor(pb, dtype=tli_model.dtype, device=dev))[
+            'spectrum']
+    del tli_model, model, obs, step
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - phase_t0
+
+    launches, max_abs = {}, {}
+
+    def add(counts, err=None):
+        for key, val in counts.items():
+            launches[key] = launches.get(key, 0) + val
+        for key, val in (err or {}).items():
+            max_abs[key] = max(max_abs.get(key, 0.0), val)
+
+    for name, nranks, chains_axis, tasks in PARALLEL_MESHES:
+        group_dir = os.path.join(workdir, name)
+        os.makedirs(group_dir)
+        env = dict(os.environ, PBT_COORDINATOR=f'localhost:{free_port()}',
+                   PBT_NPROCS=str(nranks), PBT_CHAINS_AXIS=str(chains_axis),
+                   PBT_SMOKE_DIR=group_dir, PBT_SMOKE_TASKS=','.join(tasks),
+                   PBT_SMOKE_TLI=tli_dir)
+        cmd = [sys.executable, '-c', 'import sys, chip_smoke; '
+               'sys.exit(chip_smoke.parallel_rank())']
+        t0 = time.perf_counter()
+        ranks = run_group([(cmd, dict(env, PBT_PROCID=str(r)))
+                           for r in range(nranks)], PAR_TIMEOUT, cwd=HERE)
+        group_s = time.perf_counter() - t0
+        for r, (code, out, err) in enumerate(ranks):
+            sys.stdout.write(out)
+            if code != 0:
+                fail(f'parallel {name}: rank {r} exit {code} after '
+                     f'{group_s:.1f} s:\n{err[-3000:]}')
+        results = []
+        for r in range(nranks):
+            with open(os.path.join(group_dir, f'rank{r}.json')) as f:
+                results.append(json.load(f))
+        want_backend = 'nccl' if nranks <= torch.cuda.device_count() \
+            else 'gloo'
+        checks = {'backend': all(res['backend'] == want_backend
+                                 for res in results),
+                  'mesh': all(res['mesh'] == [chains_axis,
+                                              nranks // chains_axis]
+                              for res in results)}
+
+        def check(key, ok):
+            checks[key] = checks.get(key, True) and bool(ok)
+
+        per_rank = []
+        for res in results:
+            entry = dict(rank=res['rank'], coords=res['coords'],
+                         device=res['device'],
+                         collectives=res['collectives'])
+            for rt_path in ('transit', 'eclipse'):
+                if rt_path not in res:
+                    continue
+                task = res[rt_path]
+                lp, bound = refs[rt_path]
+                diff = np.abs(np.asarray(task['logp0']) - lp)
+                same_inf = np.array_equal(np.isfinite(task['logp0']),
+                                          np.isfinite(lp))
+                check(f'{rt_path}_log_posterior', same_inf and np.all(
+                    diff[np.isfinite(lp)] <= bound[np.isfinite(lp)]))
+                kernel = task['launches'][
+                    'transit_rt_cuda' if rt_path == 'transit'
+                    else 'emission_rt_cuda']
+                check(f'{rt_path}_kernel_every_generation',
+                      kernel >= PAR_GENS + 1)
+                add(task['launches'], {task['kernel']: task['max_abs_err']})
+                entry[rt_path] = dict(
+                    {k: task[k] for k in task if k != 'logp0'},
+                    log_posterior_max_abs_diff=float(np.max(
+                        diff[np.isfinite(lp)])),
+                    log_posterior_bound_min=float(np.min(bound)))
+            if 'tli' in res:
+                task = res['tli']
+                check('tli_k4_k5', all(
+                    task['launches'][k] >= PAR_TLI_FORWARDS for k in (
+                        'wing_sigma_lines_cuda', 'core_sigma_lines_cuda')))
+                add(task['launches'], task['max_abs_err'])
+                entry['tli'] = task
+            if 'nested' in res:
+                task = res['nested']
+                check('nested', task['finite'] and task['in_prior_box']
+                      and np.isfinite(task['logz']))
+                add(task['launches'])
+                entry['nested'] = task
+            per_rank.append(entry)
+        # Each card's idle share during a generation: the device time of
+        # the ranks on it against the generation's time (rank 0's host
+        # clock):
+        for rt_path in ('transit', 'eclipse'):
+            if rt_path in results[0]:
+                ms = 1e3 / results[0][rt_path]['generations_per_s']
+                busy = {}
+                for res in results:
+                    busy[res['device']] = busy.get(res['device'], 0.0) \
+                        + res[rt_path]['device_busy_ms_per_generation']
+                per_rank[0][rt_path]['card_idle_share'] = {
+                    card: 1.0 - ms_busy / ms
+                    for card, ms_busy in busy.items()}
+        if 'tli' in tasks:
+            got = np.load(os.path.join(group_dir, 'rank0',
+                                       'tli_spectrum.npy'))
+            rel, _ = rel_err(torch.as_tensor(got), tli_ref)
+            check('tli_spectrum', rel < LBL_TOL)
+            per_rank[0]['tli']['spectrum_max_rel_err_vs_unsharded'] = rel
+        emit('parallel', mesh=name, card=card, ranks=nranks,
+             shape=results[0]['mesh'], backend=results[0]['backend'],
+             seconds=group_s, per_rank=per_rank, checks=checks)
+        if not all(checks.values()):
+            fail(f'parallel {name}: {checks}')
+
+    # The multi-process probe (two ranks on the card, the JAX probe's
+    # flagship size):
+    t0 = time.perf_counter()
+    (code, out, err), = run_group([(
+        [sys.executable, '-m', 'pyratbay_tpu_torch.parallel.mp_probe',
+         '--nprocs', '2', '--iters', str(PAR_PROBE_ITERS), '--timeout',
+         str(PAR_TIMEOUT)], dict(os.environ))], PAR_TIMEOUT + 30, cwd=HERE)
+    if code != 0:
+        fail(f'mp_probe exit {code}: {out[-2000:]} {err[-2000:]}')
+    probe = json.loads(out.strip().splitlines()[-1])
+    emit('mp_probe', card=card, seconds=time.perf_counter() - t0, **probe)
+    want_backend = 'nccl' if 2 <= torch.cuda.device_count() else 'gloo'
+    if probe.get('backend') != want_backend or probe.get('device_name') \
+            != torch.cuda.get_device_name(0):
+        fail(f'mp_probe: {probe}')
+    emit('phase_seconds', name='parallel', setup_seconds=setup_s,
+         seconds=time.perf_counter() - phase_t0)
+    return launches, max_abs
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--profile', action='store_true',
@@ -4263,6 +4713,16 @@ def main():
              seconds=time.perf_counter() - t0)
         add_launches('line_lists', ll_launches)
         for name, err in ll_abs.items():
+            by_name[name]['max_abs_err'] = max(by_name[name]['max_abs_err'],
+                                               err)
+        # Several processes on the card: the wave-sharded flagship on
+        # (1, 1), (1, 2) and (2, 1) meshes (K1, K3, K4 and K5 on the ranks'
+        # windows), the nested sampler with the mesh, mp_probe:
+        path_dir = os.path.join(workdir, 'parallel')
+        os.makedirs(path_dir)
+        par_launches, par_abs = run_parallel(path_dir, dev, args, card)
+        add_launches('parallel', par_launches)
+        for name, err in par_abs.items():
             by_name[name]['max_abs_err'] = max(by_name[name]['max_abs_err'],
                                                err)
         emit('phase_seconds', name='all', seconds=time.perf_counter()

@@ -8,7 +8,10 @@ default engine, the parity engine), radeq (radiative equilibrium of a
 two-stream model, spectrum/radeq.py) and retrieval (the snooker DEMC
 with checkpoints and resume, or the nested sampler of `sampler =
 multinest`, then the post-processing; a model with TLI files retrieves
-through the direct line-by-line engine on the device).
+through the direct line-by-line engine on the device).  With dist_* keys
+or PBT_* variables every rank of the process group runs the whole
+config and only rank 0 logs (parallel/distributed.py, logger.py), as in
+the JAX package.
 """
 import os
 
@@ -20,6 +23,7 @@ from .config import parser as cfg_parser
 from .io import io as pio
 from .logger import Log
 from .model import Model
+from .parallel.distributed import initialize_distributed
 from .version import __version__
 
 __all__ = ['run']
@@ -55,6 +59,9 @@ def run(cfile, device=None, root=None, seed=0):
             f'runmode = {cfg.runmode} is not a run mode of '
             f'pyratbay_tpu_torch ({", ".join(_RUNMODES)})'
         )
+    # Several processes (no-op unless dist_* keys or PBT_* variables are
+    # set): every rank runs the whole config, only rank 0 speaks.
+    initialize_distributed(cfg, device)
     log = Log(
         logname=cfg.logfile, verb=cfg.verb if cfg.verb is not None else 2,
         append=bool(cfg.resume))

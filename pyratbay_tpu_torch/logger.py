@@ -1,8 +1,12 @@
 """Run logging: screen + file tee with verbosity levels.
 
-Copy of pyratbay_tpu/logger.py for a single process (the port runs on
-one device and has no multi-process muting yet).
+Copy of pyratbay_tpu/logger.py.  The reference mutes rank != 0
+processes entirely (mc3.utils.Log with verb=-1, tools/parser.py there);
+here the rank is PBT_PROCID, else that of an initialized
+torch.distributed group (parallel/distributed.py): only rank 0 prints
+or writes a log file, and errors still raise on every rank.
 """
+import os
 import sys
 import textwrap
 import time
@@ -22,7 +26,15 @@ class Log:
     The log file (when given) receives everything regardless of verb.
     """
 
-    def __init__(self, logname=None, verb=2, width=70, append=False):
+    def __init__(self, logname=None, verb=2, width=70, append=False,
+                 rank=None):
+        if rank is None:
+            rank = _process_index()
+        self.rank = rank
+        if rank != 0:
+            # Only rank 0 speaks or writes:
+            verb = -1
+            logname = None
         self.logname = logname
         self.verb = verb
         self.width = width
@@ -82,8 +94,8 @@ class Log:
         """Log and raise: fatal configuration/runtime errors.
 
         The message goes to the log file always, and to stderr only when
-        verb >= 0; the raised ValueError carries it to the caller
-        regardless.
+        verb >= 0 (so muted rank != 0 processes stay silent); the raised
+        ValueError carries it to the caller regardless.
         """
         text = f'Error: {message}'
         if self.file is not None and not self.file.closed:
@@ -103,3 +115,12 @@ class Log:
         if self.warnings:
             self.msg(f'Collected {len(self.warnings)} warnings.')
         self.msg(f'Total runtime: {time.time() - self._t0:.2f} s')
+
+
+def _process_index():
+    """PBT_PROCID, else the rank of an initialized process group, else
+    0."""
+    if os.environ.get('PBT_PROCID'):
+        return int(os.environ['PBT_PROCID'])
+    from .parallel.distributed import process_index
+    return process_index()

@@ -29,6 +29,9 @@ class Observation:
         self.nbands = 0
         self.band_wl = None
         self._band_matrix = None
+        # The (chains, wave) mesh of a wave-sharded forward
+        # (parallel/sharded.py shard_model_tables), None otherwise:
+        self.mesh = None
         self.offset_inst = []
         self.uncert_scaling = []
 
@@ -222,8 +225,13 @@ class Observation:
         return self
 
     def band_integrate(self, spectrum):
-        """Band-integrated values: spectrum [B, nwave] -> [B, nbands]."""
-        return spectrum @ self._bands_t
+        """Band-integrated values: spectrum [B, nwave] -> [B, nbands].
+        On a wave-sharded forward the spectrum and the band matrix are
+        this rank's window: the local product is summed over the wave
+        group."""
+        bands = spectrum @ self._bands_t
+        return bands if self.mesh is None else self.mesh.all_sum(
+            bands, 'wave')
 
     def offset_data(self, offset_pars):
         """Data with per-instrument offsets: pars [B, noff] -> [B, nbands]."""

@@ -71,7 +71,7 @@ class VanderWaals:
 
         if not self.active_lines:
             return torch.zeros(
-                (*temperature.shape, self.nwave),
+                (*temperature.shape, len(self._wn)),
                 dtype=temperature.dtype, device=temperature.device,
             )
         wave = self._wn

@@ -246,9 +246,10 @@ class LineSample:
     @property
     def kernel_table(self):
         """The table as the RT kernels' ls_tab operand
-        [nspec*ntemp, l, nwave] (a view of the device table)."""
+        [nspec*ntemp, l, nwave] (a view of the device table, whose
+        wavenumber axis is a rank's window on a wave-sharded model)."""
         return self._table.reshape(
-            self.nspec * self.ntemp, self.nlayers, self.nwave)
+            self.nspec * self.ntemp, self.nlayers, -1)
 
     def kernel_weights(self, temperature, density, pars=None):
         """The RT kernels' ls_w operand: temperature [B, l], density

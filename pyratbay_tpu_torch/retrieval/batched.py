@@ -45,6 +45,11 @@ extinction parts are [B, l, W].
   convolution with the instrumental kernel, then a fixed lerp at the
   data's wavenumbers or, with a retrieved rv_shift, a per-chain lerp
   on the Doppler-shifted grid;
+* on a wave-sharded model (parallel/sharded.py shard_model_tables)
+  everything above runs on the rank's window of W / n columns: the
+  spectrum it returns is that window, the band product is summed over
+  the wave group (Observation.band_integrate), and the high-res stage
+  takes the whole spectrum, gathered over the wave group;
 * on request, the RT diagnostics (depth, ideep, the Planck grid of an
   emission, a patchy transit's clear depth) from the summed dense
   extinction (rt_diagnostics): the kernels return no depth.
@@ -369,6 +374,7 @@ def build_forward_batched(model, obs=None, ret=None):
     hires = None
     if obs is not None and obs.wn_hires is not None:
         hires = hires_stage(model, obs)
+    mesh = getattr(model, 'mesh', None)
     retrieve_rv = ret is not None and ret.irv is not None
     ls_tab = line_sample_table(model)
     lbl_engine = direct_lbl_engine(model)
@@ -410,7 +416,9 @@ def build_forward_batched(model, obs=None, ret=None):
                 good[:, None], bandflux, torch.full_like(bandflux, np.inf))
         if hires is not None:
             velocity = st['rv_shift'] * pc.km if retrieve_rv else None
-            flux_hires = hires(spectrum, velocity)
+            whole = spectrum if mesh is None else mesh.gather(
+                spectrum, 'wave', -1)[:, :model.nwave_unpadded]
+            flux_hires = hires(whole, velocity)
             out['bandflux_hires'] = torch.where(
                 good[:, None], flux_hires,
                 torch.full_like(flux_hires, np.inf))
@@ -425,8 +433,10 @@ def hires_stage(model, obs):
     """The high-res stage of a model and an Observation with a high-res
     channel (pyratbay_tpu batched.py:117-149): the instrumental kernel
     at inst_resolution on the model's sampling resolution
-    (grid.resolution, else the median wn / dwn of the grid)."""
-    wn = np.asarray(model.wn)
+    (grid.resolution, else the median wn / dwn of the grid), on the
+    whole grid of a wave-sharded model."""
+    wn = np.asarray(model.wn if getattr(model, 'mesh', None) is None
+                    else model.wn_unsharded)
     sampling_res = model.grid.resolution
     if sampling_res is None:
         sampling_res = float(np.median(wn[:-1] / np.ediff1d(wn)))

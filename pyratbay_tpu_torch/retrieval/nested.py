@@ -24,12 +24,18 @@ normal [nsteps_walk, batch, ndim] (one standard normal per walk step).
 
 The evidence sums, the truncation, the bootstrap and information
 errors, the mode separation and the equal-weight posterior are host
-numpy, copies of the JAX package's.  The `mesh` argument (several
-devices) is not ported.
+numpy, copies of the JAX package's.  With `mesh` (several ranks,
+parallel/sharded.py) every batched likelihood call is split over the
+chains group and gathered (sharded.split_chains), the counterpart of
+MultiNest's MPI likelihood farm: the results equal the single-rank
+run's.  A gloo group on CUDA tensors stages each gather through the
+host, a synchronisation a walk step (Mesh.host_syncs counts them); the
+single-rank run still reads nothing back in a scan step.
 """
 import numpy as np
 import torch
 
+from ..parallel.sharded import split_chains
 from .posterior import weighted_to_equal
 
 __all__ = ['sample_nested', 'scan_step', 'identify_modes', 'draw_step']
@@ -176,7 +182,7 @@ def scan_step(log_like, live_u, live_logl, pick, normal, batch, scales):
 def sample_nested(
         log_like_batched, prior_transform, ndim, nlive=400, generator=None,
         max_iter=None, stop_dlogz=0.1, nsteps_walk=25, batch=None,
-        draws=None, device=None, dtype=None,
+        draws=None, device=None, dtype=None, mesh=None,
     ):
     """Nested sampling with batched MCMC replacement.
 
@@ -203,6 +209,12 @@ def sample_nested(
         nsteps_walk, batch, ndim].
     device, dtype: of the sampler's state (the unit-cube points and
         their log-likelihoods).
+    mesh: a (chains, wave) Mesh (parallel/sharded.py) whose chain
+        shards split every batched likelihood call (the live set's
+        start and each walk step) and gather the results; `batch` is
+        set to a multiple of the chain shards, as the JAX package sets
+        it (max(batch, shards) rounded down to a multiple).  Every rank
+        runs the sampler with the same draws.
 
     Returns
     -------
@@ -220,6 +232,10 @@ def sample_nested(
     if batch is None:
         batch = max(1, nlive // 16)
     batch = int(min(batch, nlive // 2))
+    if mesh is not None:
+        nsh = mesh.shape['chains']
+        batch = max(batch, nsh) - max(batch, nsh) % nsh
+        log_like_batched = split_chains(log_like_batched, mesh)
     n_scan = max(1, -(-max_iter // batch))
     tensor = lambda a: torch.as_tensor(np.array(a), dtype=dtype,
                                        device=device)

@@ -17,7 +17,7 @@ torch = pytest.importorskip('torch')
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-8
 SUBPACKAGES = ['', 'atmosphere', 'opacity', 'spectrum', 'retrieval', 'io',
-               'ops']
+               'ops', 'parallel']
 
 # Names of the JAX package that the port leaves out on purpose (file,
 # name; None for a whole module): JAX- and XLA-specific tools, the

@@ -1205,3 +1205,76 @@ def test_cuda_lbl_line_kernels_at_retrieval_block(cuda, kind):
     assert got.shape == want.shape and got.shape[0] == block
     assert bool(torch.isfinite(got).all())
     assert _masked_rel(got, want) < LBL_TOL
+
+
+def _row_rel(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = want.abs().amax(dim=1, keepdim=True)
+    return float(((got - want).abs() / scale).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rank', [0, 1])
+def test_cuda_kernel_on_a_wave_window_matches_plain(cuda, tmp_path, rank):
+    """K1 on the operands of a wave-sharded forward (the flagship at test
+    size, wnstep 3: 467 columns, rank 1's window ends with the padded
+    one) against its plain version on the same float32 operands, moved
+    to the CPU.  One process: the ranks' windows come from meshes
+    without a group."""
+    from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch.benchmark import make_flagship
+    from pyratbay_tpu_torch.parallel import sharded
+    from pyratbay_tpu_torch.retrieval.batched import build_forward_batched
+    model, obs, ret, _, p0 = make_flagship(
+        str(tmp_path), nlayers=21, wl_low=1.1, wl_high=1.3, wnstep=3.0,
+        device='cuda')
+    mesh = sharded.Mesh((1, 2))
+    mesh.coords['wave'] = rank
+    sharded.shard_model_tables(model, obs, mesh)
+    calls = []
+    real = model_mod.transit_spectrum_ensemble
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    rng = np.random.default_rng(4)
+    params = np.tile(p0, (16, 1)) + 0.01 * rng.standard_normal(
+        (16, len(p0)))
+    model_mod.transit_spectrum_ensemble = record
+    try:
+        launches = tk.transit_rt_cuda.launches
+        with torch.no_grad():
+            spec = build_forward_batched(model, obs, ret)(params)['spectrum']
+        torch.cuda.synchronize()
+    finally:
+        model_mod.transit_spectrum_ensemble = real
+    assert tk.transit_rt_cuda.launches == launches + 1
+    assert spec.shape == (16, 234)
+    args, kw = calls[-1]
+    to_cpu = lambda v: v.cpu() if torch.is_tensor(v) else (
+        [p.cpu() for p in v] if isinstance(v, list) else v)
+    got = real(*args, **kw)
+    want = real(*[to_cpu(a) for a in args],
+                **{k: to_cpu(v) for k, v in kw.items()})
+    assert _row_rel(got, want) < TOL
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_share_the_card(cuda):
+    """mp_probe's group of two ranks on one card: gloo (NCCL refuses two
+    ranks on one device), the wave-sharded flagship's DEMC on the card."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, '-m', 'pyratbay_tpu_torch.parallel.mp_probe',
+         '--nprocs', '2', '--iters', '3', '--timeout', '300'],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+        capture_output=True, text=True, timeout=360)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-4000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line['backend'] == 'gloo' and line['device'].startswith('cuda')
+    assert line['mesh'] == [1, 2] and line['sec_per_generation'] > 0
