@@ -2,9 +2,9 @@
 retrievals end to end on one CUDA device, through the hand-written
 transit and emission kernels, then the transit retrieval on 81 layers
 through the transit kernel's tall function, then forward spectra from
-configs (runmode = spectrum and atmosphere) through the same kernels at
-B = 1, then retrievals as users run them (passbands from filter files
-and the bundled library, checkpoints and resume, the post-processing
+configs (runmode = spectrum and atmosphere) through the one-chain
+transit kernel (K2) and the emission kernel, then retrievals as users
+run them (passbands from filter files and the bundled library, checkpoints and resume, the post-processing
 and --post), then the flagship opacity workflow (line list -> TLI file
 -> cross-section table) through the hand-written line-by-line wing and
 core kernels, then a high-resolution eclipse retrieval with a
@@ -28,30 +28,41 @@ agreement; and timings: the kernel, its plain version and its roofline
 bound at B = 512 and B = 1, its recorded time before it was redesigned
 (a constant, labelled so), and the two line-sample routes in turns
 (einsum + contiguous copy + kernel on a dense part, against the kernel
-on weights and table).  Then the same for the transit retrieval on the
+on weights and table).  On the transit paths also K2, the one-chain
+kernel that Model.run (the best fit) launches, against its plain version
+on chain 0's raw operands (deck, no deck, no maxdepth, the line sample
+made a dense part, a second chain with +inf top radii), and its times
+(times_one_chain: the whole wrapper, its device ms and device launches a
+call, what the wrapper did before (K1 after prep_chains), the device ms
+at 4, 8, 16 and 32 warps a block, and K2 beside K1 at the nested walk's
+12 and 25 chains).
+Then the same for the transit retrieval on the
 flagship written on 81 layers (81 x 3209, 512 chains x 20 generations), whose forwards launch the tall function with the line
 sample inside it; its `times` line adds the chains the function keeps
 in flight on an SM.  Then the spectrum path: the flagship (51 x 3209) as runmode = spectrum configs
 with the bundled H2-H2 and H2-He CIA tables by basename (40 rows),
 Rayleigh, the haze and a gray cloud (5 rank-1 terms), the deck, and the
 specfile, through the CLI's driver on the default device: transit (one
-launch of the transit kernel at B = 1, the counterpart of the per-chain
-transit_spectrum_fused), eclipse (one emission launch), patchy transit
+launch of K2, the counterpart of the per-chain transit_spectrum_fused),
+eclipse (one emission launch), patchy transit
 (two launches), H- with Rayleigh of e- (6 rank-1 terms) on an
-atmosphere the script writes, and that atmosphere on 81 layers (the
-transit kernel's tall function); each spectrum read back from its file
+atmosphere the script writes, and that atmosphere on 81 layers (K2
+too); each spectrum read back from its file
 and held against a CPU float64 Model.run; runmode = atmosphere on the
 flagship; the kernels against their plain versions at B = 512 and B = 1
-on each of those operand sets, and at B = 512 on five dense parts (the
+(K2 on chain 0 of the B = 512 call) on each of those operand sets, and
+at B = 512 on five dense parts (the
 kernel on what the size rule fitted, the plain version on every
 operand), the tall function also on the line sample made a dense part
 (3 dense parts, the operands of its earlier version); and timings:
-Model.run, the kernels at B = 1, the tall function (on both operand
+Model.run (and its spectrum stamp), the kernels at B = 1, the tall
+function (on both operand
 sets, with its profiler device time) and the emission kernel at B = 512
 on 81 layers.  Then the model_io phase (run_model_io): the transit
 retrieval's Model and the eclipse spectrum's saved with io.save_model,
-reopened with io.load_model on the default device and run (K1 at B = 1,
-K3); the spectra against the originals', the result arrays exactly, K1
+reopened with io.load_model on the default device and run (K2, the
+one-chain kernel, and K3); the spectra against the originals', the
+result arrays exactly, K2
 and K3 on the reopened models' operands against their plain versions,
 the printed summary against a CPU float64 Model's, the ops helpers in
 float32 on the card against the CPU in float64, and the seconds of the
@@ -77,10 +88,14 @@ through io and LineSample, with K4 and K5 reading per-line factors by
 line range (no factor tensor in the window layout is made); the wing
 (K4, K6) and core (K5) kernels against their plain versions on one
 main-path block, a production-width block (200,000 points), a
-two-species case and a ragged cell count, the window-layout kernels of
-K4 and K5 too; the table against a CPU float64 tabulation of 3 T x 4
-layers; and timings: K4 and K5 with their plain versions and bounds on a
-flagship and a production block, the per-line route against the
+two-species case and a ragged cell count (K6 also at nspec = 2 on the
+main-path block), the window-layout kernels of K4 and K5 too; K6's own
+run (no user path launches it: its entry point lk.wing_sigma on that
+block at nspec 1 and 2, whose launches its entry counts); the table
+against a CPU float64 tabulation of 3 T x 4 layers; and timings: K4, K5
+and K6 with their plain versions and bounds on a flagship block (K6 also
+split over a block's warps and not, and at nspec = 2), K4 and K5 on a
+production block, the per-line route against the
 window-layout route in turns, three wing sub-tile widths, and one
 species at the production width of the JAX bench's _production_table.
 The spectrum phase also runs eclipse spectra with a Kurucz star (a
@@ -136,7 +151,7 @@ ExoMol TLI into the direct table on the card (K4, K5: a block against
 the plain versions, 4 cells against CPU float64) and through the parity
 engine on the native grouping and scatter (each native function's call
 count checked), the CLI's -cs hitran and -pf tips in processes of their
-own, and a spectrum on the card (K1 at B = 1) from that table and the
+own, and a spectrum on the card (K2) from that table and the
 CLI's CIA table against CPU float64.  Then the parallel phase
 (run_parallel): the wave-sharded flagship retrieval (51 x 3209, 512
 chains) on torch.distributed process groups whose ranks are new
@@ -195,12 +210,22 @@ KERNELS = {
 # and `times_spectrum` phases repeat them.
 EARLIER_MS = {'transit': 2.286, 'eclipse': 1.341}
 EARLIER_TALL_MS = 4.057
-# The per-chain interface (transit_spectrum_fused) is the transit kernel
-# launched with one chain:
-SINGLE_CHAIN = dict(
-    name='transit_rt_single_chain',
-    source='pyratbay_tpu_torch/csrc/transit_rt.cu',
+# The per-chain interface (transit_spectrum_fused, and the ensemble's
+# wrapper at B = 1) is K2, the one-chain kernel, on the raw operands.
+# Its EARLIER_* are constants, not measurements of a run of this script:
+# K1 launched with one chain after the wrapper's preparation (~35 small
+# launches), CUDA events around runs of 4 calls of the wrapper and
+# torch.profiler device ms, NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+# section 6).
+ONE_CHAIN = dict(
+    name='transit_one', tol=2e-5,
+    source='pyratbay_tpu_torch/csrc/transit_one.cu',
     replaces='pyratbay_tpu/spectrum/rt_pallas.py:221')
+EARLIER_ONE_MS = 0.160
+EARLIER_ONE_DEVICE_MS = [0.025, 0.047]
+# The nested walk's batches, at which K2 is timed beside K1 (a finding;
+# the wrappers send B > 1 to K1):
+ONE_BATCHES = (12, 25)
 # The spectrum phase: the bundled H2-H2 and H2-He CIA tables by basename
 # (20 + 20 rows, more than the kernels' 32), Rayleigh of H2, He and H
 # with the haze and a gray cloud (5 rank-1 terms, more than their 4),
@@ -211,6 +236,10 @@ BUNDLED_CIA = ('CIA_Borysow_H2H2_0060-7000K_0.6-500um.npz',
                'CIA_Borysow_H2He_0050-3000K_0.3-030um.npz')
 SPECTRUM_CLOUDS = ('deck 2.0', 'lecavelier 0.0 -4.0', 'ccsgray 0.0 -4.0 2.0')
 TALL_LAYERS = 81
+# Layers of the spectrum phase's deep transit run: above the most whose
+# block K2 holds in shared memory with any operand counts (168 to 272),
+# so Model.run takes its streamed layout.
+DEEP_LAYERS = 300
 ELECTRONS = ['H2', 'He', 'H', 'Na', 'K', 'H2O', 'CH4', 'CO', 'CO2', 'e-']
 ELECTRON_VMR = [8.5e-1, 1.49e-1, 1e-6, 3e-6, 5e-8, 4e-4, 1e-4, 5e-4, 1e-7,
                 1e-6]
@@ -253,7 +282,8 @@ LBL = {
         earlier_ms=0.203, earlier_production_ms=2.75),
     'wing': dict(
         name='lbl_wing', fn='wing_sigma',
-        replaces='pyratbay_tpu/opacity/lbl_pallas.py:239'),
+        replaces='pyratbay_tpu/opacity/lbl_pallas.py:239',
+        earlier_ms=1.253),
 }
 # The window-layout kernels of K4 and K5 (the JAX wrappers' operands):
 # off the main path, held against their plain versions all the same.
@@ -316,31 +346,87 @@ def paired_ms(fns, repeats=10):
     return {name: float(np.median(t)) for name, t in times.items()}
 
 
-def device_ms(fn, kernel_name, reps=10):
-    """Device milliseconds of one call fn() by torch.profiler: (the
-    kernel whose name contains `kernel_name`, every device kernel and
-    copy the call launches, the number of those launches).  CUDA events
-    around a single call also count the host's time between its
-    launches; this does not."""
+def _profile(fn, reps):
+    """torch.profiler's device records of `reps` calls of fn(), after a
+    warm-up step of the profiler (one call, its records dropped):
+    {key: (count, device us)} over every device kernel and copy (not the
+    step's own annotation on the device's timeline, nor any other
+    annotation).  Profiles late in this script missed records (6 of 10
+    launches of K2 at 300 layers in the spectrum phase, 7 or 8 of 10 of
+    K2 at 51 there, also with 50 ms of host time around each step's
+    calls; every one with the spectrum phase in a process of its own):
+    the callers count what the profile recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import schedule
     fn()
     torch.cuda.synchronize()
     with torch.no_grad(), tprofile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    main = total = 0.0
-    launches = 0
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CPU:
-            total += evt.device_time_total
-            launches += evt.count
-            if kernel_name in evt.key:
-                main += evt.device_time_total
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1,
+                              repeat=1)) as prof:
+        for calls in (1, reps):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return {evt.key: (evt.count, evt.device_time_total)
+            for evt in prof.key_averages()
+            if evt.device_type != DeviceType.CPU
+            and not getattr(evt, 'is_user_annotation', False)
+            and not evt.key.startswith('ProfilerStep')}
+
+
+def device_ms(fn, kernel_name, reps=10):
+    """Device milliseconds of one call fn() by torch.profiler: (the
+    kernels whose names contain `kernel_name`, every device kernel and
+    copy the call launches, the number of those launches), each over
+    `reps` calls.  CUDA events around a single call also count the
+    host's time between its launches; this does not."""
+    records = _profile(fn, reps)
+    main = sum(us for key, (_, us) in records.items() if kernel_name in key)
+    total = sum(us for _, us in records.values())
+    launches = sum(count for count, _ in records.values())
     return main / reps * 1e-3, total / reps * 1e-3, launches / reps
+
+
+def kernel_device_ms(fn, kernel_name, reps=10, tries=3):
+    """Device ms of a call fn() that launches the kernel `kernel_name`
+    once, by torch.profiler over `reps` calls: (the kernel's ms a launch,
+    over the launches the profile recorded of it; the call's device ms;
+    its device launches a call; the share of the kernel's launches the
+    profile recorded).  Of up to `tries` profiles the first that recorded
+    all `reps` launches, else the one that recorded the most; fails if
+    none recorded any."""
+    best = None
+    for _ in range(tries):
+        records = _profile(fn, reps)
+        count = sum(n for key, (n, _) in records.items()
+                    if kernel_name in key)
+        if best is None or count > best[0]:
+            best = count, records
+        if count == reps:
+            break
+    count, records = best
+    if count == 0:
+        fail(f'torch.profiler recorded no launch of {kernel_name} in '
+             f'{tries} profiles of {reps} calls: {sorted(records)}')
+    main = sum(us for key, (_, us) in records.items() if kernel_name in key)
+    total = sum(us for _, us in records.values())
+    launches = sum(n for n, _ in records.values())
+    return (main / count * 1e-3, total / reps * 1e-3, launches / reps,
+            count / reps)
+
+
+def call_launches(fn, kernel_name):
+    """Device launches of a call fn() for each launch of the kernel
+    `kernel_name` it makes, by kernel_device_ms' profile: every device
+    launch recorded over the kernel's launches recorded (a profile late
+    in this script misses records, `_profile`; a call of one launch reads
+    1 whatever it misses)."""
+    _, _, launches, recorded = kernel_device_ms(fn, kernel_name)
+    return launches / recorded
 
 
 def rel_err(got, want):
@@ -575,6 +661,158 @@ def kernel_bound(label, args, kw):
     return roofline(nbytes, flops, tf32)
 
 
+_ONE_PER_CHAIN = ('deck_itop', 'deck_rsurf', 'cia_w', 'r1_cols', 'r1_rows',
+                  'ls_w')
+
+
+def one_case(call, sl=slice(0, 1)):
+    """K2's (args, kwargs) for the chains `sl` of a recorded call of
+    transit_spectrum_ensemble: the raw operands, as the wrapper hands
+    one chain to K2."""
+    import torch
+    args, kw = call
+    parts, path, radius, rstar, itop, ibottom = args
+    cut = lambda v: v[sl] if torch.is_tensor(v) and v.dim() > 0 else v
+    kw = {k: cut(v) if k in _ONE_PER_CHAIN else v for k, v in kw.items()}
+    return ([p[sl] for p in parts], path[sl], radius[sl], rstar, cut(itop),
+            cut(ibottom)), kw
+
+
+def one_chain_cases(model, call, tag=''):
+    """K2's cases from a recorded call of the transit wrapper (chain 0 of
+    it): as the main path has it (deck, the flagship's maxdepth of 10),
+    without the deck, with no maxdepth, the line sample made a dense part,
+    and two chains of which the second has +inf top radii (NaN in its row
+    alone)."""
+    import torch
+    from pyratbay_tpu_torch.atmosphere import geometry
+    base = one_case(call)
+    (parts, path, rr, rstar, itop, ibottom), kw = base
+    cases = {
+        f'B1_{tag}deck': base,
+        f'B1_{tag}no_maxdepth': (base[0], dict(kw, maxdepth=np.inf)),
+    }
+    if kw.get('deck_itop') is not None:
+        cases[f'B1_{tag}nodeck'] = (
+            (parts, path, rr, rstar, itop,
+             torch.full_like(ibottom, model.nlayers)),
+            dict(kw, deck_itop=None, deck_rsurf=None))
+    if kw.get('ls_w') is not None:
+        dense = torch.einsum('bkl,klw->blw', kw['ls_w'],
+                             kw['ls_tab']).contiguous()
+        cases[f'B1_{tag}dense'] = ((parts + [dense], *base[0][1:]),
+                                   dict(kw, ls_w=None, ls_tab=None))
+    (parts2, _, rr2, _, itop2, ibot2), kw2 = one_case(call, slice(0, 2))
+    rr2 = rr2.clone()
+    rr2[1, :3] = np.inf
+    path2 = geometry.transit_path_matrix(rr2, itop2) * model._radius_scale
+    cases[f'B2_{tag}inf_top_radii'] = (
+        (parts2, path2, rr2, rstar, itop2, ibot2), kw2)
+    return cases
+
+
+def one_bound(args, kw):
+    """Roofline bound of one K2 call from its raw operands: every input
+    read once (of the line-sample table only the rows [k, j] whose
+    weight is not zero, which is what the function needs and what K2
+    reads), the [B, W] result written once, and the operations
+    kernel_bound counts for K1 up to 64 layers (K2's chord product runs
+    on the CUDA cores at any layer count)."""
+    import torch
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+    parts, radius = args[0], args[2]
+    nb, nlayers = radius.shape
+    nwave = tk._nwave(parts, kw['r1_rows'], kw['cia_tab'], kw['ls_tab'])
+    n_r1 = 0 if kw['r1_cols'] is None else kw['r1_cols'].shape[1]
+    nonzero = {k: int(torch.count_nonzero(kw[k])) for k in ('ls_w', 'cia_w')
+               if kw.get(k) is not None}
+    live_rows = 0 if kw.get('ls_w') is None else int(
+        torch.count_nonzero(kw['ls_w'].ne(0).any(dim=0)))
+    nbytes = tensor_bytes(*parts, *args[1:], *[
+        v for k, v in kw.items() if k != 'ls_tab']) \
+        + 4 * live_rows * nwave + 4 * nb * nwave
+    flops = nb * nwave * nlayers * (nlayers + 1) \
+        + nb * nwave * nlayers * (2 * n_r1 + max(len(parts) - 1, 0) + 10) \
+        + 2 * sum(nonzero.values()) * nwave
+    return roofline(nbytes, flops)
+
+
+def one_chain_times(case, call, card, label):
+    """K2's numbers on one chain's operands: CUDA events around runs of
+    the whole wrapper (transit_one_cuda) in turns with its plain version
+    and with what the wrapper did before (prep_chains, then K1 with one
+    chain), each's profiler device ms and device launches a call; and
+    K2 beside K1 at the nested walk's batches (from the recorded B = 512
+    call).  Emits `times_one_chain`; returns K2's kernel-entry numbers."""
+    from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+    args, kw = case
+
+    def before():
+        ops = tk.prep_chains(*args[1:], kw.get('deck_itop'),
+                             kw.get('deck_rsurf'))
+        return tk.transit_rt_cuda(list(args[0]), *ops, **{
+            k: v for k, v in kw.items()
+            if k not in ('deck_itop', 'deck_rsurf')})
+
+    ms = paired_ms({
+        'plain': lambda: tk.transit_one_plain(*args, **kw),
+        'kernel': lambda: tk.transit_one_cuda(*args, **kw),
+        'before': before})
+    dev = {name: kernel_device_ms(fn, kernel) for name, (fn, kernel) in {
+        'kernel': (lambda: tk.transit_one_cuda(*args, **kw),
+                   'transit_one_kernel'),
+        'before': (before, 'transit_rt_kernel')}.items()}
+    bound_ms, bound_by = one_bound(args, kw)
+    batches = {}
+    for nb in ONE_BATCHES:
+        b_args, b_kw = one_case(call, slice(0, nb))
+        pair = paired_ms({
+            'k2': lambda: tk.transit_one_cuda(*b_args, **b_kw),
+            'k1': lambda: tk.transit_spectrum_ensemble(*b_args, **b_kw)})
+        k2 = kernel_device_ms(lambda: tk.transit_one_cuda(*b_args, **b_kw),
+                              'transit_one_kernel')
+        k1 = kernel_device_ms(
+            lambda: tk.transit_spectrum_ensemble(*b_args, **b_kw),
+            'transit_rt_kernel')
+        batches[f'B{nb}'] = dict(
+            k2_ms=pair['k2'], k1_with_prep_ms=pair['k1'],
+            k2_device_ms=k2[0], k2_recorded=k2[3], k1_device_ms=k1[0],
+            k1_recorded=k1[3], k2_bound_ms=one_bound(b_args, b_kw)[0])
+    launches = {name: call_launches(fn, kernel) for name, fn, kernel in (
+        ('kernel', lambda: tk.transit_one_cuda(*args, **kw),
+         'transit_one_kernel'),
+        ('before', before, 'transit_rt_kernel'))}
+    emit('times_one_chain', path=label, card=card, kernel=ONE_CHAIN['name'],
+         nlayers=int(args[2].shape[1]), ms=ms['kernel'],
+         plain_ms=ms['plain'], bound_ms=bound_ms, bound_by=bound_by,
+         device_ms=dev['kernel'][0], device_recorded=dev['kernel'][3],
+         device_launches=launches['kernel'],
+         before_ms=ms['before'], before_device_ms=dev['before'][1],
+         before_device_launches=launches['before'],
+         earlier_ms=EARLIER_ONE_MS, earlier_device_ms=EARLIER_ONE_DEVICE_MS,
+         earlier_note='constants from PERF.md, not measured in this run: '
+                      'K1 with one chain after the wrapper\'s preparation',
+         batches=batches,
+         times_note='*_ms: CUDA events around runs of 4 calls of the '
+                    'whole wrapper, in turns; device_ms: torch.profiler, '
+                    'the kernel alone a launch over the launches its '
+                    'profile of 10 calls recorded (*_recorded: their '
+                    'share; before_device_ms: every device kernel and '
+                    'copy of the call); *_launches: device launches of a '
+                    'call for each launch of its kernel, by torch.profiler '
+                    'over 10 calls (call_launches); '
+                    'batches: K2 with B chains beside '
+                    'transit_spectrum_ensemble (prep_chains and K1), a '
+                    'finding, the wrappers send B > 1 to K1')
+    if launches['kernel'] != 1:
+        fail(f'{label}: a one-chain transit call made '
+             f'{launches["kernel"]} device launches, not 1')
+    return dict(ms=ms['kernel'], plain_ms=ms['plain'], bound_ms=bound_ms,
+                bound_by=bound_by, device_ms=dev['kernel'][0],
+                earlier_ms=EARLIER_ONE_MS,
+                earlier_device_ms=EARLIER_ONE_DEVICE_MS)
+
+
 def check_kernel(name, kernel, plain, cases, tol):
     """Each case through the kernel and its plain version; returns each
     case's largest absolute difference.  Fails beyond `tol` of the row
@@ -647,6 +885,14 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
     cases = kernel_cases(kind, model, call, rejected)
     case_abs = check_kernel(spec['name'], kernel, plain, cases, spec['tol'])
     max_abs = max(case_abs.values())
+    # K2 on one chain's raw operands from the same call:
+    one_abs = {}
+    if kind == 'transit':
+        one_cases = one_chain_cases(
+            model, call, tag='layers81_' if tall else 'ls_')
+        one_abs = check_kernel(ONE_CHAIN['name'], tk.transit_one_cuda,
+                               tk.transit_one_plain, one_cases,
+                               ONE_CHAIN['tol'])
 
     # The main path, through the driver:
     band0 = forward(p0)['bandflux'].cpu().numpy()
@@ -661,9 +907,8 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
     write_retrieval_cfg(
         os.path.join(workdir, 'flagship.cfg'), cfg_file, data, uncert,
         filters, os.path.join(workdir, 'retrieval.log'))
-    for counter in counters:
+    for counter in (*counters, tk.transit_one_cuda):
         counter.launches = 0
-    tk.transit_rt_cuda.single_chain_launches = 0
     tk.transit_rt_cuda.tall_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -674,8 +919,9 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
         keep['model'] = rmodel
     tall_launches = tk.transit_rt_cuda.tall_launches
     launches = tall_launches if tall else kernel.launches - tall_launches
-    single_launches = tk.transit_rt_cuda.single_chain_launches
-    all_launches = {c.__name__: c.launches for c in counters}
+    one_launches = tk.transit_one_cuda.launches
+    all_launches = {c.__name__: c.launches
+                    for c in (*counters, tk.transit_one_cuda)}
     all_launches['transit_rt_tall'] = tall_launches
     if rmodel.device.type != 'cuda':
         fail(f'{label}: the retrieval ran on {rmodel.device}, not on the '
@@ -738,7 +984,7 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
         'kernel_b1': lambda: kernel(*one_args, **one_kw),
     })
     kernel_name = spec['name'] + '_kernel'
-    dev_ms = {name: device_ms(fn, kernel_name) for name, fn in {
+    dev_ms = {name: kernel_device_ms(fn, kernel_name) for name, fn in {
         'kernel': lambda: kernel(*ls_args, **ls_kw),
         'kernel_dense': lambda: kernel(*dense_args, **dense_kw),
         'route_dense': route_dense,
@@ -781,8 +1027,9 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
                       'none: the function before its redesign took no '
                       'line sample (times_spectrum has its successor)',
          main_path_launches=launches, **extra,
-         device_ms={name: {'kernel_alone': alone, 'whole_call': whole}
-                    for name, (alone, whole, _) in dev_ms.items()},
+         device_ms={name: {'kernel_alone': alone, 'whole_call': whole,
+                           'recorded': recorded}
+                    for name, (alone, whole, _, recorded) in dev_ms.items()},
          times_note='*_ms: CUDA events around runs of 4 calls of the '
                     'wrapper (its layout operations included; at B = 1 '
                     'the host between the launches too); device_ms: '
@@ -808,21 +1055,27 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
 
     entry = {'name': spec['name'], 'route': 'cuda', 'source': spec['source'],
              'replaces': spec['replaces'], 'launches': launches,
+             'launches_by_path': {label: launches},
              'max_abs_err': max_abs, 'ms': ms['kernel'],
              'plain_ms': ms['plain'], 'bound_ms': bound_ms,
              'bound_by': bound_by, 'library_ms': None}
     entries = [entry]
-    if kind == 'transit' and not tall:
-        if single_launches < 1:
-            fail('transit: the main path launched the kernel with one '
-                 'chain no time')
-        entries.append({
-            **SINGLE_CHAIN, 'route': 'cuda', 'launches': single_launches,
-            'max_abs_err': max(case_abs['B1_ls_deck'],
-                               case_abs['B1_dense_deck']),
-            'ms': ms['kernel_b1'], 'plain_ms': ms['plain_b1'],
-            'bound_ms': b1_bound_ms, 'bound_by': b1_bound_by,
-            'library_ms': None})
+    if kind == 'transit':
+        # K2: the main path's best fit (Model.run, B = 1) launches it.
+        if one_launches < 1:
+            fail(f'{label}: the main path launched the one-chain kernel '
+                 'no time')
+        one = {'name': ONE_CHAIN['name'], 'launches': one_launches,
+               'launches_by_path': {label: one_launches},
+               'max_abs_err': max(one_abs.values())}
+        if tall:
+            one['partial'] = True
+        else:
+            one.update(route='cuda', source=ONE_CHAIN['source'],
+                       replaces=ONE_CHAIN['replaces'], library_ms=None,
+                       **one_chain_times(one_cases['B1_ls_deck'], call,
+                                         card, label))
+        entries.append(one)
     return entries
 
 
@@ -910,7 +1163,8 @@ def run_spectrum(workdir, dev, args, card):
     full width: Model.run through the RT kernels at B = 1 from the
     CLI's driver, the kernels against their plain versions beyond their
     operand limits (40 CIA rows, 6 rank-1 terms, 5 dense parts, 81
-    layers), GPU against CPU float64, timings.  Returns the kernels'
+    layers; K2 streamed at 300 layers), GPU against CPU float64,
+    timings.  Returns the kernels'
     launches, what the tall function's entry takes from the phase and
     the phase's Models by run name."""
     import torch
@@ -943,48 +1197,59 @@ def run_spectrum(workdir, dev, args, card):
     with_e = dict(atmfile=atm_e, rayleigh=('H2', 'He', 'H', 'e-'),
                   extra=('h_ion = h_ion_john1988',))
     runs = {
-        # name: (rt_path, config options, K1, K1 at B = 1, tall, K3)
-        'transit': ('transit', {}, 1, 1, 0, 0),
-        'eclipse': ('eclipse', {}, 0, 0, 0, 1),
+        # name: (rt_path, config options, K1, K2, K1's tall function, K3,
+        # K2 streamed)
+        'transit': ('transit', {}, 0, 1, 0, 0, 0),
+        'eclipse': ('eclipse', {}, 0, 0, 0, 1, 0),
         'transit_patchy': ('transit', dict(extra=('fpatchy = 0.4',)),
-                           2, 2, 0, 0),
-        'transit_h_ion': ('transit', with_e, 1, 1, 0, 0),
-        'eclipse_h_ion': ('eclipse', with_e, 0, 0, 0, 1),
+                           0, 2, 0, 0, 0),
+        'transit_h_ion': ('transit', with_e, 0, 1, 0, 0, 0),
+        'eclipse_h_ion': ('eclipse', with_e, 0, 0, 0, 1, 0),
         'transit_tall': ('transit', dict(with_e, nlayers=TALL_LAYERS),
-                         1, 1, 1, 0),
+                         0, 1, 0, 0, 0),
         'eclipse_tall': ('eclipse', dict(with_e, nlayers=TALL_LAYERS),
-                         0, 0, 0, 1),
+                         0, 0, 0, 1, 0),
+        'transit_deep': ('transit', dict(nlayers=DEEP_LAYERS),
+                         0, 1, 0, 0, 1),
         'eclipse_kurucz': ('eclipse', dict(extra=(
-            f'kurucz = {pck}', 'log_gstar = 4.4')), 0, 0, 0, 1),
+            f'kurucz = {pck}', 'log_gstar = 4.4')), 0, 0, 0, 1, 0),
         'eclipse_starspec': ('eclipse', dict(extra=(f'starspec = {sed}',)),
-                             0, 0, 0, 1),
-        'transit_tli': ('transit', dict(tli=tli), 1, 1, 0, 0),
-        'eclipse_tli': ('eclipse', dict(tli=tli), 0, 0, 0, 1),
+                             0, 0, 0, 1, 0),
+        'transit_tli': ('transit', dict(tli=tli), 0, 1, 0, 0, 0),
+        'eclipse_tli': ('eclipse', dict(tli=tli), 0, 0, 0, 1, 0),
     }
-    counters = (tk.transit_rt_cuda, ek.emission_rt_cuda)
+    counters = (tk.transit_rt_cuda, tk.transit_one_cuda, ek.emission_rt_cuda)
     natives = (runtime.lbl_group, runtime.lbl_scatter)
-    total = {'transit_rt': 0, 'transit_rt_single_chain': 0,
-             'transit_rt_tall': 0, 'emission_rt': 0}
-    cfgs, models = {}, {}
+    total = {'transit_rt': 0, 'transit_one': 0, 'transit_rt_tall': 0,
+             'emission_rt': 0, 'transit_one_streamed': 0}
+    cfgs, models, deep_call = {}, {}, None
     for name, (rt_path, opts, *expect) in runs.items():
         cfgs[name] = cfg = write_spectrum_cfg(workdir, name, rt_path, **opts)
         for counter in counters:
             counter.launches = 0
         for fn in natives:
             fn.calls = 0
-        tk.transit_rt_cuda.single_chain_launches = 0
         tk.transit_rt_cuda.tall_launches = 0
+        tk.transit_one_cuda.streamed_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model = run(cfg)              # the default device: the card
+        # (The default device: the card.  The deep run's RT call is kept
+        # for K2's check below.)
+        calls = record_calls(
+            ((model_mod, 'transit_spectrum_ensemble'),)
+            if name == 'transit_deep' else (),
+            lambda: models.update({name: run(cfg)}))
+        model = models[name]
+        if calls:
+            deep_call, = calls
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {
             'transit_rt': tk.transit_rt_cuda.launches,
-            'transit_rt_single_chain':
-                tk.transit_rt_cuda.single_chain_launches,
+            'transit_one': tk.transit_one_cuda.launches,
             'transit_rt_tall': tk.transit_rt_cuda.tall_launches,
-            'emission_rt': ek.emission_rt_cuda.launches}
+            'emission_rt': ek.emission_rt_cuda.launches,
+            'transit_one_streamed': tk.transit_one_cuda.streamed_launches}
         # The parity engine's grouping and scatter in the native runtime
         # (a TLI file's H2O): one grouping a model, a scatter a layer.
         native_calls = {fn.__name__: fn.calls for fn in natives}
@@ -1043,6 +1308,7 @@ def run_spectrum(workdir, dev, args, card):
     rng = np.random.default_rng(0)
     case_abs = {}
     all_cases = {}
+    one_cases = {}
     for label, wrapper, kernel, plain, tol in (
             ('transit', 'transit_spectrum_ensemble', tk.transit_rt_cuda,
              tk.transit_rt_plain, KERNELS['transit']['tol']),
@@ -1108,23 +1374,96 @@ def run_spectrum(workdir, dev, args, card):
                          f'({rel})')
                 case_abs[(label, case)] = absolute
             all_cases[(label, tag)] = cases
+            if label == 'transit':
+                # K2 on chain 0 of the wrapper's call (the rule-fitted
+                # operands) against the plain version on every operand
+                # before the rule (fit_operands' call):
+                (pre_parts,), pre_kw = pre
+                one_args, one_kw = one_case(post)
+                plain_kw = dict(one_kw, **{
+                    k: (v[:1] if k in _ONE_PER_CHAIN and v is not None
+                        else v) for k, v in pre_kw.items()})
+                plain_args = ([p[:1] for p in pre_parts], *one_args[1:])
+                one_cases[f'B1_{tag}'] = (one_args, one_kw, plain_args,
+                                          plain_kw)
+
+    one_abs = 0.0
+    for case, (k_args, k_kw, p_args, p_kw) in one_cases.items():
+        got = tk.transit_one_cuda(*k_args, **k_kw)
+        want = tk.transit_one_plain(*p_args, **p_kw)
+        torch.cuda.synchronize()
+        rel, absolute = rel_err(got, want)
+        emit('kernel_check', kernel=ONE_CHAIN['name'], case=case,
+             shape=list(got.shape), nlayers=int(k_args[2].shape[1]),
+             kernel_and_plain_operands=dict(
+                 dense_parts=[len(k_args[0]), len(p_args[0])],
+                 rank1=[int(kw['r1_cols'].shape[1]) for kw in (k_kw, p_kw)],
+                 cia_rows=[int(kw['cia_w'].shape[2]) for kw in (k_kw, p_kw)]),
+             max_rel_err=rel, max_abs_err=absolute, tol=ONE_CHAIN['tol'])
+        if not rel < ONE_CHAIN['tol']:
+            fail(f'spectrum {case}: K2 disagrees with plain ({rel})')
+        one_abs = max(one_abs, absolute)
+    # K2 streamed (ec and the depths through device memory) on the deep
+    # run's operands, against its plain version; its times by events in
+    # turns with the plain version and by the profiler:
+    one_abs = max(one_abs, *check_kernel(
+        ONE_CHAIN['name'], tk.transit_one_cuda, tk.transit_one_plain,
+        {'B1_deep_streamed': deep_call}, ONE_CHAIN['tol']).values())
+    deep_ms = paired_ms({
+        'kernel': lambda: tk.transit_one_cuda(*deep_call[0], **deep_call[1]),
+        'plain': lambda: tk.transit_one_plain(*deep_call[0], **deep_call[1])},
+        repeats=5)
+    deep_dev = kernel_device_ms(
+        lambda: tk.transit_one_cuda(*deep_call[0], **deep_call[1]),
+        'transit_one_kernel')
+    streamed = dict(
+        nlayers=DEEP_LAYERS, kernel_ms=deep_ms['kernel'],
+        plain_ms=deep_ms['plain'], device_ms=deep_dev[0],
+        device_recorded=deep_dev[3],
+        staged_max_layers=tk.one_staged_max_layers(*[
+            0 if deep_call[1][k] is None else deep_call[1][k].shape[i]
+            for k, i in (('r1_cols', 1), ('cia_w', 2), ('ls_w', 1))],
+            len(deep_call[0][0])))
+    streamed['bound_ms'], streamed['bound_by'] = one_bound(*deep_call)
 
     # Times (NVIDIA card named in `card`): Model.run by the host clock
     # (ending in a synchronize), K1 and K3 at B = 1 on Model.run's
     # operands and the tall function at B = 512 on 81 layers (the line
     # sample in it, and as a dense part) by events, in turns with their
     # plain versions; the tall function's device time by the profiler.
-    run_s = {}
+    run_s, stamp_s = {}, {}
     for name in ('transit', 'eclipse', 'transit_tall'):
         model = models[name]
-        times = []
+        times, stamps = [], []
         for _ in range(MODEL_RUN_REPEATS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             model.run()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+            stamps.append(model.timestamps['spectrum'])
         run_s[name] = float(np.median(times))
+        stamp_s[name] = float(np.median(stamps))
+    # K2 on Model.run's operands (chain 0 of the B = 512 wrapper call:
+    # 40 CIA rows and 5 rank-1 terms through the size rule), events around
+    # the whole wrapper in turns with its plain version, device ms and
+    # launches by the profiler:
+    k_args, k_kw, _, _ = one_cases['B1_cia40_r1_5']
+    one_ms = paired_ms({
+        'kernel': lambda: tk.transit_one_cuda(*k_args, **k_kw),
+        'plain': lambda: tk.transit_one_plain(*k_args, **k_kw)}, repeats=5)
+    one_dev = kernel_device_ms(
+        lambda: tk.transit_one_cuda(*k_args, **k_kw), 'transit_one_kernel')
+    one_timed = dict(
+        kernel_ms=one_ms['kernel'], plain_ms=one_ms['plain'],
+        device_ms=one_dev[0], device_recorded=one_dev[3],
+        device_launches=call_launches(
+            lambda: tk.transit_one_cuda(*k_args, **k_kw),
+            'transit_one_kernel'))
+    one_timed['bound_ms'], one_timed['bound_by'] = one_bound(k_args, k_kw)
+    if one_timed['device_launches'] != 1:
+        fail(f'spectrum: K2 on Model.run\'s operands made '
+             f'{one_timed["device_launches"]} device launches a call, not 1')
     timed = {}
     for key, (label, tag, case) in {
             'transit_b1': ('transit', 'cia40_r1_5', 'B1_cia40_r1_5'),
@@ -1148,7 +1487,7 @@ def run_spectrum(workdir, dev, args, card):
         timed[key] = dict(kernel_ms=ms['kernel'], plain_ms=ms['plain'],
                           bound_ms=bound_ms, bound_by=bound_by)
         if key.startswith('tall_b512'):
-            timed[key]['device_ms'] = device_ms(
+            timed[key]['device_ms'] = kernel_device_ms(
                 lambda: kernel(*k_args, **k_kw), 'transit_rt_tall_kernel')[0]
             timed[key]['dense_parts'] = len(k_args[0])
     earlier = dict(
@@ -1159,6 +1498,8 @@ def run_spectrum(workdir, dev, args, card):
     emit('times_spectrum', card=card, model_run_seconds=run_s,
          model_run_note=f'host clock around Model.run ending in a '
                         f'synchronize, median of {MODEL_RUN_REPEATS}',
+         model_run_spectrum_stamp_seconds=stamp_s,
+         one_chain_b1=one_timed, one_chain_streamed=streamed,
          kernels=dict(timed, tall_b512_dense_ls=earlier),
          kernels_note='CUDA events around runs of 4 calls of the kernel '
                       'wrapper on the rule-fitted operands, medians, in '
@@ -1169,15 +1510,16 @@ def run_spectrum(workdir, dev, args, card):
                     run_s[name] * 1e3)
     tall_abs = max(v for (label, case), v in case_abs.items()
                    if label == 'transit' and 'layers81' in case)
-    # What the tall function's kernel entry takes from this phase (its
-    # launches here are Model.run's, at B = 1):
-    tall = {'max_abs_err': tall_abs, 'spectrum_operands': {
-        key: timed[key] for key in ('tall_b512', 'tall_b512_dense_ls')}}
-    for key in ('transit_rt', 'transit_rt_single_chain', 'emission_rt'):
+    # What the tall function's and K2's kernel entries take from this
+    # phase (Model.run launches K2 at B = 1, and the tall function no
+    # time):
+    tall = {'max_abs_err': tall_abs, 'one_max_abs_err': one_abs,
+            'spectrum_operands': {
+                key: timed[key] for key in ('tall_b512',
+                                            'tall_b512_dense_ls')}}
+    for key in ('transit_one', 'emission_rt'):
         if total[key] < 1:
             fail(f'spectrum: {key} launched no time')
-    if total['transit_rt_tall'] < 1:
-        fail('spectrum: the tall transit function launched no time')
     return total, tall, models
 
 
@@ -1249,9 +1591,9 @@ def ops_on_the_card(dev):
 def run_model_io(workdir, dev, args, card, transit_model, eclipse_model):
     """save_model / load_model on the card: the transit retrieval's Model
     (posterior, bestp, spec_best) and the eclipse flagship's spectrum
-    Model are saved, reopened on the default device and run (K1 at B = 1,
-    K3); the spectra against the originals' within the kernels' bounds,
-    the result arrays exactly, K1 and K3 on the reopened models' operands
+    Model are saved, reopened on the default device and run (K2, K3);
+    the spectra against the originals' within the kernels' bounds,
+    the result arrays exactly, K2 and K3 on the reopened models' operands
     against their plain versions, the summaries against a CPU float64
     Model's, the ops helpers against the CPU, and timings (save, load,
     the reopened run by the host clock and by Model.timestamps).  Returns
@@ -1264,19 +1606,18 @@ def run_model_io(workdir, dev, args, card, transit_model, eclipse_model):
     from pyratbay_tpu_torch.spectrum import emission_kernel as ek
     from pyratbay_tpu_torch.spectrum import transit_kernel as tk
 
-    counters = (tk.transit_rt_cuda, ek.emission_rt_cuda)
-    total = {'transit_rt_cuda': 0, 'transit_rt_single_chain': 0,
-             'emission_rt_cuda': 0}
+    counters = (tk.transit_rt_cuda, tk.transit_one_cuda, ek.emission_rt_cuda)
+    total = {c.__name__: 0 for c in counters}
     max_abs = {}
     for label, original in (('transit', transit_model),
                             ('eclipse', eclipse_model)):
-        spec = KERNELS[label]
+        # Model.run: K2 (one chain) or K3.
+        spec = ONE_CHAIN if label == 'transit' else KERNELS[label]
         want = torch.as_tensor(original.run()['spectrum'])
         path = os.path.join(workdir, f'{label}_model.pickle')
         # The main path: save, reopen on the default device, run.
         for counter in counters:
             counter.launches = 0
-        tk.transit_rt_cuda.single_chain_launches = 0
         tk.transit_rt_cuda.tall_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1293,25 +1634,22 @@ def run_model_io(workdir, dev, args, card, transit_model, eclipse_model):
         got = reopened.run()['spectrum']
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = {
-            'transit_rt_cuda': tk.transit_rt_cuda.launches,
-            'transit_rt_single_chain':
-                tk.transit_rt_cuda.single_chain_launches,
-            'emission_rt_cuda': ek.emission_rt_cuda.launches}
+        launches = {c.__name__: c.launches for c in counters}
         for key, value in launches.items():
             total[key] += value
         rel, absolute = rel_err(got[None], want[None].to(got.device))
 
-        # K1 (B = 1) or K3 on the reopened model's operands:
+        # K2 or K3 on the reopened model's operands:
         kind = 'transit' if label == 'transit' else 'eclipse'
         wrapper = 'transit_spectrum_ensemble' if kind == 'transit' \
             else 'emission_flux_ensemble'
-        kernel, plain = (tk.transit_rt_cuda, tk.transit_rt_plain) \
+        kernel, plain = (tk.transit_one_cuda, tk.transit_one_plain) \
             if kind == 'transit' else (ek.emission_rt_cuda,
                                        ek.emission_rt_plain)
         call, = record_calls(((model_mod, wrapper),),
                              lambda: reopened.run())
-        case = wrapper_case(kind, reopened, call)
+        case = call if kind == 'transit' \
+            else wrapper_case(kind, reopened, call)
         max_abs[spec['name']] = check_kernel(
             spec['name'], kernel, plain, {'model_io_B1': case},
             spec['tol'])['model_io_B1']
@@ -1338,9 +1676,9 @@ def run_model_io(workdir, dev, args, card, transit_model, eclipse_model):
         checks = {
             'on_the_card': reopened.device.type == 'cuda',
             'launches': launches == (
-                {'transit_rt_cuda': 1, 'transit_rt_single_chain': 1,
+                {'transit_rt_cuda': 0, 'transit_one_cuda': 1,
                  'emission_rt_cuda': 0} if kind == 'transit' else
-                {'transit_rt_cuda': 0, 'transit_rt_single_chain': 0,
+                {'transit_rt_cuda': 0, 'transit_one_cuda': 0,
                  'emission_rt_cuda': 1}),
             'spectrum': rel < spec['tol'],
             'results_restored': all(equal.values()) and (
@@ -1624,6 +1962,13 @@ def run_opacity(workdir, dev, args, card):
     # 21 cells: no multiple of the kernels' cell tiles (16 and 2).
     cases['ragged_cells'] = lbl_operands(
         direct, (t_blk[:21], d_blk[:21], pf_blk[:21]), 1)
+    # K6 at nspec = 2 on the flagship block (a species index drawn over
+    # two for its window entries):
+    wing_ops, wing_kw = cases['flagship_block']['wing']
+    spec2 = torch.as_tensor(np.random.default_rng(6).integers(
+        0, 2, tuple(wing_ops[2].shape)), dtype=torch.int32, device=dev)
+    cases['flagship_block_nspec2'] = {
+        'wing': ((*wing_ops[:7], spec2), dict(wing_kw, nspec=2))}
     max_abs = {key: 0.0 for key in every}
     for case, ops in cases.items():
         for key, (operands, kw) in ops.items():
@@ -1640,6 +1985,17 @@ def run_opacity(workdir, dev, args, card):
             if not rel < LBL_TOL:
                 fail(f'{every[key]["name"]} {case}: kernel disagrees with '
                      f'plain ({rel})')
+
+    # K6's own run (no user path of either package launches it): its
+    # entry point, lk.wing_sigma, on the flagship block at nspec 1 and 2.
+    lk.wing_sigma_cuda.launches = 0
+    for case in ('flagship_block', 'flagship_block_nspec2'):
+        k6_ops, k6_kw = cases[case]['wing']
+        lk.wing_sigma(*k6_ops, **k6_kw)
+    torch.cuda.synchronize()
+    k6_launches = lk.wing_sigma_cuda.launches
+    if k6_launches != 2:
+        fail(f'opacity: lk.wing_sigma made {k6_launches} K6 launches, not 2')
 
     # 3. GPU float32 table against a CPU float64 tabulation.
     it, il = [0, 4, 9], [0, 17, 34, 50]
@@ -1682,6 +2038,17 @@ def run_opacity(workdir, dev, args, card):
 
     ops = cases['flagship_block']
     ms, plain_ms, bounds = block_times(ops, 5, 0)
+    # K6 with each warp's run split over a block's warps and not (the
+    # launch picks by its warps an SM), and at nspec = 2:
+    k6_ops, k6_kw = ops['wing']
+    k6_ms = paired_ms({
+        'own_choice': lambda: kernels['wing'](*k6_ops, **k6_kw),
+        'split': lambda: kernels['wing'](*k6_ops, **k6_kw, split=True),
+        'unsplit': lambda: kernels['wing'](*k6_ops, **k6_kw, split=False)},
+        repeats=5)
+    k6_ops2, k6_kw2 = cases['flagship_block_nspec2']['wing']
+    k6_ms['nspec2'] = float(np.median(cuda_times(
+        lambda: kernels['wing'](*k6_ops2, **k6_kw2), 5)))
 
     # The two routes of one 64-cell flagship block in turns: factors in
     # the window layout and the window kernels, against factors per line
@@ -1758,8 +2125,10 @@ def run_opacity(workdir, dev, args, card):
                     f'{CORE_PAIR_INSTR} (core) instructions a lane, at one '
                     'instruction a lane and clock (half the float32 peak)',
          earlier_ms={LBL[k]['name']: LBL[k]['earlier_ms']
-                     for k in ('wing_lines', 'core_lines')},
-         earlier_note=EARLIER_NOTE,
+                     for k in ('wing_lines', 'core_lines', 'wing')},
+         earlier_note=EARLIER_NOTE + '; lbl_wing: K6 before its redesign '
+                      '(one thread a point)',
+         k6_ms=k6_ms,
          routes_ms={'window_factors_and_window_kernels':
                     routes['window_layout'],
                     'line_factors_and_line_kernels': routes['per_line']},
@@ -1884,9 +2253,14 @@ def run_opacity(workdir, dev, args, card):
                  'plain_ms': plain_ms[key], 'bound_ms': bounds[key][0],
                  'bound_by': bounds[key][1], 'library_ms': None}
         if key == 'wing':
-            entry['note'] = ('no production path of the JAX package reaches '
-                             'wing_sigma; held against its plain version '
-                             'only')
+            entry.update(
+                launches=k6_launches, issue_bound_ms=bounds[key][2],
+                earlier_ms=spec['earlier_ms'],
+                note='no user path of either package reaches wing_sigma: '
+                     'launches are its own run in the opacity phase '
+                     '(lk.wing_sigma on the flagship block at nspec 1 and '
+                     '2); earlier_ms a constant from PERF.md, the kernel '
+                     'before its redesign')
         else:
             entry['windows_ms'] = ms[WINDOWS_OF[key]]
             entry['windows_note'] = (
@@ -2029,15 +2403,14 @@ def run_retrieval_post(workdir, dev, args, card):
 
     def zero_counts():
         tk.transit_rt_cuda.launches = 0
-        tk.transit_rt_cuda.single_chain_launches = 0
+        tk.transit_one_cuda.launches = 0
         tk.transit_rt_cuda.tall_launches = 0
         ek.emission_rt_cuda.launches = 0
 
     def counts():
         return {'transit_rt': (tk.transit_rt_cuda.launches
                                - tk.transit_rt_cuda.tall_launches),
-                'transit_rt_single_chain':
-                    tk.transit_rt_cuda.single_chain_launches,
+                ONE_CHAIN['name']: tk.transit_one_cuda.launches,
                 'emission_rt': ek.emission_rt_cuda.launches}
 
     post_s = []
@@ -2120,7 +2493,7 @@ def run_retrieval_post(workdir, dev, args, card):
     transit_plots = outputs(base, 'transit')
     min_launches = 2 * (POST_GENS + 1) + 1
     if transit_launches['transit_rt'] < min_launches \
-            or transit_launches['transit_rt_single_chain'] < 2:
+            or transit_launches[ONE_CHAIN['name']] < 2:
         fail(f'retrieval_post: transit launches {transit_launches}')
     transit_errs, transit_cpu_s = against_cpu(cfg_file, base, 'transit')
 
@@ -2714,23 +3087,20 @@ def run_equilibrium(workdir, dev, args, card):
     with open(cfgs['eclipse'], 'w') as f:
         f.write(text.replace('rt_path = transit', 'rt_path = eclipse'))
 
-    counters = (tk.transit_rt_cuda, ek.emission_rt_cuda)
-    launches = {'transit_rt': 0, 'transit_rt_single_chain': 0,
-                'emission_rt': 0}
+    counters = (tk.transit_rt_cuda, tk.transit_one_cuda, ek.emission_rt_cuda)
+    launches = {'transit_rt': 0, ONE_CHAIN['name']: 0, 'emission_rt': 0}
 
     def counted(fn):
         """fn() between zeroed launch counters; adds its launches to
         the phase's and returns (fn's result, its launches)."""
         for counter in counters:
             counter.launches = 0
-        tk.transit_rt_cuda.single_chain_launches = 0
         tk.transit_rt_cuda.tall_launches = 0
         torch.cuda.synchronize()
         out = fn()
         torch.cuda.synchronize()
         got = {'transit_rt': tk.transit_rt_cuda.launches,
-               'transit_rt_single_chain':
-                   tk.transit_rt_cuda.single_chain_launches,
+               ONE_CHAIN['name']: tk.transit_one_cuda.launches,
                'emission_rt': ek.emission_rt_cuda.launches}
         for key, value in got.items():
             launches[key] += value
@@ -2765,14 +3135,8 @@ def run_equilibrium(workdir, dev, args, card):
         pb_rejected[-1, 1] = 1.0e6
         rejected, = record_calls(((model_mod, wrapper),),
                                  lambda: forward_b(pb_rejected))
-        args_, kw_ = call
-        one = slice(0, 1)
         cases = {
             'B512_equilibrium': wrapper_case(kind, model, call),
-            'B1_equilibrium': (
-                ([p[one] for p in args_[0]],
-                 *_prep(kind, model, args_, kw_, one)),
-                _common(kw_, one)),
             'B8_equilibrium_rejected_chain': wrapper_case(
                 kind, model, rejected),
         }
@@ -2780,7 +3144,11 @@ def run_equilibrium(workdir, dev, args, card):
                                 spec['tol'])
         max_abs[spec['name']] = max(case_abs.values())
         if kind == 'transit':
-            max_abs['transit_rt_single_chain'] = case_abs['B1_equilibrium']
+            max_abs[ONE_CHAIN['name']] = max(check_kernel(
+                ONE_CHAIN['name'], tk.transit_one_cuda, tk.transit_one_plain,
+                {'B1_equilibrium': one_case(call),
+                 'B2_equilibrium_rejected_chain': one_case(
+                     rejected, slice(6, 8))}, ONE_CHAIN['tol']).values())
 
         # The main path: the retrieval through the driver (transit), the
         # B = 512 forward (eclipse):
@@ -2807,7 +3175,7 @@ def run_equilibrium(workdir, dev, args, card):
                 'accepted': float(out['acceptance_rate']) > 0,
                 'k1_every_generation':
                     path_launches['transit_rt'] >= NGEN + 2,
-                'k1_at_b1': path_launches['transit_rt_single_chain'] >= 1,
+                'k2_at_b1': path_launches[ONE_CHAIN['name']] >= 1,
             }
             emit('main_path_equilibrium', rt_path='transit', seconds=main_s,
                  nchains=NCHAINS, generations=NGEN,
@@ -2903,10 +3271,9 @@ def run_equilibrium(workdir, dev, args, card):
         cpu_spec = Model(spec_cfg, device='cpu').run()['spectrum']
         rel, absolute = rel_err(torch.as_tensor(smodel.spectrum)[None],
                                 cpu_spec[None])
-        expect = {'transit_rt': 1, 'transit_rt_single_chain': 1,
+        expect = {'transit_rt': 0, ONE_CHAIN['name']: 1,
                   'emission_rt': 0} if kind == 'transit' else {
-                  'transit_rt': 0, 'transit_rt_single_chain': 0,
-                  'emission_rt': 1}
+                  'transit_rt': 0, ONE_CHAIN['name']: 0, 'emission_rt': 1}
         checks = {'on_the_card': smodel.device.type == 'cuda',
                   'launches': run_launches == expect,
                   'gpu_vs_cpu': rel < FORWARD_TOL,
@@ -3191,21 +3558,19 @@ NESTED_INIT_CHECKED = 64   # init chains held against the CPU
 
 
 def counted_run(counters, fn):
-    """fn() between zeroed launch counters (each kernel's `launches`, and
-    the transit kernel's single-chain and tall counts); returns (fn's
-    result, {counter name: launches})."""
+    """fn() between zeroed launch counters (each kernel's `launches`, K2's
+    among them whether named or not, and the transit kernel's tall
+    count); returns (fn's result, {counter name: launches})."""
     import torch
     from pyratbay_tpu_torch.spectrum import transit_kernel as tk
+    counters = (*counters, tk.transit_one_cuda)
     for counter in counters:
         counter.launches = 0
-    tk.transit_rt_cuda.single_chain_launches = 0
     tk.transit_rt_cuda.tall_launches = 0
     torch.cuda.synchronize()
     out = fn()
     torch.cuda.synchronize()
-    got = {c.__name__: c.launches for c in counters}
-    got['transit_rt_single_chain'] = tk.transit_rt_cuda.single_chain_launches
-    return out, got
+    return out, {c.__name__: c.launches for c in counters}
 
 
 def batch_sizes(fn):
@@ -3322,7 +3687,8 @@ def run_nested(workdir, dev, args, card):
         'k1_every_walk_step': sizes.get(batch, 0) == n_scan * NESTED_WALK,
         'k1_live_set': sizes.get(NESTED_NLIVE, 0) >= 1,
         'one_launch_a_call': sum(sizes.values())
-        == launches['transit_rt_cuda'],
+        == launches['transit_rt_cuda'] + launches['transit_one_cuda'],
+        'k2_at_b1': sizes.get(1, 0) == launches['transit_one_cuda'],
     }
     emit('main_path_nested', seconds=main_s, sampler_seconds=sampler_s[0],
          nlive=NESTED_NLIVE, batch=batch, nsteps_walk=NESTED_WALK,
@@ -3763,13 +4129,13 @@ def run_line_lists(workdir, dev, args, card):
     against their numpy versions; the ExoMol TLI into the direct table
     on the card (K4, K5) and the parity engine's table (the native
     grouping and scatter); the CLI's -cs hitran and -pf tips in
-    processes of their own; a spectrum on the card (K1 at B = 1) from
+    processes of their own; a spectrum on the card (K2) from
     the ExoMol table and the CLI's CIA table.  Checks: the TLI files
     read back whole, the native functions equal their numpy versions
     and each ran (its call counter > 0), K4 and K5 against their plain
     versions on a main-path block (LBL_TOL), the table against CPU
     float64 on 4 cells (LBL_TOL on entries above 1e-4 of their row's
-    maximum), K1 against its plain version and the spectrum against a
+    maximum), K2 against its plain version and the spectrum against a
     CPU float64 Model.run (FORWARD_TOL).  Returns each kernel's launches
     on this path and the kernels' largest differences from their plain
     versions."""
@@ -4029,10 +4395,9 @@ def run_line_lists(workdir, dev, args, card):
                           lambda: spec.update(model=run(cfg)))[0]))
     spec_s = time.perf_counter() - t0
     model = spec['model']
-    k1_abs, = check_kernel(
-        KERNELS['transit']['name'], tk.transit_rt_cuda, tk.transit_rt_plain,
-        {'B1_line_lists': wrapper_case('transit', model, spec['call'])},
-        KERNELS['transit']['tol']).values()
+    k2_abs, = check_kernel(
+        ONE_CHAIN['name'], tk.transit_one_cuda, tk.transit_one_plain,
+        {'B1_line_lists': spec['call']}, ONE_CHAIN['tol']).values()
     _, spectrum = pio.read_spectrum(
         os.path.join(workdir, 'exomol_spectrum.dat'))
     t0 = time.perf_counter()
@@ -4041,8 +4406,8 @@ def run_line_lists(workdir, dev, args, card):
     rel, absolute = rel_err(torch.as_tensor(model.spectrum)[None], cpu[None])
     checks = {
         'on_the_card': model.device.type == 'cuda',
-        'launches': spec_counts['transit_rt_cuda'] == 1
-        and spec_counts['transit_rt_single_chain'] == 1,
+        'launches': spec_counts['transit_rt_cuda'] == 0
+        and spec_counts['transit_one_cuda'] == 1,
         'sources': {'line sampling', 'CIA H2-H2'} <= {
             m.name for _, m, _ in model.opacity_models},
         'finite': bool(np.all(np.isfinite(spectrum)))
@@ -4067,10 +4432,8 @@ def run_line_lists(workdir, dev, args, card):
          budget_seconds=LL_BUDGET_S)
     launches = {'wing_sigma_lines_cuda': table_counts['wing_sigma_lines_cuda'],
                 'core_sigma_lines_cuda': table_counts['core_sigma_lines_cuda'],
-                'transit_rt_cuda': spec_counts['transit_rt_cuda'],
-                'transit_rt_single_chain':
-                    spec_counts['transit_rt_single_chain']}
-    return launches, {'transit_rt': k1_abs,
+                'transit_one_cuda': spec_counts['transit_one_cuda']}
+    return launches, {ONE_CHAIN['name']: k2_abs,
                       LBL['wing_lines']['name']: max_abs['wing_lines'],
                       LBL['core_lines']['name']: max_abs['core_lines']}
 
@@ -4566,7 +4929,7 @@ def main():
 
     workdir = tempfile.mkdtemp(prefix='pbt_chip_smoke_')
     try:
-        kernels = []
+        kernels = []    # K1, K2, K3, K1's tall function, then K4, K5, K6
         kept = {}       # the transit retrieval's Model, for model_io
         for label, rt_path, nlayers in (
                 ('transit', 'transit', NLAYERS),
@@ -4574,29 +4937,38 @@ def main():
                 ('transit_81', 'transit', TALL_LAYERS)):
             path_dir = os.path.join(workdir, label)
             os.makedirs(path_dir)
-            kernels += run_path(label, rt_path, path_dir, dev, args, card,
-                                nlayers,
-                                keep=kept if label == 'transit' else None)
+            for entry in run_path(label, rt_path, path_dir, dev, args, card,
+                                  nlayers,
+                                  keep=kept if label == 'transit' else None):
+                if not entry.pop('partial', False):
+                    kernels.append(entry)
+                    continue
+                # K2's launches and checks on another path:
+                whole = next(k for k in kernels if k['name'] == entry['name'])
+                whole['launches'] += entry['launches']
+                whole['launches_by_path'].update(entry['launches_by_path'])
+                whole['max_abs_err'] = max(whole['max_abs_err'],
+                                           entry['max_abs_err'])
         path_dir = os.path.join(workdir, 'spectrum')
         os.makedirs(path_dir)
         spectrum_launches, tall, spectrum_models = run_spectrum(
             path_dir, dev, args, card)
-        # Each kernel's launches on each path that runs it (the tall
-        # function's launches are single-chain ones of K1 too):
+        # Each kernel's launches on each path that runs it (K1's counter
+        # also counts its tall function's):
         spectrum_launches['transit_rt'] -= spectrum_launches['transit_rt_tall']
-        spectrum_launches['transit_rt_single_chain'] -= \
-            spectrum_launches['transit_rt_tall']
-        for entry, path in zip(kernels, ('transit', 'transit', 'eclipse',
-                                         'transit_81')):
+        for entry in kernels:
             more = spectrum_launches[entry['name']]
-            entry['launches_by_path'] = {path: entry['launches'],
-                                         'spectrum': more}
+            entry['launches_by_path']['spectrum'] = more
             entry['launches'] += more
         kernels[3]['max_abs_err'] = max(kernels[3]['max_abs_err'],
                                         tall['max_abs_err'])
         kernels[3]['spectrum_operands'] = tall['spectrum_operands']
+        kernels[1]['max_abs_err'] = max(kernels[1]['max_abs_err'],
+                                        tall['one_max_abs_err'])
+        kernels[1]['streamed_launches'] = \
+            spectrum_launches['transit_one_streamed']
         # Model files: the transit retrieval's Model and the eclipse
-        # spectrum's saved, reopened on the card and run (K1 at B = 1,
+        # spectrum's saved, reopened on the card and run (K2,
         # K3):
         path_dir = os.path.join(workdir, 'model_io')
         os.makedirs(path_dir)
@@ -4607,13 +4979,14 @@ def main():
         del spectrum_models
         emit('phase_seconds', name='model_io',
              seconds=time.perf_counter() - t0)
-        for entry, counter, name in (
-                (kernels[0], 'transit_rt_cuda', 'transit_rt'),
-                (kernels[1], 'transit_rt_single_chain', 'transit_rt'),
-                (kernels[2], 'emission_rt_cuda', 'emission_rt')):
+        for entry, counter in ((kernels[0], 'transit_rt_cuda'),
+                               (kernels[1], 'transit_one_cuda'),
+                               (kernels[2], 'emission_rt_cuda')):
             entry['launches_by_path']['model_io'] = io_launches[counter]
             entry['launches'] += io_launches[counter]
-            entry['max_abs_err'] = max(entry['max_abs_err'], io_abs[name])
+            if entry['name'] in io_abs:
+                entry['max_abs_err'] = max(entry['max_abs_err'],
+                                           io_abs[entry['name']])
         # The retrieval as users run it (filter files, the bundled
         # passbands, checkpoints and resume, the post-processing):
         post_launches, envelope_abs = run_retrieval_post(
@@ -4670,7 +5043,7 @@ def main():
         # forward, then K1):
         by_name = {entry['name']: entry for entry in kernels}
         counter_of = {'transit_rt': 'transit_rt_cuda',
-                      'transit_rt_single_chain': 'transit_rt_single_chain',
+                      ONE_CHAIN['name']: 'transit_one_cuda',
                       'emission_rt': 'emission_rt_cuda',
                       LBL['wing_lines']['name']: 'wing_sigma_lines_cuda',
                       LBL['core_lines']['name']: 'core_sigma_lines_cuda'}
@@ -4704,7 +5077,7 @@ def main():
             by_name[name]['max_abs_err'] = max(by_name[name]['max_abs_err'],
                                                lbl_abs[name])
         # Line lists as users have them (K4 and K5 for a table from an
-        # ExoMol list, K1 at B = 1 for a spectrum from it):
+        # ExoMol list, K2 for a spectrum from it):
         path_dir = os.path.join(workdir, 'line_lists')
         os.makedirs(path_dir)
         t0 = time.perf_counter()

@@ -9,7 +9,8 @@
 //         -> pbt_lbl_core_lines    per-line factors by line range: the
 //                                  main path
 //         -> pbt_lbl_core          the window layout
-//   K6  wing_sigma         (_wing_kernel)  -> pbt_lbl_wing, group = 1
+//   K6  wing_sigma         (_wing_kernel)  -> pbt_lbl_wing, group = 1:
+//                                  wing_windows_kernel
 //
 // Every output point w of a tile sums over the tile's static window of
 // candidate lines l, a contiguous range [start, start + lmax) of the
@@ -75,9 +76,27 @@
 // card.  The divisions of the Weideman
 // function share one reciprocal, except in its last term (see weideman).
 //
-// The window-layout kernels (K6, and K4/K5 on the Pallas wrappers'
-// operands, kept for the parity tests): wing, one block per (cell, group
-// of consecutive tiles), one thread per output point, the windows staged
+// Design, K6 on its window layout (wing_windows_kernel): the wing design
+// above on the Pallas wrapper's operands, points [ntiles, tile] and each
+// tile's window [ntiles, lmax] with its factors [ncell, ntiles, lmax].  A
+// warp owns 16 points of one tile x 16 cells (a tile of 128 points is 8
+// warps), so a window entry's lwn_hi/lo are read once for its 16 cells and
+// its factors once for its two points a thread; it bisects the run of the
+// tile's window its points reach (the row ascends: lines 1e9 cm-1 away
+// pad a short one), and stages the run four entries a step through its
+// ring with 16-byte cp.async copies, or 4-byte ones where a row of lmax
+// entries is not 16-byte aligned (lmax not a multiple of four); an entry
+// past the run is masked, so nothing past a row is read.  The same
+// reciprocal, series and predicate, and the same split of a run over a
+// block's warps for a launch with few warps an SM.  The old K6 (one
+// thread a point, the window staged through shared memory in chunks of
+// 1,024 entries with 4-byte loads, an IEEE divide, no sharing of a line's
+// reads between points or cells) took 1.253 ms on a 64-cell flagship
+// block against a 0.067 ms bound (PERF.md, section 6).
+//
+// The window-layout kernels of K4 and K5 (the Pallas wrappers' operands,
+// kept for the parity tests): wing, one block per (cell, group of
+// consecutive tiles), one thread per output point, the windows staged
 // through shared memory in chunks of STAGE entries, IEEE 1.0f / d; core,
 // one thread per point of the 4-point tiles walking its tile's window
 // from global memory.
@@ -112,6 +131,8 @@ constexpr int WL_SPLIT_WARPS_PER_SM = 12;
 // its own in shared memory, WL_RING - 1 steps ahead of the pair loop.
 constexpr int WL_RING = 4;
 constexpr int WL_ITEMS = 2 + 3 * WL_WCELLS;
+// K6's steps also carry the species of the four window entries:
+constexpr int WW_ITEMS = WL_ITEMS + 1;
 constexpr int CL_CT = 2;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -369,6 +390,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                  :: "r"(s), "l"(gmem) : "memory");
 }
 
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"(s), "l"(gmem) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -605,6 +632,209 @@ __global__ void __launch_bounds__(WL_WARPS * 32) wing_lines_kernel(
     }
 }
 
+// K6 on the window layout.  lwn_hi, lwn_lo, spec: [ntiles, lmax]; c1, y2,
+// inv_ad: [ncell, ntiles, lmax]; tile t's window is row t.  A warp owns
+// 16 points of one tile x 16 cells as wing_lines_kernel's warps do, and
+// walks its run of the tile's window (bisected: the row ascends) four
+// entries a step through its ring.  `vec`: every row starts 16-byte
+// aligned (lmax a multiple of four, aligned arrays), so an item of a step
+// is one 16-byte copy; otherwise four 4-byte copies, none past the row.
+template <int NS>
+__global__ void __launch_bounds__(WL_WARPS * 32) wing_windows_kernel(
+        const float* __restrict__ wn_hi, const float* __restrict__ wn_lo,
+        const float* __restrict__ lwn_hi, const float* __restrict__ lwn_lo,
+        const float* __restrict__ c1, const float* __restrict__ y2,
+        const float* __restrict__ inv_ad, const int* __restrict__ spec,
+        float* __restrict__ out, int ncell, int ntiles, int tile, int lmax,
+        int nspec, float margin, float cutoff, int split, int vec) {
+    __shared__ float s_part[WL_WARPS - 1][WL_PT * WL_CT * NS][32];
+    __shared__ float4 s_ring[WL_WARPS][WL_RING][WW_ITEMS];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int pl = lane % WL_PLANES, cl = lane / WL_PLANES;
+    const int per_tile = (tile + WL_WPTS - 1) / WL_WPTS;   // point groups
+    const int group = split ? blockIdx.x : blockIdx.x * WL_WARPS + warp;
+    if (group >= ntiles * per_tile) return;   // the warp, or the block
+    const int t = group / per_tile;
+    const int q0 = (group - t * per_tile) * WL_WPTS;    // in the tile
+    const int cell0 = blockIdx.y * WL_WCELLS + cl * WL_CT;
+    const size_t row = (size_t)t * lmax;
+
+    float wh[WL_PT], wl[WL_PT];
+    float pmin = INFINITY, pmax = -INFINITY;
+#pragma unroll
+    for (int s = 0; s < WL_PT; ++s) {
+        const int pt = min(q0 + s * WL_PLANES + pl, tile - 1);
+        wh[s] = wn_hi[(size_t)t * tile + pt];
+        wl[s] = wn_lo[(size_t)t * tile + pt];
+        pmin = fminf(pmin, wh[s]);
+        pmax = fmaxf(pmax, wh[s]);
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+        pmin = fminf(pmin, __shfl_xor_sync(FULL, pmin, d));
+        pmax = fmaxf(pmax, __shfl_xor_sync(FULL, pmax, d));
+    }
+    // The run of the window that the warp's points can reach:
+    const float reach = cutoff + hi_slack(pmin, pmax);
+    int ja = first_at_least(lwn_hi + row, 0, lmax, pmin - reach, false)
+        & ~(LINE_ALIGN - 1);
+    int jb = first_at_least(lwn_hi + row, ja, lmax, pmax + reach, true);
+    if (split) {
+        const int share = ((jb - ja + WL_WARPS - 1) / WL_WARPS
+                           + LINE_ALIGN - 1) & ~(LINE_ALIGN - 1);
+        ja = min(ja + warp * share, jb);
+        jb = min(ja + share, jb);
+    }
+
+    float acc[WL_PT][WL_CT][NS];
+#pragma unroll
+    for (int s = 0; s < WL_PT; ++s)
+#pragma unroll
+        for (int c = 0; c < WL_CT; ++c)
+#pragma unroll
+            for (int k = 0; k < NS; ++k) acc[s][c][k] = 0.0f;
+
+    // Staging: item i of a step is lwn_hi, lwn_lo (i = 0, 1), c1, y2,
+    // inv_ad of the warp's 16 cells, then the species (NS > 1); lane l
+    // copies items l and l + 32.
+    float4* ring = &s_ring[warp][0][0];
+    const float* src[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int i = lane + 32 * h;
+        if (i < 2) {
+            src[h] = (i == 0 ? lwn_hi : lwn_lo) + row;
+        } else if (i < WL_ITEMS) {
+            const int f = (i - 2) / WL_WCELLS, slot = (i - 2) % WL_WCELLS;
+            const int cell =
+                min((int)blockIdx.y * WL_WCELLS + slot, ncell - 1);
+            src[h] = (f == 0 ? c1 : f == 1 ? y2 : inv_ad)
+                + ((size_t)cell * ntiles + t) * lmax;
+        } else if (NS > 1 && i == WL_ITEMS) {
+            src[h] = reinterpret_cast<const float*>(spec) + row;
+        } else {
+            src[h] = nullptr;
+        }
+    }
+    const int nsteps = jb > ja ? (jb - ja + LINE_ALIGN - 1) / LINE_ALIGN : 0;
+    auto stage = [&](int step) {
+        if (step < nsteps) {
+            float4* dst = ring + (step % WL_RING) * WW_ITEMS + lane;
+            const int j = ja + step * LINE_ALIGN;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                if (src[h] == nullptr) continue;
+                if (vec) {
+                    cp_async16(dst + 32 * h, src[h] + j);
+                } else {
+                    float* d4 = reinterpret_cast<float*>(dst + 32 * h);
+                    for (int q = 0; q < LINE_ALIGN && j + q < lmax; ++q)
+                        cp_async4(d4 + q, src[h] + j + q);
+                }
+            }
+        }
+        cp_async_commit();
+    };
+    for (int step = 0; step < WL_RING - 1; ++step) stage(step);
+
+    for (int step = 0; step < nsteps; ++step) {
+        const int j = ja + step * LINE_ALIGN;
+        stage(step + WL_RING - 1);
+        cp_async_wait<WL_RING - 1>();
+        __syncwarp();
+        const float4* st = ring + (step % WL_RING) * WW_ITEMS;
+        const float4 vlh = st[0], vll = st[1];
+        const float lh[4] = {vlh.x, vlh.y, vlh.z, vlh.w};
+        const float ll[4] = {vll.x, vll.y, vll.z, vll.w};
+        // The pairs of this step: depend on (point, entry) only; an entry
+        // past the run (or the row) is no pair.
+        float dn[WL_PT][4];
+        unsigned mask = 0;
+#pragma unroll
+        for (int s = 0; s < WL_PT; ++s)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const float d = (wh[s] - lh[q]) + (wl[s] - ll[q]);
+                const float ad = fabsf(d);
+                const bool m = ad > margin && ad <= cutoff && j + q < jb;
+                dn[s][q] = d;
+                mask |= (unsigned)m << (s * 4 + q);
+            }
+        int sp[4] = {0, 0, 0, 0};
+        if (NS > 1) {
+            const float4 v = st[WL_ITEMS];
+            sp[0] = __float_as_int(v.x); sp[1] = __float_as_int(v.y);
+            sp[2] = __float_as_int(v.z); sp[3] = __float_as_int(v.w);
+        }
+#pragma unroll
+        for (int c = 0; c < WL_CT; ++c) {
+            const float4 v1 = st[2 + cl * WL_CT + c];
+            const float4 v2 = st[2 + WL_WCELLS + cl * WL_CT + c];
+            const float4 v3 = st[2 + 2 * WL_WCELLS + cl * WL_CT + c];
+            const float k1[4] = {v1.x, v1.y, v1.z, v1.w};
+            const float k2[4] = {v2.x, v2.y, v2.z, v2.w};
+            const float k3[4] = {v3.x, v3.y, v3.z, v3.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+                for (int s = 0; s < WL_PT; ++s) {
+                    const float xi = dn[s][q] * k3[q];
+                    const float x2 = xi * xi;
+                    const float u = rcp_approx(x2 + k2[q]);
+                    const float sr = wing_series_horner(u, x2 * u);
+                    const float v = k1[q] * u;
+                    const bool m = (mask >> (s * 4 + q)) & 1u;
+                    if (NS == 1) {
+                        if (m) acc[s][c][0] = fmaf(v, sr, acc[s][c][0]);
+                    } else {
+                        const float tv = m ? v * sr : 0.0f;
+#pragma unroll
+                        for (int k = 0; k < NS; ++k)
+                            acc[s][c][k] += sp[q] == k ? tv : 0.0f;
+                    }
+                }
+        }
+        __syncwarp();       // the ring slot is free for step + WL_RING
+    }
+    if (split) {
+        if (warp > 0) {
+#pragma unroll
+            for (int s = 0; s < WL_PT; ++s)
+#pragma unroll
+                for (int c = 0; c < WL_CT; ++c)
+#pragma unroll
+                    for (int k = 0; k < NS; ++k)
+                        s_part[warp - 1][(s * WL_CT + c) * NS + k][lane] =
+                            acc[s][c][k];
+        }
+        __syncthreads();
+        if (warp > 0) return;
+        for (int w = 0; w < WL_WARPS - 1; ++w)
+#pragma unroll
+            for (int s = 0; s < WL_PT; ++s)
+#pragma unroll
+                for (int c = 0; c < WL_CT; ++c)
+#pragma unroll
+                    for (int k = 0; k < NS; ++k)
+                        acc[s][c][k] +=
+                            s_part[w][(s * WL_CT + c) * NS + k][lane];
+    }
+#pragma unroll
+    for (int s = 0; s < WL_PT; ++s) {
+        const int pt = q0 + s * WL_PLANES + pl;
+        if (pt >= tile) continue;
+#pragma unroll
+        for (int c = 0; c < WL_CT; ++c) {
+            if (cell0 + c >= ncell) continue;
+#pragma unroll
+            for (int k = 0; k < NS; ++k)
+                if (k < nspec)
+                    out[(((size_t)(cell0 + c) * nspec + k) * ntiles + t)
+                        * tile + pt] = acc[s][c][k];
+        }
+    }
+}
+
 // K5 on per-line operands.  scale, y, inv_ad: [ncell, nlines].
 template <int NS>
 __global__ void __launch_bounds__(CORE_THREADS) core_lines_kernel(
@@ -671,6 +901,25 @@ __global__ void __launch_bounds__(CORE_THREADS) core_lines_kernel(
     }
 }
 
+// The launch of a wing kernel whose warps own WL_WPTS points x WL_WCELLS
+// cells: split each warp's run over a block's warps when the launch has
+// too few warps for the card (split < 0), or as told.
+cudaError_t wing_grid(long long groups, int cell_groups, int split_arg,
+                      dim3* grid, int* split) {
+    int device = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     device);
+    if (err != cudaSuccess) return err;
+    *split = split_arg >= 0 ? split_arg
+        : groups * cell_groups < (long long)sms * WL_SPLIT_WARPS_PER_SM;
+    *grid = dim3(
+        (unsigned)(*split ? groups : (groups + WL_WARPS - 1) / WL_WARPS),
+        cell_groups);
+    return cudaSuccess;
+}
+
 template <int NS>
 cudaError_t launch_wing_lines(
         cudaStream_t stream, const float* wn_hi, const float* wn_lo,
@@ -680,21 +929,38 @@ cudaError_t launch_wing_lines(
         int lmax, int nlines, int nspec, float margin, float cutoff) {
     const long long groups =
         ((long long)ntiles * tile + WL_WPTS - 1) / WL_WPTS;
-    const int cell_groups = (ncell + WL_WCELLS - 1) / WL_WCELLS;
-    int device = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     device);
+    dim3 grid;
+    int split;
+    cudaError_t err = wing_grid(groups, (ncell + WL_WCELLS - 1) / WL_WCELLS,
+                                -1, &grid, &split);
     if (err != cudaSuccess) return err;
-    const int split =
-        groups * cell_groups < (long long)sms * WL_SPLIT_WARPS_PER_SM;
-    const dim3 grid(
-        (unsigned)(split ? groups : (groups + WL_WARPS - 1) / WL_WARPS),
-        cell_groups);
     wing_lines_kernel<NS><<<grid, WL_WARPS * 32, 0, stream>>>(
         wn_hi, wn_lo, starts, lwn_hi, lwn_lo, c1, y2, inv_ad, spec, out,
         ncell, ntiles, tile, lmax, nlines, nspec, margin, cutoff, split);
+    return cudaGetLastError();
+}
+
+template <int NS>
+cudaError_t launch_wing_windows(
+        cudaStream_t stream, const float* wn_hi, const float* wn_lo,
+        const float* lwn_hi, const float* lwn_lo, const float* c1,
+        const float* y2, const float* inv_ad, const int* spec, float* out,
+        int ncell, int ntiles, int tile, int lmax, int nspec, float margin,
+        float cutoff, int split_arg) {
+    const long long groups =
+        (long long)ntiles * ((tile + WL_WPTS - 1) / WL_WPTS);
+    dim3 grid;
+    int split;
+    cudaError_t err = wing_grid(groups, (ncell + WL_WCELLS - 1) / WL_WCELLS,
+                                split_arg, &grid, &split);
+    if (err != cudaSuccess) return err;
+    const void* rows[] = {lwn_hi, lwn_lo, c1, y2, inv_ad, spec};
+    int vec = lmax % LINE_ALIGN == 0;
+    for (const void* p : rows)
+        if ((size_t)p % (4 * LINE_ALIGN)) vec = 0;
+    wing_windows_kernel<NS><<<grid, WL_WARPS * 32, 0, stream>>>(
+        wn_hi, wn_lo, lwn_hi, lwn_lo, c1, y2, inv_ad, spec, out, ncell,
+        ntiles, tile, lmax, nspec, margin, cutoff, split, vec);
     return cudaGetLastError();
 }
 
@@ -745,21 +1011,37 @@ cudaError_t launch_core(dim3 grid, cudaStream_t stream, const float* wn_hi,
 
 extern "C" int pbt_lbl_max_spec() { return MAX_SPEC; }
 
-// K4 (group = 128 / tile_pts sub-tiles per block) and K6 (group = 1).
-// out: [ncell, nspec, ntiles, tile]; spec may be null when nspec == 1.
+// K4 on the window layout (group = 128 / tile_pts sub-tiles per block:
+// wing_kernel) and K6 (group = 1: wing_windows_kernel, split = -1 for the
+// launch's own choice, 0 or 1 to force it).  out: [ncell, nspec, ntiles,
+// tile]; spec may be null when nspec == 1.
 extern "C" int pbt_lbl_wing(
         const float* wn_hi, const float* wn_lo, const float* lwn_hi,
         const float* lwn_lo, const float* c1, const float* y2,
         const float* inv_ad, const int* spec, float* out, int ncell,
         int ntiles, int tile, int lmax, int group, int nspec, float margin,
-        float cutoff, void* stream) {
-    if (ncell < 1 || ncell > 65535 || ntiles < 1 || tile < 1 || lmax < 1
+        float cutoff, int split, void* stream) {
+    if (ncell < 1 || ntiles < 1 || tile < 1 || lmax < 1
         || group < 1 || group > STAGE || group * tile > 1024 || nspec < 1
         || nspec > MAX_SPEC || (nspec > 1 && spec == nullptr))
         return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (group == 1) {
+        if ((ncell + WL_WCELLS - 1) / WL_WCELLS > 65535 || split > 1)
+            return (int)cudaErrorInvalidValue;
+#define PBT_WING_WINDOWS(NS)                                                \
+        return (int)launch_wing_windows<NS>(                                \
+            s, wn_hi, wn_lo, lwn_hi, lwn_lo, c1, y2, inv_ad, spec, out,     \
+            ncell, ntiles, tile, lmax, nspec, margin, cutoff, split)
+        if (nspec == 1) PBT_WING_WINDOWS(1);
+        if (nspec <= 2) PBT_WING_WINDOWS(2);
+        if (nspec <= 4) PBT_WING_WINDOWS(4);
+        PBT_WING_WINDOWS(8);
+#undef PBT_WING_WINDOWS
+    }
+    if (ncell > 65535) return (int)cudaErrorInvalidValue;
     const int threads = (group * tile + 31) / 32 * 32;
     const dim3 grid((ntiles + group - 1) / group, ncell);
-    cudaStream_t s = (cudaStream_t)stream;
     if (nspec == 1)
         return (int)launch_wing<1>(grid, threads, s, wn_hi, wn_lo, lwn_hi,
                                    lwn_lo, c1, y2, inv_ad, spec, out, ntiles,

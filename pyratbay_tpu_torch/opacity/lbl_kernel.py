@@ -7,6 +7,8 @@ pyratbay_tpu/opacity/lbl_pallas.py:
     wing_sigma_grouped   K4   fine wing sub-tiles, each with its own window
     core_sigma           K5   full Faddeeva Re w(x, y) inside the margin
     wing_sigma           K6   K4's pair computation over 128-point tiles
+                              (wing_windows_kernel: K4's per-line design
+                              on the window layout)
 
 K4 and K5 come in two operand layouts.  The main path (DirectLBL.
 _cross_section_batch) calls `wing_sigma_lines` and `core_sigma_lines`:
@@ -223,7 +225,7 @@ def _lbl_library():
     lib = _library()
     ptr, cint, cfloat = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pbt_lbl_wing.argtypes = (
-        [ptr] * 9 + [cint] * 6 + [cfloat, cfloat, ptr])
+        [ptr] * 9 + [cint] * 6 + [cfloat, cfloat, cint, ptr])
     lib.pbt_lbl_wing.restype = cint
     lib.pbt_lbl_core.argtypes = (
         [ptr] * 9 + [cint] * 5
@@ -347,7 +349,7 @@ def core_sigma_lines_cuda(wn_hi, wn_lo, starts, lwn_hi, lwn_lo, scale, y,
 
 
 def _launch_wing(counter, group, wn_hi, wn_lo, lwn_hi, lwn_lo, c1, y2,
-                 inv_ad, spec, margin, cutoff, nspec):
+                 inv_ad, spec, margin, cutoff, nspec, split=None):
     operands, (ncell, ntiles, tile, lmax) = _check_operands(
         wn_hi, wn_lo, lwn_hi, lwn_lo, c1, y2, inv_ad, spec, nspec)
     if group * tile > 1024:
@@ -357,7 +359,7 @@ def _launch_wing(counter, group, wn_hi, wn_lo, lwn_hi, lwn_lo, c1, y2,
     err = lib.pbt_lbl_wing(
         *[None if t is None else t.data_ptr() for t in operands],
         out.data_ptr(), ncell, ntiles, tile, lmax, group, nspec,
-        float(margin), float(cutoff),
+        float(margin), float(cutoff), -1 if split is None else int(split),
         torch.cuda.current_stream(c1.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'lbl wing kernel launch failed: CUDA error {err}')
@@ -378,12 +380,16 @@ def wing_sigma_grouped_cuda(wn_hi, wn_lo, lwn_hi, lwn_lo, c1, y2, inv_ad,
 
 
 def wing_sigma_cuda(wn_hi, wn_lo, lwn_hi, lwn_lo, c1, y2, inv_ad,
-                    spec=None, *, margin, cutoff, nspec=1):
+                    spec=None, *, margin, cutoff, nspec=1, split=None):
     """K6 on float32 CUDA operands (same signature and result as
-    wing_sigma_plain): one block per tile, one thread per point.  Each
-    launch adds one to `wing_sigma_cuda.launches`."""
+    wing_sigma_plain): a warp per 16 points of a tile and 16 cells, two
+    points and four cells a thread, over the run of the tile's window
+    its points reach.  A launch with few warps for the card splits each
+    warp's run over a block's four warps; `split` (True or False)
+    forces the choice.  Each launch adds one to
+    `wing_sigma_cuda.launches`."""
     return _launch_wing(wing_sigma_cuda, 1, wn_hi, wn_lo, lwn_hi, lwn_lo,
-                        c1, y2, inv_ad, spec, margin, cutoff, nspec)
+                        c1, y2, inv_ad, spec, margin, cutoff, nspec, split)
 
 
 def core_sigma_cuda(wn_hi, wn_lo, lwn_hi, lwn_lo, scale, y, inv_ad,

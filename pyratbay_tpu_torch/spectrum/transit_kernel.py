@@ -1,11 +1,14 @@
-"""Ensemble transit RT: the hand-written CUDA kernel, its wrapper and
-its plain PyTorch version; also the build and the ctypes loader of the
-one kernel library (every csrc/*.cu, the emission kernel included).
+"""Transit RT: the hand-written CUDA kernels, their wrappers and their
+plain PyTorch versions; also the build and the ctypes loader of the one
+kernel library (every csrc/*.cu, the emission kernel included).
 
-The kernel (csrc/transit_rt.cu) replaces the Pallas TPU kernels
-pyratbay_tpu/spectrum/ensemble_pallas.py::_ensemble_kernel and, at
-B = 1, rt_pallas.py::_transit_kernel.  It is compiled with nvcc for
-sm_90a into a plain-C shared library at its first launch, under
+The ensemble kernel K1 (csrc/transit_rt.cu) replaces the Pallas TPU
+kernel pyratbay_tpu/spectrum/ensemble_pallas.py::_ensemble_kernel; the
+one-chain kernel K2 (csrc/transit_one.cu, `transit_one_cuda`) replaces
+rt_pallas.py::_transit_kernel with all of transit_spectrum_fused around
+it (the fold of the chord matrix and the per-chain scalars), one launch
+a spectrum.  They are compiled with nvcc for sm_90a into a plain-C
+shared library at the first launch, under
 pyratbay_tpu_torch/_build/<hash of the sources>/, and bound with
 ctypes.  Importing this module needs neither nvcc nor a GPU.
 
@@ -23,11 +26,12 @@ on the tensor cores, three TF32 products a step; the chord rows and the
 live line-sample table rows streamed through a ring in shared memory;
 `tall_layout` packs its chord matrix).
 
-`transit_spectrum_ensemble` prepares the per-chain operands in torch
-(the pair-sum fold of the chord matrix and prep_chain's scalars and
-radius columns, all small), then takes the plain version for CPU
-tensors and the kernel for CUDA tensors; a CUDA tensor never falls
-back to the plain version.
+`transit_spectrum_ensemble` hands one chain's raw operands to K2 (on
+the CPU its plain version, `transit_one_plain`); more chains it prepares
+in torch (the pair-sum fold of the chord matrix and prep_chain's scalars
+and radius columns, all small) for K1 or its plain version.  CPU tensors
+take the plain versions and CUDA tensors the kernels; a CUDA tensor
+never falls back to a plain version.
 """
 import ctypes
 import functools
@@ -45,7 +49,9 @@ from .. import constants as pc
 
 __all__ = [
     'transit_spectrum_ensemble', 'transit_spectrum_fused', 'prep_chains',
-    'transit_rt_plain', 'transit_rt_cuda', 'build_library', 'ls_in_kernel',
+    'transit_rt_plain', 'transit_rt_cuda', 'transit_one_plain',
+    'transit_one_cuda', 'one_max_layers', 'one_staged_max_layers',
+    'build_library', 'ls_in_kernel',
     'fit_operands', 'extinction_plain', 'assembly_operands', 'chord_layout',
     'tall_layout', 'tall_max_layers', 'tall_chains_per_sm', 'MAX_PARTS',
     'MAX_R1', 'MAX_CIA', 'MAX_LAYERS',
@@ -73,6 +79,9 @@ LS_SLAB_MAX = 147456
 # from device memory; a team stages the chain's weights [rows, K2], which
 # up to this size leave room for the other operands beside them.
 TALL_LS_WEIGHTS_MAX = 32768
+# Warps of a block of the one-chain kernel K2 (csrc/transit_one.cu
+# ONE_WARPS).
+ONE_WARPS = 16
 NVCC_FLAGS = [
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-Xcompiler', '-fPIC', '-Xptxas', '-v',
@@ -231,6 +240,18 @@ def _library():
         fn.restype = cint
     lib.pbt_emission_rt_max_mu.argtypes = []
     lib.pbt_emission_rt_max_mu.restype = cint
+    lib.pbt_transit_one.argtypes = (
+        [ptr] * 4 + [cint] + [ptr, ptr, cint]
+        + [ptr, ctypes.c_longlong, cint, ptr, cint] + [ptr, ptr, cint]
+        + [ptr, ptr, ctypes.POINTER(ptr), ctypes.POINTER(cint),
+           ctypes.POINTER(cint), ctypes.POINTER(ctypes.c_double), cint, ptr,
+           ptr]
+        + [cint] * 3 + [cfloat, ptr])
+    lib.pbt_transit_one.restype = cint
+    lib.pbt_transit_one_mode.argtypes = [cint] * 5
+    lib.pbt_transit_one_mode.restype = cint
+    lib.pbt_transit_one_scratch.argtypes = [cint] * 3
+    lib.pbt_transit_one_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -356,12 +377,15 @@ def transit_rt_plain(ec_parts, path2, scal, rad, h, hprev,
     return (r_itop2[:, :, 0] + 2.0 * integral) * inv_rstar2[:, :, 0]
 
 
-def _checked(t, name, shape, dtype=torch.float32):
+def _checked(t, name, shape, dtype=torch.float32, strided=False):
+    """t as a kernel reads it: of `dtype` on the card and of `shape`;
+    contiguous, or with `strided` (the kernel takes the strides of the
+    leading dimensions) contiguous in its last."""
     if not t.is_cuda or t.dtype != dtype:
         raise TypeError(f'{name}: expected a {str(dtype)[6:]} CUDA tensor')
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f'{name}: shape {tuple(t.shape)} != {shape}')
-    return t.contiguous()
+    return t if strided and t.stride(-1) == 1 else t.contiguous()
 
 
 def _pad_to(t, *sizes):
@@ -451,10 +475,9 @@ def transit_rt_cuda(ec_parts, path2, scal, rad, h, hprev,
                     ls_w=None, ls_tab=None, maxdepth=np.inf):
     """Launch the CUDA kernel on prepared float32 CUDA operands (same
     signature and result as transit_rt_plain).  Each launch adds one
-    to `transit_rt_cuda.launches`, one with a single chain also to
-    `transit_rt_cuda.single_chain_launches`, and one of the tall
-    function (more than MAX_LAYERS layers) to
-    `transit_rt_cuda.tall_launches`."""
+    to `transit_rt_cuda.launches`, and one of the tall function (more
+    than MAX_LAYERS layers) also to `transit_rt_cuda.tall_launches`.
+    (The wrappers hand one chain to K2, transit_one_cuda.)"""
     nb, nlayers = rad.shape
     if nlayers > MAX_LAYERS:
         return _transit_rt_tall(ec_parts, path2, scal, rad, h, hprev, cia_w,
@@ -490,8 +513,6 @@ def transit_rt_cuda(ec_parts, path2, scal, rad, h, hprev,
     if err != 0:
         raise RuntimeError(f'transit_rt kernel launch failed: CUDA error {err}')
     transit_rt_cuda.launches += 1
-    if nb == 1:
-        transit_rt_cuda.single_chain_launches += 1
     return out
 
 
@@ -586,16 +607,167 @@ def _transit_rt_tall(ec_parts, path2, scal, rad, h, hprev, cia_w, cia_tab,
             f'transit_rt tall kernel launch failed: CUDA error {err}')
     transit_rt_cuda.launches += 1
     transit_rt_cuda.tall_launches += 1
-    if nb == 1:
-        transit_rt_cuda.single_chain_launches += 1
     return out
 
 
 transit_rt_cuda.launches = 0
-# Launches with one chain, the per-chain transit_spectrum_fused case:
-transit_rt_cuda.single_chain_launches = 0
 # Launches of the tall function (more than MAX_LAYERS layers):
 transit_rt_cuda.tall_launches = 0
+
+
+def transit_one_plain(ec_parts, path, radius, rstar, itop, ibottom,
+                      deck_itop=None, deck_rsurf=None, cia_w=None,
+                      cia_tab=None, r1_cols=None, r1_rows=None, ls_w=None,
+                      ls_tab=None, maxdepth=np.inf):
+    """K2's plain version: prep_chains and transit_rt_plain on the raw
+    operands of transit_spectrum_ensemble (same signature and result as
+    transit_one_cuda).  The per-chain scalars may also be host numbers."""
+    nb = radius.shape[0]
+    dev = radius.device
+    chains = lambda v, **kw: None if v is None else torch.as_tensor(
+        v, device=dev, **kw).reshape(-1).expand(nb)
+    operands = prep_chains(
+        path, radius, rstar, chains(itop), chains(ibottom),
+        chains(deck_itop), chains(deck_rsurf, dtype=radius.dtype))
+    return transit_rt_plain(
+        list(ec_parts), *operands, cia_w=cia_w, cia_tab=cia_tab,
+        r1_cols=r1_cols, r1_rows=r1_rows, ls_w=ls_w, ls_tab=ls_tab,
+        maxdepth=maxdepth)
+
+
+def _one_scalar(value, nb, device, index, keep):
+    """One per-chain scalar of K2 as (pointer, element bytes, stride,
+    host value): a CUDA tensor of one element or one a chain by pointer
+    (nothing is read back to the host), anything else as a number."""
+    if value is None:
+        return None, 0, 0, 0.0
+    if torch.is_tensor(value) and value.is_cuda:
+        kinds = (torch.int32, torch.int64) if index \
+            else (torch.float32, torch.float64)
+        if value.dtype not in kinds or value.device != device:
+            raise TypeError(
+                f'a per-chain scalar on the card must be one of {kinds} on '
+                f'{device}, not {value.dtype} on {value.device}')
+        if value.numel() not in (1, nb):
+            raise ValueError(f'a per-chain scalar has {value.numel()} '
+                             f'elements for {nb} chains')
+        value = value.contiguous()
+        keep.append(value)
+        return (value.data_ptr(), value.element_size(),
+                int(value.numel() > 1), 0.0)
+    if torch.is_tensor(value) and value.numel() != 1:
+        raise ValueError('a per-chain scalar on the host takes one value')
+    return None, 0, 0, float(value)
+
+
+def one_max_layers(n_r1, n_cia, n_ls, n_parts):
+    """The most layers K2 takes with these operand counts: streamed, a
+    block's radius, heights and live line-sample rows of each layer must
+    fit its shared memory."""
+    lib = _library()
+    top = 1
+    while lib.pbt_transit_one_mode(top + 1, n_r1, n_cia, n_ls, n_parts) >= 0:
+        top += 1
+    return top
+
+
+def one_staged_max_layers(n_r1, n_cia, n_ls, n_parts):
+    """The most layers whose block K2 holds wholly in shared memory (its
+    folded chord matrix, extinction, depths and staged operands) with
+    these operand counts; above them it streams ec and the depths
+    through device memory."""
+    lib = _library()
+    top = 1
+    while lib.pbt_transit_one_mode(top + 1, n_r1, n_cia, n_ls, n_parts) == 0:
+        top += 1
+    return top
+
+
+def transit_one_cuda(ec_parts, path, radius, rstar, itop, ibottom,
+                     deck_itop=None, deck_rsurf=None, cia_w=None,
+                     cia_tab=None, r1_cols=None, r1_rows=None, ls_w=None,
+                     ls_tab=None, maxdepth=np.inf):
+    """K2 (csrc/transit_one.cu) on the raw float32 CUDA operands of
+    transit_spectrum_ensemble: one launch, nothing prepared in torch.
+    The wrappers hand it one chain; more chains (B blocks of columns
+    each) it takes too.  itop, ibottom, deck_itop (int32 / int64) and
+    deck_rsurf, rstar (float32 / float64) go in by pointer as CUDA
+    tensors of one element or one a chain, or as host numbers.  Above
+    one_staged_max_layers it streams through a scratch it allocates.
+    Raises before any launch on operand counts beyond fit_operands'
+    limits or above one_max_layers.  Each launch adds one to
+    `transit_one_cuda.launches`, a streamed one also to
+    `transit_one_cuda.streamed_launches`."""
+    nb, nlayers = radius.shape
+    nwave = _nwave(ec_parts, r1_rows, cia_tab, ls_tab)
+    if len(ec_parts) > MAX_PARTS:
+        raise ValueError(f'At most {MAX_PARTS} dense extinction parts')
+    parts = [_checked(p, 'ec_part', (nb, nlayers, nwave)) for p in ec_parts]
+    radius = _checked(radius, 'radius', (nb, nlayers))
+    path = _checked(path, 'path', (nb, nlayers, nlayers - 1))
+    n_r1 = n_cia = n_ls = 0
+    if r1_cols is not None:
+        n_r1 = r1_cols.shape[1]
+        if n_r1 > MAX_R1:
+            raise ValueError(f'At most {MAX_R1} rank-1 extinction terms')
+        r1_cols = _checked(r1_cols, 'r1_cols', (nb, n_r1, nlayers))
+        r1_rows = _checked(r1_rows, 'r1_rows', (nb, n_r1, nwave))
+    if cia_w is not None:
+        n_cia = cia_w.shape[2]
+        if n_cia > MAX_CIA:
+            raise ValueError(f'At most {MAX_CIA} CIA table rows')
+        # A view of the first weights of longer rows (fit_operands')
+        # goes in as it is:
+        cia_w = _checked(cia_w, 'cia_w', (nb, nlayers, n_cia), strided=True)
+        cia_tab = _checked(cia_tab, 'cia_tab', (n_cia, nwave))
+    if ls_w is not None:
+        n_ls = ls_w.shape[1]
+        ls_w = _checked(ls_w, 'ls_w', (nb, n_ls, nlayers))
+        ls_tab = _checked(ls_tab, 'ls_tab', (n_ls, nlayers, nwave))
+    keep = []
+    scalars = [_one_scalar(v, nb, radius.device, index, keep)
+               for v, index in ((itop, True), (ibottom, True),
+                                (deck_itop, True), (deck_rsurf, False),
+                                (rstar, False))]
+    lib = _library()
+    sizes = (n_r1, n_cia, n_ls, len(parts))
+    mode = lib.pbt_transit_one_mode(nlayers, *sizes)
+    if mode < 0:
+        raise ValueError(
+            f'The one-chain transit kernel takes at most '
+            f'{one_max_layers(*sizes)} layers with {n_r1} rank-1 terms, '
+            f'{n_cia} CIA rows, {n_ls} line-sample rows and {len(parts)} '
+            f'dense parts, not {nlayers}: a block\'s radius, heights and '
+            'live line-sample rows must fit its shared memory')
+    scratch = None if mode == 0 else torch.empty(
+        lib.pbt_transit_one_scratch(nb, nlayers, nwave),
+        dtype=torch.float32, device=radius.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    part_ptrs = [p.data_ptr() for p in parts] + [None] * (
+        MAX_PARTS - len(parts))
+    column = lambda ctype, i: (ctype * 5)(*[s[i] for s in scalars])
+    out = torch.empty((nb, nwave), dtype=torch.float32, device=radius.device)
+    cia_strides = (0, 0) if cia_w is None else cia_w.stride()[:2]
+    err = lib.pbt_transit_one(
+        *part_ptrs, len(parts), ptr(r1_rows), ptr(r1_cols), n_r1,
+        ptr(cia_w), *cia_strides, ptr(cia_tab), n_cia, ptr(ls_w),
+        ptr(ls_tab), n_ls,
+        path.data_ptr(), radius.data_ptr(), column(ctypes.c_void_p, 0),
+        column(ctypes.c_int, 1), column(ctypes.c_int, 2),
+        column(ctypes.c_double, 3), int(deck_rsurf is not None),
+        ptr(scratch), out.data_ptr(), nb, nlayers, nwave, float(maxdepth),
+        torch.cuda.current_stream(radius.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f'transit_one kernel launch failed: CUDA error {err}')
+    transit_one_cuda.launches += 1
+    transit_one_cuda.streamed_launches += mode
+    return out
+
+
+transit_one_cuda.launches = 0
+# Launches of the streamed layout (more than one_staged_max_layers):
+transit_one_cuda.streamed_launches = 0
 
 
 def transit_spectrum_ensemble(
@@ -611,31 +783,31 @@ def transit_spectrum_ensemble(
     with a deck); deck_itop [B] / deck_rsurf [B] or None; cia_w
     [B, l, K] with cia_tab [K, W]; r1_cols [B, n_r1, l] with r1_rows
     [B, n_r1, W]; ls_w [B, K2, l] with ls_tab [K2, l, W] (the
-    line-sample weights and table, contracted in the kernel).  CPU
-    tensors take the plain version, CUDA tensors the kernel.
+    line-sample weights and table, contracted in the kernel).  One
+    chain goes to K2 as it is (transit_one_cuda, one launch), more to
+    K1 after prep_chains; CPU tensors take the plain versions.
     """
+    kw = dict(cia_w=cia_w, cia_tab=cia_tab, r1_cols=r1_cols,
+              r1_rows=r1_rows, ls_w=ls_w, ls_tab=ls_tab, maxdepth=maxdepth)
+    if radius.shape[0] == 1:
+        one = transit_one_cuda if radius.is_cuda else transit_one_plain
+        return one(list(ec_parts), path, radius, rstar, itop, ibottom,
+                   deck_itop, deck_rsurf, **kw)
     operands = prep_chains(
         path, radius, rstar, itop, ibottom, deck_itop, deck_rsurf)
     rt = transit_rt_cuda if radius.is_cuda else transit_rt_plain
-    return rt(list(ec_parts), *operands, cia_w=cia_w, cia_tab=cia_tab,
-              r1_cols=r1_cols, r1_rows=r1_rows, ls_w=ls_w, ls_tab=ls_tab,
-              maxdepth=maxdepth)
+    return rt(list(ec_parts), *operands, **kw)
 
 
 def transit_spectrum_fused(ec, path, radius, rstar, itop, ibottom,
                            deck_itop=None, deck_rsurf=None,
                            maxdepth=np.inf):
-    """One chain's spectrum [W] (the per-chain K2 interface): ec [l, W]
-    or a list of them, path [l, l-1], radius [l]; the ensemble kernel
-    at B = 1."""
+    """One chain's spectrum [W] (pyratbay_tpu's transit_spectrum_fused):
+    ec [l, W] or a list of them, path [l, l-1], radius [l]; itop,
+    ibottom, deck_itop and deck_rsurf host numbers or tensors of one
+    element.  K2 on CUDA tensors (one launch), its plain version on the
+    CPU."""
     parts = list(ec) if isinstance(ec, (list, tuple)) else [ec]
-    dev = radius.device
-    one = lambda v: None if v is None else torch.as_tensor(
-        v, device=dev).reshape(1)
-    return transit_spectrum_ensemble(
-        [p[None] for p in parts], path[None], radius[None], rstar,
-        one(itop), one(ibottom), one(deck_itop),
-        None if deck_rsurf is None else torch.as_tensor(
-            deck_rsurf, dtype=radius.dtype, device=dev).reshape(1),
-        maxdepth=maxdepth,
-    )[0]
+    one = transit_one_cuda if radius.is_cuda else transit_one_plain
+    return one([p[None] for p in parts], path[None], radius[None], rstar,
+               itop, ibottom, deck_itop, deck_rsurf, maxdepth=maxdepth)[0]

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels (transit and emission RT, and the
-line-by-line wing and core passes) against their plain PyTorch
-versions, on a GPU.
+"""The hand-written CUDA kernels (transit and emission RT, the one-chain
+transit kernel, and the line-by-line wing and core passes) against their
+plain PyTorch versions, on a GPU.
 
 This file imports neither JAX nor pyratbay_tpu, so that it also runs on
 a machine without them, where tests/conftest.py (which imports JAX)
@@ -150,12 +150,10 @@ def test_cuda_kernel_line_sample_operands(cuda, case):
               maxdepth=10.0)
     ec = [f32(p) for p in parts] if case == 'ls_beside_parts' else []
     launches = tk.transit_rt_cuda.launches
-    single = tk.transit_rt_cuda.single_chain_launches
     got = tk.transit_rt_cuda(ec, *operands, **kw)
     want = tk.transit_rt_plain(ec, *operands, **kw)
     torch.cuda.synchronize()
     assert tk.transit_rt_cuda.launches == launches + 1
-    assert tk.transit_rt_cuda.single_chain_launches == single + (nb == 1)
     got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
     assert np.all(np.isfinite(got))
     scale = np.abs(want).max(axis=1, keepdims=True)
@@ -197,6 +195,210 @@ def test_cuda_wrapper_routes_to_kernel(cuda):
     torch.cuda.synchronize()
     assert out.is_cuda and out.shape == (2, 64)
     assert tk.transit_rt_cuda.launches == launches + 1
+
+
+def _one_chain(case, cuda, nb=1, nlayers=None):
+    """K2's raw operands for one of its cases: (args, kwargs) of
+    transit_spectrum_ensemble at `nb` chains, float32 on the card."""
+    if nlayers is None:
+        nlayers = 81 if case == 'layers81' else 51
+    nwave = 1000
+    radius, parts, cia_tab, cia_w, r1c, r1r = _operands(
+        nb, nlayers, nwave, ncia=15, nr1=2, seed=31)
+    if case == 'inf_top':
+        radius[0, :3] = np.inf
+    ls_w, ls_tab = _line_sample(nb, nlayers, nwave, 10, seed=32)
+    f32 = lambda a: torch.as_tensor(
+        np.asarray(a), dtype=torch.float32, device=cuda)
+    i64 = lambda a: torch.as_tensor(np.asarray(a), device=cuda)
+    itop = np.arange(nb) % 3
+    rr = f32(radius)
+    kw = dict(cia_w=f32(cia_w), cia_tab=f32(cia_tab), r1_cols=f32(r1c),
+              r1_rows=f32(r1r), ls_w=f32(ls_w), ls_tab=f32(ls_tab),
+              maxdepth=10.0 if case == 'maxdepth' else np.inf)
+    ec = [f32(p) for p in parts]
+    if case == 'dense_deck':
+        ec.append(f32(np.einsum('bkl,klw->blw', ls_w, ls_tab)))
+        kw.update(ls_w=None, ls_tab=None)
+    if case == 'cia40_r1_5':
+        raw = _overflow_operands('cia40', nb, nlayers, nwave, seed=33)
+        (full_ec, full), (fit_ec, fit) = _fitted(
+            'cia40', nlayers, 'transit', f32, *raw)
+        extra = _overflow_operands('r1_6', nb, nlayers, nwave, seed=34)
+        r1c5, r1r5 = f32(extra[3][:, :5]), f32(extra[4][:, :5])
+        fit = tk.fit_operands(full_ec, **dict(full, r1_cols=r1c5,
+                                              r1_rows=r1r5))
+        ec = fit.pop('ec_parts')
+        kw.update(fit)
+    ibottom = i64(np.full(nb, nlayers))
+    if case not in ('no_deck', 'inf_top'):
+        deck_itop = nlayers - 1 - np.arange(nb) % 7
+        rsurf = radius[np.arange(nb), deck_itop] + 0.4 * (
+            radius[np.arange(nb), deck_itop - 1]
+            - radius[np.arange(nb), deck_itop])
+        kw.update(deck_itop=i64(deck_itop), deck_rsurf=f32(rsurf))
+        ibottom = i64(deck_itop + 1)
+    path = transit_path_matrix(rr, i64(itop))
+    return (ec, path, rr, 12.0, i64(itop), ibottom), kw
+
+
+_ONE_CASES = ['ls_deck', 'dense_deck', 'no_deck', 'maxdepth', 'cia40_r1_5',
+              'layers81', 'inf_top']
+
+
+def _row_rel_finite(got, want):
+    """Largest difference relative to the row maximum; the non-finite
+    entries must be the same in both."""
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert np.array_equal(np.isfinite(got), np.isfinite(want))
+    rows = np.all(np.isfinite(want), axis=1)
+    if not rows.any():
+        return 0.0
+    scale = np.abs(want[rows]).max(axis=1, keepdims=True)
+    return float(np.max(np.abs(got[rows] - want[rows]) / scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', _ONE_CASES)
+def test_cuda_one_chain_kernel_matches_plain(cuda, case):
+    """K2 on one chain's raw operands against its plain version on the
+    card (prep_chains + transit_rt_plain): the line sample in the kernel
+    or as a dense part, no deck, a finite maxdepth, 40 CIA rows and 5
+    rank-1 terms through the size rule, 81 layers, +inf top radii."""
+    args, kw = _one_chain(case, cuda)
+    launches = tk.transit_one_cuda.launches
+    k1 = tk.transit_rt_cuda.launches
+    got = tk.transit_one_cuda(*args, **kw)
+    want = tk.transit_one_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert tk.transit_one_cuda.launches == launches + 1
+    assert tk.transit_rt_cuda.launches == k1
+    assert _row_rel_finite(got, want) < TOL
+    assert bool(torch.isfinite(got).all()) == (case != 'inf_top')
+
+
+@pytest.mark.cuda
+def test_cuda_one_chain_kernel_takes_several_chains(cuda):
+    """K2 with 12 chains (a block of columns each) against the plain
+    version, and the pointer scalars of one element for every chain."""
+    args, kw = _one_chain('ls_deck', cuda, nb=12)
+    got = tk.transit_one_cuda(*args, **kw)
+    want = tk.transit_one_plain(*args, **kw)
+    assert _row_rel_finite(got, want) < TOL
+    rstar = torch.full((1,), 12.0, device=cuda, dtype=torch.float64)
+    itop = args[4][:1].to(torch.int32)
+    one = (args[0], args[1], args[2], rstar, itop, args[5])
+    got = tk.transit_one_cuda(*one, **kw)
+    want = tk.transit_one_plain(*one, **kw)
+    assert _row_rel_finite(got, want) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['ls_deck', 'cia40_r1_5'])
+def test_cuda_one_chain_call_is_one_launch(cuda, case):
+    """transit_spectrum_ensemble at one chain and transit_spectrum_fused
+    are one kernel launch each on the card (torch.profiler), K2's; also
+    on the size rule's operands, whose CIA weights are a view of the
+    first 32 of each layer's 40."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args, kw = _one_chain(case, cuda)
+    if case == 'cia40_r1_5':
+        assert not kw['cia_w'].is_contiguous()
+    ec = [p[0] for p in args[0]]
+    fused_args = (ec, args[1][0], args[2][0], 12.0, int(args[4][0]),
+                  int(args[5][0]))
+    fused_kw = dict(deck_itop=int(kw['deck_itop'][0]),
+                    deck_rsurf=float(kw['deck_rsurf'][0]))
+    calls = [lambda: tk.transit_spectrum_ensemble(*args, **kw)]
+    if case == 'ls_deck':
+        calls.append(lambda: tk.transit_spectrum_fused(*fused_args,
+                                                       **fused_kw))
+    for fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        launches = tk.transit_one_cuda.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU]
+        assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
+        assert 'transit_one_kernel' in kernels[0].key
+        assert tk.transit_one_cuda.launches == launches + 1
+    if case != 'ls_deck':
+        return
+    fused = tk.transit_spectrum_fused(*fused_args, **fused_kw)
+    want = tk.transit_one_plain(
+        [p[None] for p in ec], args[1][:1], args[2][:1], 12.0,
+        args[4][:1], args[5][:1], **fused_kw)
+    assert _row_rel_finite(fused[None], want) < TOL
+
+
+@pytest.mark.cuda
+def test_cuda_one_chain_refuses_layers_beyond_shared_memory(cuda):
+    """K2 raises before any launch when even its streamed block (the
+    radius, heights and live line-sample rows of each layer) exceeds the
+    shared memory, and names the most layers it takes with those
+    operands (a dense part and a line sample of two rows); below that it
+    runs, streamed."""
+    nlayers = tk.one_max_layers(0, 0, 2, 1) + 1
+    radius, parts, _, _, _, _ = _operands(1, nlayers, 64, 1, 1, seed=5)
+    ls_w, ls_tab = _line_sample(1, nlayers, 64, 2, seed=6)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    rr, ec = f32(radius), [f32(parts[0])]
+    ls_w, ls_tab = f32(ls_w), f32(ls_tab)
+    launches = tk.transit_one_cuda.launches
+    with pytest.raises(ValueError, match=f'at most {nlayers - 1} layers'):
+        tk.transit_spectrum_ensemble(
+            ec, transit_path_matrix(rr), rr, 10.0, 0, nlayers, ls_w=ls_w,
+            ls_tab=ls_tab)
+    assert tk.transit_one_cuda.launches == launches
+    streamed = tk.transit_one_cuda.streamed_launches
+    out = tk.transit_spectrum_ensemble(
+        [p[:, 1:] for p in ec], transit_path_matrix(rr[:, 1:]), rr[:, 1:],
+        10.0, 0, nlayers - 1, ls_w=ls_w[..., 1:],
+        ls_tab=ls_tab[:, 1:].contiguous())
+    torch.cuda.synchronize()
+    assert tk.transit_one_cuda.launches == launches + 1
+    assert tk.transit_one_cuda.streamed_launches == streamed + 1
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('sizes', [(0, 0, 0, 1), (1, 15, 10, 0),
+                                   (2, 15, 10, 2), (4, 32, 0, 3)])
+def test_cuda_one_chain_takes_the_tall_functions_layers(cuda, sizes):
+    """Every layer count the ensemble kernel's tall function takes at
+    one chain (what B = 1 calls ran on before K2), K2 takes too, with
+    the operand counts of the retrieval, the tests and the spectrum
+    path."""
+    assert tk.one_max_layers(*sizes) >= tk.tall_max_layers(*sizes)
+    assert tk.one_staged_max_layers(*sizes) < tk.one_max_layers(*sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('where', ['staged_top', 'streamed', 'layers1100'])
+def test_cuda_one_chain_streams_beyond_shared_memory(cuda, where):
+    """At the most layers whose block K2 holds in shared memory it runs
+    staged; above them streamed (ec and the depths through device
+    memory, the chord rows folded as they are read): one launch either
+    way, within TOL of the plain version."""
+    top = tk.one_staged_max_layers(2, 15, 10, 2)
+    nlayers = {'staged_top': top, 'streamed': top + 1,
+               'layers1100': 1100}[where]
+    args, kw = _one_chain('ls_deck', cuda, nlayers=nlayers)
+    launches = tk.transit_one_cuda.launches
+    streamed = tk.transit_one_cuda.streamed_launches
+    got = tk.transit_spectrum_ensemble(*args, **kw)
+    want = tk.transit_one_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert tk.transit_one_cuda.launches == launches + 1
+    assert tk.transit_one_cuda.streamed_launches == streamed + (
+        where != 'staged_top')
+    assert bool(torch.isfinite(got).all())
+    assert _row_rel_finite(got, want) < TOL
 
 
 def _emission_operands(nb, nlayers, nwave, seed):
@@ -368,6 +570,41 @@ def test_cuda_lbl_kernels_match_plain(cuda, kernel, nspec):
     assert cuda_fn.launches == launches + 1
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     assert _masked_rel(got, want) < LBL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('split', [None, False, True])
+@pytest.mark.parametrize('nspec', [1, 2, 8])
+def test_cuda_wing_windows_kernel_matches_plain(cuda, nspec, split):
+    """K6 on its window layout against the plain version at nspec 1, 2
+    and 8 (a species index drawn over eight), with the launch's own
+    choice and with each warp's run split over a block's warps or not;
+    also on windows whose width is not a multiple of four (4-byte
+    copies)."""
+    direct = DirectLBL(_lbl_lines(min(nspec, 2)), device=cuda)
+    tables = direct.tables()
+    fac = direct._cell_factors(tables, *_lbl_cells(direct, 21), 'w_')
+    spec = None
+    if nspec == 2:
+        spec = tables['w_spec']
+    elif nspec == 8:
+        spec = torch.as_tensor(np.random.default_rng(8).integers(
+            0, 8, tuple(tables['w_spec'].shape)), dtype=torch.int32,
+            device=cuda)
+    args = [tables['wn_tiles_hi'], tables['wn_tiles_lo'],
+            tables['w_lwn_hi'], tables['w_lwn_lo'], fac['c1_w'],
+            fac['y2_w'], fac['inv_ad_w'], spec]
+    kw = dict(margin=direct.margin, cutoff=direct.cutoff, nspec=nspec)
+    for cut in (args[2].shape[-1] % 4, args[2].shape[-1] % 4 + 1):
+        ops = [a if a is None or i < 2 else a[..., :a.shape[-1] - cut]
+               .contiguous() for i, a in enumerate(args)]
+        launches = lk.wing_sigma_cuda.launches
+        got = lk.wing_sigma_cuda(*ops, split=split, **kw)
+        want = lk.wing_sigma_plain(*ops, **kw)
+        torch.cuda.synchronize()
+        assert lk.wing_sigma_cuda.launches == launches + 1
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        assert _masked_rel(got, want) < LBL_TOL
 
 
 def _line_operands(direct, kind, ncell):
@@ -799,13 +1036,36 @@ def test_cuda_model_run_matches_plain_route(cuda, tmp_path, rt_path):
         'clouds =', 'rayleigh = rayleigh_H2 rayleigh_He\nclouds =\n'
         '    ccsgray 0.0 -3.0 1.0')
     cfg.write_text(text)
-    counter = (tk.transit_rt_cuda if rt_path == 'transit'
+    counter = (tk.transit_one_cuda if rt_path == 'transit'
                else ek.emission_rt_cuda)
     launches = counter.launches
     gpu = Model(str(cfg), device='cuda').run()
     torch.cuda.synchronize()
     assert counter.launches == launches + 1
     cpu = Model(str(cfg), device='cpu').run()
+    got = gpu['spectrum'].double().cpu().numpy()
+    want = cpu['spectrum'].numpy()
+    assert np.all(np.isfinite(got))
+    assert np.max(np.abs(got - want)) / np.abs(want).max() < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_model_run_streams_a_deep_atmosphere(cuda, tmp_path):
+    """Model.run on 300 layers, more than K2 holds in shared memory:
+    one streamed launch on the card, whose spectrum equals the same
+    model on the CPU (float64, the plain versions) within 1e-4."""
+    from pyratbay_tpu_torch.benchmark import make_flagship
+    from pyratbay_tpu_torch.model import Model
+    make_flagship(str(tmp_path), nlayers=300, wl_low=1.1, wl_high=1.3,
+                  wnstep=4.0, device='cpu', rt_path='transit')
+    cfg = str(tmp_path / 'flagship.cfg')
+    launches = tk.transit_one_cuda.launches
+    streamed = tk.transit_one_cuda.streamed_launches
+    gpu = Model(cfg, device='cuda').run()
+    torch.cuda.synchronize()
+    assert tk.transit_one_cuda.launches == launches + 1
+    assert tk.transit_one_cuda.streamed_launches == streamed + 1
+    cpu = Model(cfg, device='cpu').run()
     got = gpu['spectrum'].double().cpu().numpy()
     want = cpu['spectrum'].numpy()
     assert np.all(np.isfinite(got))
