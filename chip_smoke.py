@@ -39,7 +39,15 @@ at 4, 8, 16 and 32 warps a block, and K2 beside K1 at the nested walk's
 Then the same for the transit retrieval on the
 flagship written on 81 layers (81 x 3209, 512 chains x 20 generations), whose forwards launch the tall function with the line
 sample inside it; its `times` line adds the chains the function keeps
-in flight on an SM.  Then the spectrum path: the flagship (51 x 3209) as runmode = spectrum configs
+in flight on an SM.  Then the transit_r115k path: the flagship at
+constant R = 115,000 (make_flagship(resolution=), 51 x 50,062), 512
+chains x 20 generations through the driver; K1 against its plain
+version on the line-sample cases (no dense part: one would take 5.2
+GB), K2 on chain 0, GPU float32 against CPU float64 on 4 chains; K1's
+events, device and plain ms and bound, K2's, the forward's ms,
+generations/s and the card's peak memory (its `times` and
+`times_one_chain` lines; the kernel table carries them under
+`at_transit_r115k`).  Then the spectrum path: the flagship (51 x 3209) as runmode = spectrum configs
 with the bundled H2-H2 and H2-He CIA tables by basename (40 rows),
 Rayleigh, the haze and a gray cloud (5 rank-1 terms), the deck, and the
 specfile, through the CLI's driver on the default device: transit (one
@@ -195,6 +203,11 @@ KERNELS = {
         name='emission_rt', tol=1e-4,
         source='pyratbay_tpu_torch/csrc/emission_rt.cu',
         replaces='pyratbay_tpu/spectrum/emission_pallas.py:433'),
+    # The flagship at constant R = 115,000 (51 x 50,062), through K1:
+    'transit_r115k': dict(
+        name='transit_rt', tol=2e-5,
+        source='pyratbay_tpu_torch/csrc/transit_rt.cu',
+        replaces='pyratbay_tpu/spectrum/ensemble_pallas.py:299'),
     # The transit kernel's function for more than 64 layers:
     'transit_81': dict(
         name='transit_rt_tall', tol=2e-5,
@@ -240,6 +253,9 @@ TALL_LAYERS = 81
 # block K2 holds in shared memory with any operand counts (168 to 272),
 # so Model.run takes its streamed layout.
 DEEP_LAYERS = 300
+# The constant-R flagship (make_flagship(resolution=)): the JAX bench's
+# high-resolution transit setting, R = 115,000 over 1.1-1.7 um.
+R115K = 115_000.0
 ELECTRONS = ['H2', 'He', 'H', 'Na', 'K', 'H2O', 'CH4', 'CO', 'CO2', 'e-']
 ELECTRON_VMR = [8.5e-1, 1.49e-1, 1e-6, 3e-6, 5e-8, 4e-4, 1e-4, 5e-4, 1e-7,
                 1e-6]
@@ -571,12 +587,13 @@ def wrapper_case(label, model, call):
             _common(kw, every))
 
 
-def kernel_cases(label, model, call, rejected):
+def kernel_cases(label, model, call, rejected, dense_cases=True):
     """Kernel operands at the flagship's width from a recorded B = 512
     call of the main path's wrapper and a recorded call with a rejected
     chain: name -> (args, kwargs) of the kernel and its plain version.
     Cases named *_ls_* carry the line sample as ls_w / ls_tab, cases
-    named *_dense_* as a dense part."""
+    named *_dense_* as a dense part (left out without `dense_cases`: at
+    50,062 columns a [512, 51, W] part takes 5.2 GB)."""
     import torch
     common = _common
 
@@ -588,22 +605,26 @@ def kernel_cases(label, model, call, rejected):
         fail(f'{label}: the main path did not hand the kernel the line '
              'sample as ls_w / ls_tab alone')
     every, some, one = slice(None), slice(0, 500), slice(0, 1)
-    dense = torch.einsum(
-        'bkl,klw->blw', kw['ls_w'], kw['ls_tab']).contiguous()
-    no_ls = dict(ls_w=None, ls_tab=None)
-    return {
+    cases = {
         'B512_ls_deck': (([], *prep(args, kw, every)), common(kw, every)),
         'B512_ls_nodeck': (
             ([], *prep(args, kw, every, deck=False)), common(kw, every)),
-        'B512_ls_beside_dense_part': (
-            ([0.25 * dense], *prep(args, kw, every)),
-            common(kw, every, ls_w=0.75 * kw['ls_w'])),
         'B512_ls_lowered_top': (
             ([], *prep(args, kw, every, lower_top=3)), common(kw, every)),
         'B500_ls_deck': (([], *prep(args, kw, some)), common(kw, some)),
         'B1_ls_deck': (([], *prep(args, kw, one)), common(kw, one)),
         'B8_ls_rejected_chain': (
             ([], *prep(*rejected, every)), common(rejected[1], every)),
+    }
+    if not dense_cases:
+        return cases
+    dense = torch.einsum(
+        'bkl,klw->blw', kw['ls_w'], kw['ls_tab']).contiguous()
+    no_ls = dict(ls_w=None, ls_tab=None)
+    cases.update({
+        'B512_ls_beside_dense_part': (
+            ([0.25 * dense], *prep(args, kw, every)),
+            common(kw, every, ls_w=0.75 * kw['ls_w'])),
         'B512_dense_deck': (
             ([dense], *prep(args, kw, every)), common(kw, every, **no_ls)),
         'B512_dense_nodeck': (
@@ -611,7 +632,8 @@ def kernel_cases(label, model, call, rejected):
             common(kw, every, **no_ls)),
         'B1_dense_deck': (
             ([dense[:1]], *prep(args, kw, one)), common(kw, one, **no_ls)),
-    }
+    })
+    return cases
 
 
 def kernel_bound(label, args, kw):
@@ -737,13 +759,14 @@ def one_bound(args, kw):
     return roofline(nbytes, flops)
 
 
-def one_chain_times(case, call, card, label):
+def one_chain_times(case, call, card, label, batches=ONE_BATCHES):
     """K2's numbers on one chain's operands: CUDA events around runs of
     the whole wrapper (transit_one_cuda) in turns with its plain version
     and with what the wrapper did before (prep_chains, then K1 with one
     chain), each's profiler device ms and device launches a call; and
     K2 beside K1 at the nested walk's batches (from the recorded B = 512
-    call).  Emits `times_one_chain`; returns K2's kernel-entry numbers."""
+    call; `batches`, none to leave them out).  Emits `times_one_chain`;
+    returns K2's kernel-entry numbers."""
     from pyratbay_tpu_torch.spectrum import transit_kernel as tk
     args, kw = case
 
@@ -763,8 +786,8 @@ def one_chain_times(case, call, card, label):
                    'transit_one_kernel'),
         'before': (before, 'transit_rt_kernel')}.items()}
     bound_ms, bound_by = one_bound(args, kw)
-    batches = {}
-    for nb in ONE_BATCHES:
+    sizes, batches = batches, {}
+    for nb in sizes:
         b_args, b_kw = one_case(call, slice(0, nb))
         pair = paired_ms({
             'k2': lambda: tk.transit_one_cuda(*b_args, **b_kw),
@@ -813,10 +836,11 @@ def one_chain_times(case, call, card, label):
                 earlier_device_ms=EARLIER_ONE_DEVICE_MS)
 
 
-def check_kernel(name, kernel, plain, cases, tol):
+def check_kernel(name, kernel, plain, cases, tol, path=None):
     """Each case through the kernel and its plain version; returns each
     case's largest absolute difference.  Fails beyond `tol` of the row
-    max."""
+    max.  `path` names the phase in each line (None: not a retrieval
+    path's own)."""
     import torch
     max_abs = {}
     for case, (args, kw) in cases.items():
@@ -825,7 +849,8 @@ def check_kernel(name, kernel, plain, cases, tol):
         torch.cuda.synchronize()
         rel, absolute = rel_err(got, want)
         max_abs[case] = absolute
-        emit('kernel_check', kernel=name, case=case, shape=list(got.shape),
+        emit('kernel_check', kernel=name, case=case, path=path,
+             shape=list(got.shape),
              finite_rows=int(torch.isfinite(got).all(dim=1).sum()),
              max_rel_err=rel, max_abs_err=absolute, tol=tol)
         if not rel < tol:
@@ -833,22 +858,33 @@ def check_kernel(name, kernel, plain, cases, tol):
     return max_abs
 
 
+def flagship_width(resolution):
+    """Wavenumbers of the flagship's 1.1-1.7 um range: NWAVE at its
+    wnstep of 1 cm-1, else the constant-R grid of ops/grids.py."""
+    if resolution is None:
+        return NWAVE
+    from pyratbay_tpu_torch.ops.grids import wavenumber_grid
+    return len(wavenumber_grid(wnlow=1.0 / 1.7e-4, wnhigh=1.0 / 1.1e-4,
+                               resolution=resolution).wn)
+
+
 def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
-             keep=None):
-    """One path end to end on the flagship with `nlayers` layers: kernel
-    checks, the main path through pyratbay_tpu_torch's run(), GPU against
-    CPU, and timings.  Returns the kernel entries; the dict `keep`, when
-    given, receives the retrieval's Model as 'model'."""
+             keep=None, resolution=None):
+    """One path end to end on the flagship with `nlayers` layers (at the
+    constant R `resolution`, when given): kernel checks, the main path
+    through pyratbay_tpu_torch's run(), GPU against CPU, and timings.
+    Returns the kernel entries; the dict `keep`, when given, receives the
+    retrieval's Model as 'model'.  On the constant-R grid the dense-part
+    cases and routes are left out (a [512, 51, W] part is 5.2 GB at R =
+    115,000), and the entries are marked partial: their figures at this
+    width go under `at_<label>` of the entries of the transit path."""
     import torch
     from pyratbay_tpu_torch import model as model_mod
     from pyratbay_tpu_torch.benchmark import make_flagship
     from pyratbay_tpu_torch.driver import run
     from pyratbay_tpu_torch.observation import Observation
     from pyratbay_tpu_torch.retrieval.params import RetrievalParams
-    from pyratbay_tpu_torch.retrieval.batched import (
-        build_forward_batched, build_log_posterior_batched,
-    )
-    from pyratbay_tpu_torch.retrieval.samplers import sample_demc
+    from pyratbay_tpu_torch.retrieval.batched import build_forward_batched
     from pyratbay_tpu_torch.spectrum import emission_kernel as ek
     from pyratbay_tpu_torch.spectrum import transit_kernel as tk
 
@@ -865,10 +901,16 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
     counters = (tk.transit_rt_cuda, ek.emission_rt_cuda)
 
     # Flagship at full width on the GPU:
+    wide = resolution is not None
+    nwave = flagship_width(resolution)
+    phase_t0 = time.perf_counter()
     model, obs, ret, forward, p0 = make_flagship(
-        workdir, nlayers=nlayers, device=dev, rt_path=rt_path)
-    if (model.nlayers, model.nwave) != (nlayers, NWAVE):
-        fail(f'{label} flagship shape {(model.nlayers, model.nwave)}')
+        workdir, nlayers=nlayers, resolution=resolution, device=dev,
+        rt_path=rt_path)
+    setup_s = time.perf_counter() - phase_t0
+    if (model.nlayers, model.nwave) != (nlayers, nwave):
+        fail(f'{label} flagship shape {(model.nlayers, model.nwave)}, not '
+             f'{(nlayers, nwave)}')
     rng = np.random.default_rng(0)
     pb = p0 + ret.pstep * rng.standard_normal((NCHAINS, len(p0)))
     pb = np.clip(pb, ret.pmin, ret.pmax)
@@ -882,8 +924,18 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
     pb_rejected[-1, 1] = 1.0e6
     rejected, = record_calls(((model_mod, wrapper),),
                              lambda: forward_b(pb_rejected))
-    cases = kernel_cases(kind, model, call, rejected)
-    case_abs = check_kernel(spec['name'], kernel, plain, cases, spec['tol'])
+    cases = kernel_cases(kind, model, call, rejected, dense_cases=not wide)
+    if wide:
+        # Which route the line sample took at this width (the recorded
+        # call handed it to the kernel as weights and table, or
+        # kernel_cases failed):
+        n_k, _, _ = call[1]['ls_tab'].shape
+        emit('ls_route', path=label, nlayers=nlayers, nwave=nwave,
+             ls_rows=n_k, in_kernel=tk.ls_in_kernel(n_k, nlayers, rt_path),
+             route='ls_w / ls_tab inside the kernel',
+             setup_seconds=setup_s)
+    case_abs = check_kernel(spec['name'], kernel, plain, cases, spec['tol'],
+                            path=label)
     max_abs = max(case_abs.values())
     # K2 on one chain's raw operands from the same call:
     one_abs = {}
@@ -892,7 +944,7 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
             model, call, tag='layers81_' if tall else 'ls_')
         one_abs = check_kernel(ONE_CHAIN['name'], tk.transit_one_cuda,
                                tk.transit_one_plain, one_cases,
-                               ONE_CHAIN['tol'])
+                               ONE_CHAIN['tol'], path=label)
 
     # The main path, through the driver:
     band0 = forward(p0)['bandflux'].cpu().numpy()
@@ -939,7 +991,7 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
         fail(f'{label}: non-finite retrieval output {finite}')
     if not float(out['acceptance_rate']) > 0:
         fail(f'{label}: acceptance rate is 0')
-    if out['spec_best'].shape != (NWAVE,):
+    if out['spec_best'].shape != (nwave,):
         fail(f'{label}: spec_best shape {out["spec_best"].shape}')
     if launches < NGEN + 2:
         fail(f'{label}: {launches} {spec["name"]} launches < {NGEN + 2}')
@@ -952,15 +1004,24 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
         os.path.join(workdir, 'flagship.cfg'), device='cpu')
     cpu_obs = Observation(obs_cfg(obs), cpu_model.wn)
     cpu_ret = RetrievalParams(cpu_model, cpu_obs)
-    p8 = pb[:8]
+    # (4 chains by chunks of 2 on the constant-R grid, whose CPU
+    # operands are 15.6 times wider):
+    p8 = pb[:4] if wide else pb[:8]
     spec_gpu = forward_b(p8)['spectrum']
-    spec_cpu = build_forward_batched(cpu_model, cpu_obs, cpu_ret)(
-        p8)['spectrum']
+    spec_cpu = torch.cat([out['spectrum'] for out in chunked_cpu(
+        build_forward_batched(cpu_model, cpu_obs, cpu_ret), p8,
+        chunk=2 if wide else len(p8))])
     fwd_rel, fwd_abs = rel_err(spec_gpu, spec_cpu)
-    emit('gpu_vs_cpu' + suffix, chains=8, max_rel_err=fwd_rel,
+    emit('gpu_vs_cpu' + suffix, chains=len(p8), max_rel_err=fwd_rel,
          max_abs_err=fwd_abs, tol=FORWARD_TOL)
     if not fwd_rel < FORWARD_TOL:
         fail(f'{label}: GPU f32 forward disagrees with CPU f64 ({fwd_rel})')
+
+    if wide:
+        return wide_times(label, spec, kernel, plain, cases, call, one_cases,
+                          forward_b, rmodel, pb, dev, args, card, nwave,
+                          launches, one_launches, max_abs, one_abs,
+                          time.perf_counter() - phase_t0, setup_s)
 
     # Times (CUDA events, medians after warm-up, in turns).  The two
     # line-sample routes: the einsum and the contiguous copy that make the
@@ -997,18 +1058,7 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
     pb_t = torch.as_tensor(pb, dtype=torch.float32, device=dev)
     with torch.no_grad():
         ms_forward = float(np.median(cuda_times(lambda: forward_b(pb_t))))
-    log_post_b = build_log_posterior_batched(rmodel, rmodel.obs, rmodel.ret)
-    gens = 10
-    gen_times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sample_demc(log_post_b, rmodel.ret.params,
-                    nsamples=NCHAINS * gens, nchains=NCHAINS,
-                    pstep=rmodel.ret.pstep, pmin=rmodel.ret.pmin,
-                    pmax=rmodel.ret.pmax, device=dev, dtype=rmodel.dtype)
-        torch.cuda.synchronize()
-        gen_times.append(time.perf_counter() - t0)
+    gens_per_s = demc_rate(rmodel, dev)
     extra = {}
     if tall:
         # Chains in flight on an SM at this phase's operand counts:
@@ -1042,7 +1092,7 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
          b1_bound_ms=b1_bound_ms, b1_bound_by=b1_bound_by,
          forward_ms=ms_forward,
          forward_spectra_per_s=NCHAINS / (ms_forward * 1e-3),
-         demc_generations_per_s=gens / float(np.median(gen_times)),
+         demc_generations_per_s=gens_per_s,
          demc_note='includes the initial ensemble evaluation and the '
                    'history copy to the host')
     if not ms['kernel'] <= ms['route_dense']:
@@ -1077,6 +1127,95 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
                                          card, label))
         entries.append(one)
     return entries
+
+
+def demc_rate(rmodel, dev, gens=10, runs=3):
+    """DEMC generations/s of the retrieval's Model: `gens` generations of
+    NCHAINS chains by the host clock ending in a synchronize, the median
+    of `runs` runs (each with its initial ensemble and the history's copy
+    to the host)."""
+    import torch
+    from pyratbay_tpu_torch.retrieval.batched import (
+        build_log_posterior_batched)
+    from pyratbay_tpu_torch.retrieval.samplers import sample_demc
+    log_post_b = build_log_posterior_batched(rmodel, rmodel.obs, rmodel.ret)
+    gen_times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample_demc(log_post_b, rmodel.ret.params,
+                    nsamples=NCHAINS * gens, nchains=NCHAINS,
+                    pstep=rmodel.ret.pstep, pmin=rmodel.ret.pmin,
+                    pmax=rmodel.ret.pmax, device=dev, dtype=rmodel.dtype)
+        torch.cuda.synchronize()
+        gen_times.append(time.perf_counter() - t0)
+    return gens / float(np.median(gen_times))
+
+
+def wide_times(label, spec, kernel, plain, cases, call, one_cases,
+               forward_b, rmodel, pb, dev, args, card, nwave, launches,
+               one_launches, max_abs, one_abs, checks_s, setup_s):
+    """The constant-R path's timings: K1 at B = 512 by CUDA events in
+    turns with its plain version, its device ms (kernel_device_ms, which
+    checks the launches the profile recorded), its bound at this width;
+    K2 on chain 0 (one_chain_times, without the nested-walk batches);
+    the forward at B = 512, DEMC generations/s, the card's peak memory of
+    those two; with --profile the forward's device busy and idle share.
+    Emits `times`; returns K1's and K2's entries, marked partial."""
+    import torch
+    ls_args, ls_kw = cases['B512_ls_deck']
+    t0 = time.perf_counter()
+    ms = paired_ms({
+        'plain': lambda: plain(*ls_args, **ls_kw),
+        'kernel': lambda: kernel(*ls_args, **ls_kw)})
+    alone, whole, _, recorded = kernel_device_ms(
+        lambda: kernel(*ls_args, **ls_kw), spec['name'] + '_kernel')
+    bound_ms, bound_by = kernel_bound('transit', ls_args, ls_kw)
+    one = one_chain_times(one_cases['B1_ls_deck'], call, card, label,
+                          batches=())
+    pb_t = torch.as_tensor(pb, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        ms_forward = float(np.median(cuda_times(lambda: forward_b(pb_t))))
+    gens_per_s = demc_rate(rmodel, dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    fields = dict(
+        kernel_ms=ms['kernel'], plain_ms=ms['plain'], bound_ms=bound_ms,
+        bound_by=bound_by, device_ms=alone, device_whole_call_ms=whole,
+        device_recorded=recorded, main_path_launches=launches,
+        forward_ms=ms_forward,
+        forward_spectra_per_s=NCHAINS / (ms_forward * 1e-3),
+        demc_generations_per_s=gens_per_s,
+        max_memory_allocated_bytes=int(peak))
+    emit('times', path=label, card=card, kernel=spec['name'],
+         nlayers=int(ls_args[3].shape[1]), nwave=nwave, **fields,
+         times_note='kernel_ms, plain_ms: CUDA events around runs of 4 '
+                    'calls of the wrapper, in turns; device_ms: '
+                    'torch.profiler, the kernel alone a launch over the '
+                    'launches recorded (device_recorded: their share); '
+                    'forward_ms: CUDA events; demc: 10 generations of 512 '
+                    'chains by the host clock, the median of 3, with the '
+                    'initial ensemble and the history copy; peak memory: '
+                    'the forward and the DEMC runs')
+    if args.profile:
+        prof = profile(label, forward_b, pb_t, ms_forward)
+        fields['device_idle_share'] = prof['device_idle_share']
+    emit('phase_seconds', name=label, seconds=checks_s
+         + time.perf_counter() - t0, setup_seconds=setup_s)
+    k1 = {'name': spec['name'], 'launches': launches,
+          'launches_by_path': {label: launches}, 'max_abs_err': max_abs,
+          'partial': True, f'at_{label}': dict(nwave=nwave, **fields)}
+    if one_launches < 1:
+        fail(f'{label}: the main path launched the one-chain kernel no '
+             'time')
+    k2 = {'name': ONE_CHAIN['name'], 'launches': one_launches,
+          'launches_by_path': {label: one_launches},
+          'max_abs_err': max(one_abs.values()), 'partial': True,
+          f'at_{label}': dict(nwave=nwave, **{
+              k: one[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
+                                  'device_ms')})}
+    return [k1, k2]
 
 
 def write_spectrum_cfg(workdir, name, rt_path, atmfile=None, nlayers=None,
@@ -4931,24 +5070,32 @@ def main():
     try:
         kernels = []    # K1, K2, K3, K1's tall function, then K4, K5, K6
         kept = {}       # the transit retrieval's Model, for model_io
-        for label, rt_path, nlayers in (
-                ('transit', 'transit', NLAYERS),
-                ('eclipse', 'eclipse', NLAYERS),
-                ('transit_81', 'transit', TALL_LAYERS)):
+        for label, rt_path, nlayers, resolution in (
+                ('transit', 'transit', NLAYERS, None),
+                ('eclipse', 'eclipse', NLAYERS, None),
+                ('transit_81', 'transit', TALL_LAYERS, None),
+                ('transit_r115k', 'transit', NLAYERS, R115K)):
             path_dir = os.path.join(workdir, label)
             os.makedirs(path_dir)
             for entry in run_path(label, rt_path, path_dir, dev, args, card,
                                   nlayers,
-                                  keep=kept if label == 'transit' else None):
+                                  keep=kept if label == 'transit' else None,
+                                  resolution=resolution):
                 if not entry.pop('partial', False):
                     kernels.append(entry)
                     continue
-                # K2's launches and checks on another path:
+                # K1's and K2's launches, checks and figures on another
+                # path:
                 whole = next(k for k in kernels if k['name'] == entry['name'])
-                whole['launches'] += entry['launches']
-                whole['launches_by_path'].update(entry['launches_by_path'])
+                whole['launches'] += entry.pop('launches')
+                whole['launches_by_path'].update(
+                    entry.pop('launches_by_path'))
                 whole['max_abs_err'] = max(whole['max_abs_err'],
-                                           entry['max_abs_err'])
+                                           entry.pop('max_abs_err'))
+                entry.pop('name')
+                whole.update(entry)
+            if resolution is not None:
+                shutil.rmtree(path_dir, ignore_errors=True)
         path_dir = os.path.join(workdir, 'spectrum')
         os.makedirs(path_dir)
         spectrum_launches, tall, spectrum_models = run_spectrum(

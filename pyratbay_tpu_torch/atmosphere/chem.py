@@ -597,7 +597,6 @@ def gibbs_over_rt(name, temp):
 # and statmech alike -- freeze at the same temperature bound:
 _T_GRID = np.arange(200.0, 6001.0, 2.0)
 
-_N_ITER = 120  # damped Newton steps
 _N_AVG = 32    # averaged tail steps
 
 
@@ -647,12 +646,13 @@ def _newton_step(ln_n, ln_ntot, mu0, b, btot, stoich, stoich2, eye):
     return ln_n_new, ln_ntot_new
 
 
-def equilibrium_vmr(g0, lnp, b, stoich):
+def equilibrium_vmr(g0, lnp, b, stoich, n_iter=120):
     """Equilibrium VMRs of a batch of layers (pyratbay_tpu chem.py
     equilibrium_vmr, over any leading axes).
 
     g0 [..., ns] standard-state G/RT; lnp [...] ln(P / 1 bar); b
-    [..., ne] element (and charge) moles; stoich [ns, ne].  All are
+    [..., ne] element (and charge) moles; stoich [ns, ne]; n_iter
+    damped Newton steps before the 32 averaged ones.  All are
     taken to float64 on g0's device.  Returns vmr [..., ns], float64.
     """
     f64 = torch.float64
@@ -670,7 +670,7 @@ def equilibrium_vmr(g0, lnp, b, stoich):
 
     ln_n = torch.log(0.1 * btot / ns)[..., None].expand(g0.shape)
     ln_ntot = torch.log(0.6 * btot)
-    for _ in range(_N_ITER):
+    for _ in range(n_iter):
         ln_n, ln_ntot = _newton_step(ln_n, ln_ntot, *consts)
     # Averaged tail (the reference's float32 damping, kept for parity):
     acc = torch.zeros_like(ln_n)

@@ -33,7 +33,7 @@ def hydro_g(press, temp, mu, g, p0, r0):
     """
     logp = torch.log(press)
     g = _per_chain(g, temp)[:, None]
-    radius = cumtrapz(-pc.k * pc.N_A * temp / (mu * g), logp)
+    radius = cumtrapz(-pc.k * pc.N_A * temp / (mu * g), logp, axis=-1)
     r0 = _per_chain(r0, temp)
     p0 = _per_chain(p0, temp)
     return radius + (r0 - interp(p0, press, radius))[:, None]
@@ -50,7 +50,7 @@ def hydro_m(press, temp, mu, mass, p0, r0):
     r0 = _per_chain(r0, temp)[:, None]
     mass = _per_chain(mass, temp)[:, None]
     integ = cumtrapz(
-        r0 * pc.k * pc.N_A * temp / (pc.G * mu * mass), logp,
+        r0 * pc.k * pc.N_A * temp / (pc.G * mu * mass), logp, axis=-1,
     )
     i0 = interp(_per_chain(p0, temp), press, integ)
     radius = r0 / (integ - i0[:, None] + 1.0)

@@ -13,8 +13,10 @@ from ..ops.special import e2
 
 __all__ = [
     'pressure', 'isothermal_tp', 'guillot_tp', 'madhu_tp',
-    'gaussian_filter1d', 'get_tmodel', 'TMODEL_PNAMES',
+    'gaussian_filter1d', 'get_tmodel', 'TMODEL_NPARS', 'TMODEL_PNAMES',
 ]
+
+TMODEL_NPARS = {'isothermal': 1, 'guillot': 6, 'madhu': 6}
 
 TMODEL_PNAMES = {
     'isothermal': ['T_iso'],
@@ -74,13 +76,19 @@ def _constant(values):
     return on
 
 
-def guillot_tp(press):
+def guillot_tp(press, gravity=None):
     """Guillot (2010) / Line (2013) profile model.
 
     params = [log10(kappa'), log10(gamma1), log10(gamma2), alpha,
-              T_irr, T_int];  press in bar (numpy).
+              T_irr, T_int];  press in bar (numpy). The optical depth is
+    kappa' p / g: gravity (cm s-2), a scalar or one value a layer, is
+    broadcast over the pressure grid; None means ones.
     """
-    press_barye = _constant(np.asarray(press) * pc.bar)
+    press_barye = np.asarray(press) * pc.bar
+    if gravity is not None:
+        press_barye = press_barye / np.broadcast_to(
+            np.asarray(gravity, dtype=float), press_barye.shape)
+    press_barye = _constant(press_barye)
 
     def temp_fn(params):
         pb = press_barye(params)
@@ -113,9 +121,11 @@ def _gaussian_kernel1d(sigma, radius):
 _KERNELS = {}      # gaussian_filter1d's kernels by sigma, dtype and device
 
 
-def gaussian_filter1d(y, sigma):
-    """scipy's gaussian_filter1d in mode 'nearest' along the last axis
-    of y [..., l], as a static convolution."""
+def gaussian_filter1d(y, sigma, mode='nearest'):
+    """scipy's gaussian_filter1d in mode 'nearest' (the only mode) along
+    the last axis of y [..., l], as a static convolution."""
+    if mode != 'nearest':
+        raise ValueError(f'Unsupported mode {mode}')
     radius = int(4.0 * sigma + 0.5)
     key = (sigma, y.dtype, y.device)
     if key not in _KERNELS:
@@ -162,12 +172,13 @@ def madhu_tp(press):
     return temp_fn
 
 
-def get_tmodel(name, press):
-    """Temperature model factory by registry name."""
+def get_tmodel(name, press, gravity=None):
+    """Temperature model factory by registry name; gravity goes to the
+    Guillot model (see guillot_tp)."""
     if name == 'isothermal':
         fn = isothermal_tp(press)
     elif name in ('guillot', 'tcea'):
-        fn = guillot_tp(press)
+        fn = guillot_tp(press, gravity)
     elif name == 'madhu':
         fn = madhu_tp(press)
     else:

@@ -79,11 +79,14 @@ def _synthetic_cia_table(path, species=('H2', 'H2'), seed=7):
 
 
 def make_flagship(workdir=None, nlayers=51, wl_low=1.1, wl_high=1.7,
-                  wnstep=1.0, device=None, rt_path='transit', cs_file=None):
+                  wnstep=1.0, resolution=None, device=None,
+                  rt_path='transit', cs_file=None):
     """Write the flagship inputs into `workdir` and build the model on
-    `device`, with the observing geometry `rt_path`.  cs_file: an H2O
-    cross-section table to read (one that Model.compute_opacity wrote)
-    in place of the synthetic one.
+    `device`, with the observing geometry `rt_path`.  Sampling: the
+    constant-dnu `wnstep` (default), or the constant-R `resolution`
+    when given (wnstep ignored; R = 115,000 gives 50,062 wavenumbers).
+    cs_file: an H2O cross-section table to read (one that
+    Model.compute_opacity wrote) in place of the synthetic one.
 
     Returns (model, obs, ret, forward, example_params): forward is the
     per-chain forward (params [npars] -> dict of tensors).
@@ -108,13 +111,24 @@ def make_flagship(workdir=None, nlayers=51, wl_low=1.1, wl_high=1.7,
     pio.write_atm(atmfile, press, temp, species, vmr, punits='bar')
 
     if cs_file is None:
-        wn = np.arange(1.0 / (wl_high * 1e-4), 1.0 / (wl_low * 1e-4), wnstep)
+        if resolution is not None:
+            from .ops.grids import wavenumber_grid
+            wn = np.asarray(wavenumber_grid(
+                wnlow=1.0 / (wl_high * 1e-4), wnhigh=1.0 / (wl_low * 1e-4),
+                resolution=resolution,
+            ).wn)
+        else:
+            wn = np.arange(
+                1.0 / (wl_high * 1e-4), 1.0 / (wl_low * 1e-4), wnstep)
         cs_file = os.path.join(workdir, 'flagship_h2o.npz')
         _synthetic_cs_table(cs_file, wn, press)
     cia_file = os.path.join(workdir, 'flagship_cia.dat')
     _synthetic_cia_table(cia_file)
 
-    sampling_key = f'wnstep = {wnstep}'
+    sampling_key = (
+        f'resolution = {resolution}' if resolution is not None
+        else f'wnstep = {wnstep}'
+    )
     cfg_text = f"""[pyrat]
 runmode = spectrum
 verb = -1

@@ -32,7 +32,7 @@ _RUNMODES = ('tli', 'atmosphere', 'spectrum', 'opacity', 'radeq',
              'retrieval')
 
 
-def run(cfile, device=None, root=None, seed=0):
+def run(cfile, device=None, root=None, seed=0, with_log=True):
     """Execute a configuration on `device`.
 
     Returns the TLI summary list (runmode = tli) or the Model (with the
@@ -52,6 +52,9 @@ def run(cfile, device=None, root=None, seed=0):
     Model that carries a previous call's state, which a configuration
     file does not: a warm restart is radiative_equilibrium(model,
     radeq_temps=model.radeq_temps, dt_scale=model._dt_scale).
+    with_log=False logs to the screen only, with no log file; a log file
+    that cannot be opened warns and logs to the screen only, as in the
+    JAX package.
     """
     cfg = cfg_parser.parse(cfile, root=root)
     if cfg.runmode not in _RUNMODES:
@@ -62,9 +65,15 @@ def run(cfile, device=None, root=None, seed=0):
     # Several processes (no-op unless dist_* keys or PBT_* variables are
     # set): every rank runs the whole config, only rank 0 speaks.
     initialize_distributed(cfg, device)
-    log = Log(
-        logname=cfg.logfile, verb=cfg.verb if cfg.verb is not None else 2,
-        append=bool(cfg.resume))
+    verb = cfg.verb if cfg.verb is not None else 2
+    logname = cfg.logfile if with_log else None
+    try:
+        log = Log(logname=logname, verb=verb, append=bool(cfg.resume))
+    except OSError:
+        log = Log(verb=verb)
+        log.warning(f'Could not open log file {logname!r}')
+    # No file log later either (run_retrieval opens one otherwise):
+    log.screen_only = log.logname is None
     log.head(
         f'{log.sep}\n  pyratbay_tpu_torch v{__version__}\n'
         f'  Run mode: {cfg.runmode}\n  Config: {cfile}\n{log.sep}'

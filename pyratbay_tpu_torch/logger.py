@@ -26,6 +26,10 @@ class Log:
     The log file (when given) receives everything regardless of verb.
     """
 
+    # True when the caller chose the screen alone (driver.run's
+    # with_log=False, or a log file that could not be opened):
+    screen_only = False
+
     def __init__(self, logname=None, verb=2, width=70, append=False,
                  rank=None):
         if rank is None:

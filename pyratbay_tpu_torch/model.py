@@ -858,7 +858,8 @@ class Model:
                                  self.rplanet)[0]
         return self._input_radius
 
-    def _operands(self, temp, radius, dens, pars_list, skip):
+    def _operands(self, temp, radius, dens, pars_list, skip,
+                  lbl_engine=None):
         """One chain's extinction sources as the RT kernels' operands at
         B = 1 (retrieval/batched.py assemble_opacity) and the line-sample
         table they take."""
@@ -869,15 +870,25 @@ class Model:
                 for p in pars_list]
         ls_tab = line_sample_table(self)
         return assemble_opacity(self, temp[None], dens[None], radius[None],
-                                pars, ls_tab, skip), ls_tab
+                                pars, ls_tab, skip, lbl_engine), ls_tab
 
-    def extinction(self, temp, radius, dens, pars_list=None, skip=()):
+    def extinction(self, temp, radius, dens, pars_list=None, skip=(),
+                   lbl_engine='parity'):
         """The summed extinction of one chain as dense tensors, the
         reference's diagnostics: (ec [l, W] without the clouds of a
         patchy model, ec_cloud [l, W] with them, the deck surface triple
         (itop, rsurf, tsurf) or None).  temp, radius [l]; dens
-        [l, nspecies]."""
-        ops, ls_tab = self._operands(temp, radius, dens, pars_list, skip)
+        [l, nspecies].  lbl_engine: the line-by-line models' engine,
+        'parity' (the host profile-grid sampler) or 'direct' (the exact
+        Voigt engine on the device, as in the batched forward)."""
+        from .retrieval.batched import direct_lbl_engine
+        if lbl_engine not in ('parity', 'direct'):
+            raise ValueError(
+                f"Invalid lbl_engine {lbl_engine!r}, select from "
+                f"'parity' or 'direct'")
+        engine = direct_lbl_engine(self) if lbl_engine == 'direct' else None
+        ops, ls_tab = self._operands(temp, radius, dens, pars_list, skip,
+                                     engine)
         return self._summed(ops, ls_tab, temp)
 
     def _summed(self, ops, ls_tab, temp):

@@ -272,14 +272,19 @@ class LineSample:
         cs = torch.einsum('btl,stlw->bslw', w_t, self._table)
         return cs if per_mol else torch.sum(cs, dim=1)
 
-    def extinction(self, temperature, density, pars=None):
+    def extinction(self, temperature, density, per_mol=False, pars=None):
         """EC (cm-1) over the ensemble: temperature [B, l], density
-        [B, l, nspec] -> a dense [B, l, nwave] part.  The TF32 switch of
-        CUDA matmuls stays off (float32 products in full precision)."""
-        return torch.einsum(
-            'bkl,klw->blw',
-            self.kernel_weights(temperature, density, pars),
-            self.kernel_table)
+        [B, l, nspec] -> a dense [B, l, nwave] part, or with per_mol each
+        species' part [B, nspec, l, nwave] (they sum to the former).
+        The TF32 switch of CUDA matmuls stays off (float32 products in
+        full precision)."""
+        weights = self.kernel_weights(temperature, density, pars)
+        if per_mol:
+            return torch.einsum(
+                'bstl,stlw->bslw',
+                weights.reshape(-1, self.nspec, self.ntemp, self.nlayers),
+                self._table)
+        return torch.einsum('bkl,klw->blw', weights, self.kernel_table)
 
     def __str__(self):
         from ..tools import Formatted_Write

@@ -19,15 +19,30 @@ def trapz_intervals(data, intervals, axis=0):
     return 0.5 * torch.sum(mids * intervals.reshape(shape), dim=0)
 
 
-def cumtrapz(y, x):
-    """Cumulative trapezoid of y [..., n] over x [n] along the last
-    axis, starting at zero."""
+def cumtrapz(y, x, axis=0, initial=0.0):
+    """Cumulative trapezoid of y along `axis`, starting at `initial`.
+
+    As in the JAX package, `axis` moves to the front of y and x is
+    broadcast against the moved y. A 1-D x with an N-D y lies along
+    `axis` (a batch [B, n] over one grid [n] with axis=-1)."""
+    if not (torch.is_tensor(y) and torch.is_tensor(x)):
+        y, x = as_tensors(y, x)
+    y = torch.movedim(y, axis, 0)
+    if x.ndim == 1 and y.ndim > 1:
+        x = x.reshape((-1,) + (1,) * (y.ndim - 1))
+    try:
+        shape = torch.broadcast_shapes(x.shape, y.shape)
+    except RuntimeError:
+        shape = None
+    if shape != y.shape:
+        raise ValueError(
+            f'x of shape {tuple(x.shape)} does not broadcast to y moved '
+            f'to {tuple(y.shape)}')
     dx = x[1:] - x[:-1]
-    steps = 0.5 * dx * (y[..., 1:] + y[..., :-1])
-    return torch.cat(
-        [torch.zeros_like(steps[..., :1]), torch.cumsum(steps, dim=-1)],
-        dim=-1,
-    )
+    steps = 0.5 * dx * (y[1:] + y[:-1])
+    csum = torch.cat(
+        [torch.full_like(steps[:1], initial), torch.cumsum(steps, dim=0)])
+    return torch.movedim(csum, 0, axis)
 
 
 def simpson_nonuniform(y, x=None, dx=None, axis=0):

@@ -135,7 +135,7 @@ def assemble_opacity(model, temp, dens, radius, pars_list, ls_tab,
             if ls_tab is not None:
                 ls_ws.append(m.kernel_weights(temp, density, pars))
             else:
-                parts.append(m.extinction(temp, density, pars))
+                parts.append(m.extinction(temp, density, pars=pars))
             continue
         if mtype == 'lbl':
             engine = lbl_extinction if lbl_engine is None else lbl_engine

@@ -101,7 +101,8 @@ def run_retrieval(model, seed=0):
     nsamples = ret.nsamples or 1000
     burnin_gens = int(ret.burnin or 0)
     log = model.log
-    if log.logname is None and cfg.logfile is not None:
+    if log.logname is None and cfg.logfile is not None \
+            and not log.screen_only:
         # Called directly (not through driver.run): open the file log.
         from ..logger import Log
         log = model.log = Log(

@@ -3,8 +3,11 @@ the verification recipe's transmission forward model runs through the
 port's public API and matches the JAX package's (float64 on the CPU,
 rtol 1e-8, the slice bound of tests/test_torch_forward.py).
 
-The JAX package's __init__ files are read with ast, so collecting the
-names imports nothing of it."""
+The whole public surface is compared module by module: each JAX
+module's __all__ against the port module's, and the keyword names of
+each public function and public class method, apart from NOT_PORTED
+and the deliberate differences of RENAMED.  Both trees are read with
+ast, so collecting the names imports nothing of either package."""
 import ast
 import importlib
 import os
@@ -33,7 +36,46 @@ NOT_PORTED = [
     ('spectrum/emission_pallas.py', 'prep_emission_chain'),
     ('benchmark.py', 'reference_c_baseline'),
     ('runtime/__init__.py', 'load_runtime'),
+    ('spectrum/ensemble_pallas.py', None),
+    ('spectrum/rt_pallas.py', None),
+    ('spectrum/emission_pallas.py', None),
+    ('opacity/lbl_pallas.py', None),
 ]
+
+# Port modules under another name than the JAX package's.
+MODULE_MAP = {'opacity/lbl_tpu.py': 'opacity/lbl_direct.py'}
+
+# Keywords of the JAX package the port takes under another form, on
+# purpose: (file, function or Class.method, JAX keyword) -> reason.
+RENAMED = {
+    ('retrieval/samplers.py', 'sample_demc', 'log_post'):
+        'log_post_b: the log-posterior of a batch of chains',
+    ('retrieval/samplers.py', 'sample_demc', 'key'):
+        'generator: a torch.Generator in place of a JAX PRNG key',
+    ('retrieval/nested.py', 'sample_nested', 'log_like'):
+        'log_like_b: the log-likelihood of a batch of points',
+    ('retrieval/nested.py', 'sample_nested', 'key'):
+        'generator (and draws): a torch.Generator in place of a PRNG key',
+    ('retrieval/posterior.py', 'spectrum_posterior', 'forward'):
+        'forward_b: one batched forward over the draws',
+    ('retrieval/driver.py', 'post_process', 'forward'):
+        'the batched forward is built from (model, obs, ret)',
+    ('retrieval/driver.py', 'post_process', 'results'):
+        'the results are read from model.posterior and model.bestp',
+    ('retrieval/forward.py', 'build_forward', 'dtype'):
+        "the forward takes the dtype of the model's device tensors",
+    ('opacity/lbl_tpu.py', 'DirectLBL.__init__', 'use_pallas'):
+        'the CUDA kernels run on a CUDA tensor, their plain versions '
+        'on the CPU: no interpreter switch',
+    ('spectrum/radeq.py', 'radiative_equilibrium', 'use_scan'):
+        'one device loop: no lax.scan switch',
+    ('parallel/sharded.py', 'make_mesh', 'devices'):
+        'a torch.distributed mesh over the process group, one card a rank',
+    ('parallel/mp_probe.py', 'main', 'nprocs'):
+        'argv: the probe parses its command line (torch.multiprocessing)',
+    ('parallel/mp_probe.py', 'main', 'local_devices'):
+        'argv: the probe parses its command line (torch.multiprocessing)',
+}
 
 
 def public_names(subpackage):
@@ -50,6 +92,112 @@ def defined_names(path):
         tree = ast.parse(f.read())
     return {node.name for node in tree.body
             if isinstance(node, (ast.FunctionDef, ast.ClassDef))}
+
+
+def jax_modules():
+    """Every module of the JAX package, as a path under pyratbay_tpu/."""
+    top = os.path.join(REPO, 'pyratbay_tpu')
+    return sorted(
+        os.path.relpath(os.path.join(root, f), top)
+        for root, _, files in os.walk(top) for f in files
+        if f.endswith('.py'))
+
+
+def read_tree(package, path):
+    with open(os.path.join(REPO, package, path)) as f:
+        return ast.parse(f.read())
+
+
+def module_all(tree):
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == '__all__'
+                for t in node.targets):
+            return ast.literal_eval(node.value)
+    return None
+
+
+def keywords(tree):
+    """{function or Class.method: its argument names} for the public
+    functions and the public methods (and __init__) of public classes."""
+    def names(fn):
+        a = fn.args
+        return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs
+                if x.arg not in ('self', 'cls')]
+
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) \
+                and not node.name.startswith('_'):
+            out[node.name] = names(node)
+        if isinstance(node, ast.ClassDef) and not node.name.startswith('_'):
+            for meth in node.body:
+                if isinstance(meth, ast.FunctionDef) and (
+                        not meth.name.startswith('_')
+                        or meth.name == '__init__'):
+                    out[f'{node.name}.{meth.name}'] = names(meth)
+    return out
+
+
+def port_path(path):
+    return MODULE_MAP.get(path, path)
+
+
+def ported(path):
+    return (path, None) not in NOT_PORTED
+
+
+ALL_MODULES = [p for p in jax_modules()
+               if module_all(read_tree('pyratbay_tpu', p)) is not None]
+PORTED_MODULES = [p for p in jax_modules() if ported(p) and os.path.exists(
+    os.path.join(REPO, 'pyratbay_tpu_torch', port_path(p)))]
+
+
+@pytest.mark.parametrize('path', ALL_MODULES)
+def test_module_all_names_ported(path):
+    """Each name of a JAX module's __all__ is in the port module's
+    __all__, unless NOT_PORTED names it or its module."""
+    names = module_all(read_tree('pyratbay_tpu', path))
+    if not ported(path):
+        assert not os.path.exists(
+            os.path.join(REPO, 'pyratbay_tpu_torch', port_path(path)))
+        return
+    port = module_all(read_tree('pyratbay_tpu_torch', port_path(path)))
+    assert port is not None
+    skip = {name for p, name in NOT_PORTED if p == path}
+    assert [n for n in names if n not in port and n not in skip] == []
+
+
+@pytest.mark.parametrize('path', PORTED_MODULES)
+def test_keywords_ported(path):
+    """The JAX package's keyword names of each public function and
+    method are among the port's, apart from RENAMED."""
+    jax_kw = keywords(read_tree('pyratbay_tpu', path))
+    port_kw = keywords(read_tree('pyratbay_tpu_torch', port_path(path)))
+    missing = [(name, arg) for name, args in jax_kw.items()
+               if name in port_kw for arg in args
+               if arg not in port_kw[name]
+               and (path, name, arg) not in RENAMED]
+    assert missing == []
+
+
+@pytest.mark.parametrize('path, name, arg', sorted(RENAMED))
+def test_renamed_keywords_differ(path, name, arg):
+    """Each deliberate difference is a JAX keyword the port lacks."""
+    jax_kw = keywords(read_tree('pyratbay_tpu', path))
+    port_kw = keywords(read_tree('pyratbay_tpu_torch', port_path(path)))
+    assert arg in jax_kw[name] and arg not in port_kw[name]
+
+
+def test_console_script_resolves():
+    """pyproject.toml names the port's command line beside pbay-tpu."""
+    import tomllib
+    with open(os.path.join(REPO, 'pyproject.toml'), 'rb') as f:
+        scripts = tomllib.load(f)['project']['scripts']
+    entry = scripts['pbay-tpu-torch']
+    assert entry == 'pyratbay_tpu_torch.__main__:main'
+    module, attr = entry.split(':')
+    assert callable(getattr(importlib.import_module(module), attr))
 
 
 @pytest.mark.parametrize('subpackage', SUBPACKAGES)

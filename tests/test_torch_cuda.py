@@ -161,6 +161,47 @@ def test_cuda_kernel_line_sample_operands(cuda, case):
 
 
 @pytest.mark.cuda
+def test_cuda_kernel_on_a_constant_r_grid(cuda):
+    """The kernel on the line sample at the width of the flagship's
+    range at R = 25,000 (ops.grids.wavenumber_grid: 10,883 columns, 171
+    wave tiles), 8 chains with the deck, against the plain version."""
+    from pyratbay_tpu_torch.ops.grids import wavenumber_grid
+    nwave = len(wavenumber_grid(wnlow=1.0 / 1.7e-4, wnhigh=1.0 / 1.1e-4,
+                                resolution=25000.0).wn)
+    assert nwave == 10883
+    nb, nlayers = 8, 51
+    radius, _, cia_tab, cia_w, r1c, r1r = _operands(
+        nb, nlayers, nwave, ncia=2, nr1=2, seed=21)
+    ls_w, ls_tab = _line_sample(nb, nlayers, nwave, 10, seed=22)
+    assert tk.ls_in_kernel(10, nlayers, 'transit')
+    f32 = lambda a: torch.as_tensor(
+        np.asarray(a), dtype=torch.float32, device=cuda)
+    i64 = lambda a: torch.as_tensor(np.asarray(a), device=cuda)
+    itop = np.arange(nb) % 3
+    rr = f32(radius)
+    deck_itop = nlayers - 1 - np.arange(nb) % 7
+    rsurf = radius[np.arange(nb), deck_itop] + 0.4 * (
+        radius[np.arange(nb), deck_itop - 1]
+        - radius[np.arange(nb), deck_itop])
+    operands = tk.prep_chains(transit_path_matrix(rr, i64(itop)), rr, 12.0,
+                              i64(itop), i64(deck_itop + 1), i64(deck_itop),
+                              f32(rsurf))
+    kw = dict(cia_w=f32(cia_w), cia_tab=f32(cia_tab), r1_cols=f32(r1c),
+              r1_rows=f32(r1r), ls_w=f32(ls_w), ls_tab=f32(ls_tab),
+              maxdepth=10.0)
+    launches = tk.transit_rt_cuda.launches
+    got = tk.transit_rt_cuda([], *operands, **kw)
+    want = tk.transit_rt_plain([], *operands, **kw)
+    torch.cuda.synchronize()
+    assert tk.transit_rt_cuda.launches == launches + 1
+    assert got.shape == (nb, nwave)
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert np.all(np.isfinite(got))
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    assert np.max(np.abs(got - want) / scale) < TOL
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_refuses_a_slab_beyond_shared_memory(cuda):
     """A line-sample table whose wave-tile slab leaves no room in a
     block's shared memory raises before any launch."""
