@@ -4581,8 +4581,9 @@ def run_line_lists(workdir, dev, args, card):
 # several processes sharing the card.  Each mesh's ranks are new
 # interpreters running parallel_rank(); the library is built before they
 # start, so they load it and build nothing.  PAR_GENS generations time
-# the DEMC step, PAR_TIMED_GENS more the collectives (a synchronize
-# around each); the TLI forwards take PAR_TLI_CHAINS chains; the nested
+# the DEMC step, PAR_TIMED_GENS more under torch.profiler the device
+# time and the collectives (the device marks of their pbt.mesh.all_sum
+# spans); the TLI forwards take PAR_TLI_CHAINS chains; the nested
 # run on (2, 1) is cut to PAR_NESTED_MAX_ITER dead points (the nested
 # phase's 4,000 cut again, for the phase's ~90 s).
 PARALLEL_MESHES = (
@@ -4604,14 +4605,15 @@ def _rank_flagship(state, mesh, workdir, rt_path):
     """One rank's part of the main path on the flagship of `rt_path`
     (51 x 3209, NCHAINS chains, wave-sharded over the mesh): the
     ensemble's initial log-posterior and PAR_GENS DEMC generations
-    between zeroed launch counters, then PAR_TIMED_GENS with the
-    collectives timed and PAR_TIMED_GENS under torch.profiler (this
-    rank's device time), then the RT kernel against its plain version on
+    between zeroed launch counters, then PAR_TIMED_GENS under
+    torch.profiler (this rank's device time, and its collectives' from
+    the device marks of their pbt.mesh.all_sum spans), then the RT kernel against its plain version on
     the rank's own operands (its chains, its window)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch import tracing
     from pyratbay_tpu_torch.parallel.sharded import build_flagship_sharded
     from pyratbay_tpu_torch.retrieval.batched import build_forward_batched
     from pyratbay_tpu_torch.spectrum import emission_kernel as ek
@@ -4637,13 +4639,10 @@ def _rank_flagship(state, mesh, workdir, rt_path):
         (logp0, c, lp, gen_s), launches = counted_run(
             (tk.transit_rt_cuda, ek.emission_rt_cuda), main_path)
         host_syncs = mesh.host_syncs - syncs
-        mesh.timed, mesh.seconds = True, 0.0
-        for _ in range(PAR_TIMED_GENS):
-            c, lp = step(c, lp)
-        mesh.timed = False
-        collective_ms = mesh.seconds / PAR_TIMED_GENS * 1e3
         # This rank's device time a generation (torch.profiler sees its
-        # own process's kernels and copies):
+        # own process's kernels and copies), and its collectives' (the
+        # spans record while the profiler runs):
+        recorded = len(tracing.RECORDER.spans)
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             for _ in range(PAR_TIMED_GENS):
@@ -4652,6 +4651,10 @@ def _rank_flagship(state, mesh, workdir, rt_path):
         busy_ms = sum(evt.device_time_total for evt in prof.key_averages()
                       if evt.device_type != DeviceType.CPU) \
             / PAR_TIMED_GENS * 1e-3
+        tracing.resolve()
+        collective_ms = sum(
+            s.d1 - s.d0 for s in tracing.RECORDER.spans[recorded:]
+            if s.name == 'pbt.mesh.all_sum') / PAR_TIMED_GENS * 1e-6
         # The kernel on the operands of the rank's forward of its chains:
         label = 'transit' if rt_path == 'transit' else 'eclipse'
         wrapper = ('transit_spectrum_ensemble' if label == 'transit'

@@ -14,18 +14,24 @@ JAX when imported).
 
 Dtype policy: float64 on the CPU (the parity tests against the JAX
 package), float32 on CUDA.
-"""
-from .version import __version__
 
-from . import constants
-from . import ops
-from . import atmosphere
-from . import opacity
-from . import spectrum
-from . import io
-from . import tools
-from .driver import run
-from .model import Model
+Spans and counters: tracing.py (PBT_TRACE=<file.json> writes them at
+the process's exit).
+"""
+from . import tracing
+
+with tracing.span('pbt.setup.import', always=True):
+    from .version import __version__
+
+    from . import constants
+    from . import ops
+    from . import atmosphere
+    from . import opacity
+    from . import spectrum
+    from . import io
+    from . import tools
+    from .driver import run
+    from .model import Model
 
 __all__ = [
     '__version__',

@@ -24,6 +24,7 @@ from .io import io as pio
 from .logger import Log
 from .model import Model
 from .parallel.distributed import initialize_distributed
+from .tracing import to_host
 from .version import __version__
 
 __all__ = ['run']
@@ -95,10 +96,10 @@ def run(cfile, device=None, root=None, seed=0, with_log=True):
         radius = None
         if result.rmodelname is not None and result.base_vmr is not None:
             mm = hydro.mean_weight(result._base_vmr, result._mol_mass)
-            radius = result.eval_radius(temp, mm).cpu().numpy()
+            radius = to_host(result.eval_radius(temp, mm)).numpy()
         if cfg.output_atmfile is not None:
             pio.write_atm(
-                cfg.output_atmfile, result.press, temp.cpu().numpy(),
+                cfg.output_atmfile, result.press, to_host(temp).numpy(),
                 result.species, result.base_vmr, radius, punits='bar')
     elif cfg.runmode == 'spectrum':
         result = Model(cfg, device=device, log=log)

@@ -13,6 +13,7 @@ import pickle
 import numpy as np
 
 from .. import constants as pc
+from ..tracing import to_host
 
 __all__ = [
     'read_atm', 'write_atm',
@@ -378,7 +379,7 @@ def save_model(model, pickle_file):
         if value is None:
             continue
         if hasattr(value, 'cpu'):         # a tensor
-            value = value.cpu().numpy()
+            value = to_host(value).numpy()
         results[key] = np.asarray(value)
     state = {
         'cfg': model.cfg,

@@ -38,6 +38,7 @@ import scipy.constants as sc
 import torch
 
 from . import constants as pc
+from . import tracing
 from .config import parser as cfg_parser
 from .device import resolve
 from .io import io as pio
@@ -54,7 +55,8 @@ from .spectrum import rt
 from .spectrum.emission_kernel import emission_flux_ensemble
 from .spectrum.starspec import bbflux, read_kurucz
 from .spectrum.transit_kernel import transit_spectrum_ensemble
-from .tools import Formatted_Write, Timer
+from .tools import Formatted_Write
+from .tracing import to_host
 
 __all__ = ['Model']
 
@@ -62,6 +64,11 @@ class Model:
     """Forward spectroscopic model assembled from a configuration."""
 
     def __init__(self, cfg, device=None, root=None, log=None):
+        with tracing.span('pbt.setup.model', always=True):
+            self._setup(cfg, device, root, log)
+        self._log_setup_summary()
+
+    def _setup(self, cfg, device, root, log):
         if isinstance(cfg, str):
             cfg = cfg_parser.parse(cfg, root=root)
         self.cfg = cfg
@@ -73,19 +80,21 @@ class Model:
             log = Log(verb=cfg.verb if cfg.verb is not None else 1)
         self.log = log
 
-        timer = Timer()
-        self.timestamps = {}
-        self._setup_spectrum()
-        self.timestamps['setup spectrum'] = timer.clock()
-        self._setup_atmosphere()
-        self.timestamps['setup atmosphere'] = timer.clock()
-        self._setup_star()
-        self._setup_opacity()
-        self._setup_quadrature()
-        # The opacity set-up ends with its tables on the device:
-        self.to(device)
-        self.timestamps['setup opacity'] = timer.clock()
-        self._log_setup_summary()
+        with tracing.span('pbt.setup.spectrum', always=True) as spectrum:
+            self._setup_spectrum()
+        with tracing.span('pbt.setup.atmosphere', always=True) as atmosphere:
+            self._setup_atmosphere()
+        with tracing.span('pbt.setup.opacity', always=True) as opacity:
+            self._setup_star()
+            self._setup_opacity()
+            self._setup_quadrature()
+            # The opacity set-up ends with its tables on the device:
+            self.to(device)
+        self.timestamps = {
+            key: (s.t1 - s.t0) * 1e-9 for key, s in (
+                ('setup spectrum', spectrum),
+                ('setup atmosphere', atmosphere),
+                ('setup opacity', opacity))}
 
     def _log_setup_summary(self):
         log = self.log
@@ -940,51 +949,50 @@ class Model:
         'out_of_bounds'.
         """
         from .retrieval.batched import rt_diagnostics, spectra, two_stream_rt
-        timer = Timer()
-        temp = self.eval_temp(tpars) if temp is None else self._tensor(temp)
-        oob = self.check_temp_bounds(temp)
-        if oob or bool(torch.any(temp <= 0)):
-            self.spectrum = np.zeros(self.nwave)
-            return {
-                'spectrum': torch.zeros(self.nwave, dtype=self.dtype,
-                                        device=self.device),
-                'out_of_bounds': oob or ['temperature'],
-            }
-        vmr = self.eval_vmr(vmr_pars, temp) if vmr is None \
-            else self._tensor(vmr)
-        dens = hydro.ideal_gas_density(vmr, self._press, temp)
-        mm = hydro.mean_weight(vmr, self._mol_mass)
-        radius = self.eval_radius(temp, mm, radius)
-        rtop = self._rtop(radius)
+        with tracing.span('pbt.run.atmosphere', always=True) as atmosphere:
+            temp = self.eval_temp(tpars) if temp is None \
+                else self._tensor(temp)
+            oob = self.check_temp_bounds(temp)
+            if oob or bool(to_host(torch.any(temp <= 0))):
+                self.spectrum = np.zeros(self.nwave)
+                return {
+                    'spectrum': torch.zeros(self.nwave, dtype=self.dtype,
+                                            device=self.device),
+                    'out_of_bounds': oob or ['temperature'],
+                }
+            vmr = self.eval_vmr(vmr_pars, temp) if vmr is None \
+                else self._tensor(vmr)
+            dens = hydro.ideal_gas_density(vmr, self._press, temp)
+            mm = hydro.mean_weight(vmr, self._mol_mass)
+            radius = self.eval_radius(temp, mm, radius)
+            rtop = self._rtop(radius)
         if fpatchy is None:
             fpatchy = self.fpatchy
-        # The stamps end where the JAX package's do: the atmosphere, the
-        # extinction (here the operands of the RT launch), the spectrum
-        # with its diagnostics.  On the card the stream is drained first,
-        # or the host clock would time the launches only.
-        self.timestamps['atmosphere'] = self._clock(timer)
-
-        ops, ls_tab = self._operands(temp, radius, dens, pars_list, skip)
-        self.timestamps['extinction'] = self._clock(timer)
-        if self.two_stream:
-            # Two-stream fluxes of the summed extinction (no kernel):
-            fluxes = two_stream_rt(self, ops, ls_tab, temp[None],
-                                   radius[None], rtop[None])
-            result = {key: val[0] for key, val in fluxes.items()}
-            result['spectrum'] = result['fplanet'] = result['flux_up'][0]
-        else:
-            # The spectrum, through the kernels at B = 1:
-            spectrum, cloudy, clear = spectra(
-                self, ops, temp[None], radius[None], rtop[None], ls_tab,
-                fpatchy)
-            result = {'spectrum': spectrum[0]}
-            if self.is_patchy:
-                result['cloudy'], result['clear'] = cloudy[0], clear[0]
-            # The diagnostics, from the same operands summed:
-            diag = rt_diagnostics(self, ops, ls_tab, temp[None],
-                                  radius[None], rtop[None])
-            result.update({key: val[0] for key, val in diag.items()})
-        self.timestamps['spectrum'] = self._clock(timer)
+        # The stages end where the JAX package's stamps do: the
+        # atmosphere, the extinction (here the operands of the RT
+        # launch), the spectrum with its diagnostics.
+        with tracing.span('pbt.run.extinction', always=True) as extinction:
+            ops, ls_tab = self._operands(temp, radius, dens, pars_list, skip)
+        with tracing.span('pbt.run.spectrum', always=True) as stage:
+            if self.two_stream:
+                # Two-stream fluxes of the summed extinction (no kernel):
+                fluxes = two_stream_rt(self, ops, ls_tab, temp[None],
+                                       radius[None], rtop[None])
+                result = {key: val[0] for key, val in fluxes.items()}
+                result['spectrum'] = result['fplanet'] = \
+                    result['flux_up'][0]
+            else:
+                # The spectrum, through the kernels at B = 1:
+                spectrum, cloudy, clear = spectra(
+                    self, ops, temp[None], radius[None], rtop[None],
+                    ls_tab, fpatchy)
+                result = {'spectrum': spectrum[0]}
+                if self.is_patchy:
+                    result['cloudy'], result['clear'] = cloudy[0], clear[0]
+                # The diagnostics, from the same operands summed:
+                diag = rt_diagnostics(self, ops, ls_tab, temp[None],
+                                      radius[None], rtop[None])
+                result.update({key: val[0] for key, val in diag.items()})
 
         # Eclipse: Fp/Fs scaled by (Rp/Rs)^2 (pyratbay_tpu/model.py:
         # 1142-1156):
@@ -999,7 +1007,7 @@ class Model:
                     result[key] = result[key] * fstar_rprs
 
         host = lambda key: None if key not in result \
-            else result[key].cpu().numpy()
+            else to_host(result[key]).numpy()
         self.spectrum = host('spectrum')
         self.clear = host('clear')
         self.cloudy = host('cloudy')
@@ -1009,9 +1017,16 @@ class Model:
         self.depth_clear = result.get('depth_clear')
         self.ideep_clear = result.get('ideep_clear')
         self._last_fpatchy = fpatchy
-        self.temp = temp.cpu().numpy()
-        self.radius = None if radius is None else radius.cpu().numpy()
-        self.vmr = vmr.cpu().numpy()
+        self.temp = to_host(temp).numpy()
+        self.radius = None if radius is None else to_host(radius).numpy()
+        self.vmr = to_host(vmr).numpy()
+        # Each stage ends when the device reached its end mark (the host
+        # clock's end on the CPU); the copies above drained the stream.
+        tracing.resolve((atmosphere, extinction, stage))
+        ends = [atmosphere.t0, atmosphere.end, extinction.end, stage.end]
+        for key, t0, t1 in zip(('atmosphere', 'extinction', 'spectrum'),
+                               ends, ends[1:]):
+            self.timestamps[key] = (t1 - t0) * 1e-9
         self.log.msg(
             'Forward model done: '
             + ', '.join(
@@ -1021,13 +1036,6 @@ class Model:
             )
         )
         return result
-
-    def _clock(self, timer):
-        """Seconds since the timer's last reading, once the device's
-        queued work has run."""
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
-        return timer.clock()
 
     def get_ec(self, layer, temp=None, vmr=None):
         """Per-model extinction contributions (cm-1) at one layer, the
@@ -1063,9 +1071,9 @@ class Model:
                 labels += list(model.species)
                 continue
             if mtype == 'lbl':
-                dens_h = dens.cpu().double().numpy()
+                dens_h = to_host(dens).double().numpy()
                 contrib = model.cross_section(
-                    temp.cpu().double().numpy(), dens_h, layer=layer,
+                    to_host(temp).double().numpy(), dens_h, layer=layer,
                     per_mol=True)[:, layer]
                 mol_idx = [self.species.index(mol) for mol in model.species]
                 rows.append(self._tensor(
@@ -1137,7 +1145,7 @@ class Model:
         weights = torch.as_tensor(
             band_cf_matrix(obs.filters, self.nwave), dtype=depth.dtype,
             device=depth.device)
-        return cfuncs.band_cf(contrib, weights).cpu().numpy()
+        return to_host(cfuncs.band_cf(contrib, weights)).numpy()
 
     def _run_emission(self, ec_parts, temp, radius, rtop, deck_surface=None,
                       cia_w=None, cia_tab=None, r1_cols=None, r1_rows=None,
@@ -1230,7 +1238,7 @@ class Model:
         from . import plots
         temp = getattr(self, 'temp', None)
         if temp is None:
-            temp = self.eval_temp().cpu().numpy()
+            temp = to_host(self.eval_temp()).numpy()
         return plots.temperature(
             np.asarray(self.press), profiles=[np.asarray(temp)],
             filename=filename, **kw,
@@ -1303,7 +1311,8 @@ class Model:
             fw.write(
                 '  ideep range (first layer at maxdepth): '
                 '[{:d}, {:d}] of {:d} layers',
-                int(ideep.min()), int(ideep.max()), self.nlayers,
+                int(to_host(ideep.min())), int(to_host(ideep.max())),
+                self.nlayers,
             )
         if self.timestamps:
             fw.write('Last-run timestamps (s):')

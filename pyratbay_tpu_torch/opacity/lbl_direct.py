@@ -39,6 +39,7 @@ import torch
 
 from .. import constants as pc
 from ..device import index_tensor, resolve
+from ..tracing import to_host
 from .lbl_kernel import (
     LINE_ALIGN, core_sigma_lines, core_sigma_plain, wing_sigma_lines,
     wing_sigma_plain,
@@ -657,7 +658,7 @@ class DirectLBL:
                 res[(b - lo) * block:(b - lo + 1) * block] = \
                     self._cross_section_batch(
                         tables, t_all[cells], d_all[cells], pf_all[cells])
-            chunks.append(res.to(torch.float32).cpu().numpy())
+            chunks.append(to_host(res.to(torch.float32)).numpy())
         out = np.concatenate(chunks, axis=0)[:ncells]
         return out[:, 0].reshape(ntemp, nlayers, self.nwave) \
             if self.nspec == 1 else \

@@ -29,6 +29,7 @@ import os
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..device import resolve
 
 __all__ = [
@@ -95,6 +96,9 @@ def initialize_distributed(cfg=None, device=None):
         torch.cuda.set_device(local_rank % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=init_method,
                             world_size=nprocs, rank=procid)
+    if nprocs > 1:
+        # Each rank writes its own trace file (tracing.py):
+        tracing.RECORDER.rank = procid
     return nprocs > 1
 
 

@@ -68,9 +68,9 @@ def _worker(device, n_iter):
 
 
 def _sync(device):
-    import torch
+    from .. import tracing
     if device.type == 'cuda':
-        torch.cuda.synchronize(device)
+        tracing.synchronize(device)
 
 
 def free_port():

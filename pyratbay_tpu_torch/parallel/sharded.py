@@ -27,14 +27,14 @@ writes its own block: exact (x + 0 = x, and +-inf survive), and
 gloo offers only broadcast and all-reduce on CUDA tensors (two ranks
 sharing one card run gloo, parallel/distributed.py).  gloo stages a
 CUDA all-reduce through host memory, which waits for the stream: the
-Mesh counts those host synchronisations.
+Mesh counts those host synchronisations.  Each collective is the span
+pbt.mesh.all_sum (tracing.py), whose device marks time it on the card.
 """
-import time
-
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..device import resolve
 from .distributed import is_initialized
 
@@ -80,8 +80,8 @@ class Mesh:
     rank's other coordinate, or None where the axis has one rank or there
     is no process group: its collectives are the identity.  Counters:
     `calls` (collectives made) and `host_syncs` (those of a gloo group on
-    CUDA tensors); while `timed` is set, `seconds` adds the host clock
-    around each one, between two synchronisations of the device.
+    CUDA tensors), also counted into the recorder (tracing.py) as
+    pbt.mesh.calls and pbt.mesh.host_syncs, in the span pbt.mesh.all_sum.
     """
 
     def __init__(self, shape, device_mesh=None):
@@ -101,8 +101,6 @@ class Mesh:
             self.backend = dist.get_backend()
         self.calls = 0
         self.host_syncs = 0
-        self.timed = False
-        self.seconds = 0.0
 
     def __repr__(self):
         return (f'Mesh(chains={self.shape["chains"]}, '
@@ -113,16 +111,14 @@ class Mesh:
         group = self.groups[axis]
         if group is None:
             return x
-        if self.timed:
-            _sync(x)
-            t0 = time.perf_counter()
-        dist.all_reduce(x, group=group)
-        self.calls += 1
-        if x.is_cuda and self.backend == 'gloo':
-            self.host_syncs += 1
-        if self.timed:
-            _sync(x)
-            self.seconds += time.perf_counter() - t0
+        with tracing.span('pbt.mesh.all_sum'):
+            dist.all_reduce(x, group=group)
+            self.calls += 1
+            tracing.count('pbt.mesh.calls')
+            if x.is_cuda and self.backend == 'gloo':
+                self.host_syncs += 1
+                tracing.count('pbt.mesh.host_syncs')
+                tracing.count(tracing.HOST_WAITS)
         return x
 
     def gather(self, x, axis, dim):
@@ -136,11 +132,6 @@ class Mesh:
         out = x.new_zeros(shape)
         out.narrow(dim, self.coords[axis] * size, size).copy_(x)
         return self.all_sum(out, axis)
-
-
-def _sync(x):
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
 
 
 def make_mesh(chains_axis=None, device=None):
@@ -323,7 +314,8 @@ def build_flagship_sharded(mesh, workdir=None, device=None, nchains=None,
         workdir, device=device, **flagship_kw)
     if obs.data is None:
         with torch.no_grad():
-            bandflux = forward(p0)['bandflux'].double().cpu().numpy()
+            bandflux = tracing.to_host(
+                forward(p0)['bandflux'].double()).numpy()
         obs.data = bandflux
         obs.uncert = np.maximum(0.03 * bandflux, 1e-12)
     shard_model_tables(model, obs, mesh)

@@ -67,6 +67,7 @@ import torch
 
 from .forward import build_state
 from .. import constants as pc
+from .. import tracing
 from ..device import index_tensor
 from ..atmosphere import geometry
 from ..atmosphere import vmr as vmr_models
@@ -249,13 +250,15 @@ def spectra(model, ops, temp, radius, rtop, ls_tab, fpatchy=None):
         if not parts and all(v is None for v in shared.values()):
             parts = [torch.zeros((*temp.shape, model.nwave),
                                  dtype=temp.dtype, device=temp.device)]
-        operands = fit_operands(parts, **shared)
-        if model.rt_path in pc.TRANSMISSION_RT:
-            return model._run_transit(
-                radius=radius, rtop=rtop, deck_surface=deck, **operands)
-        return model._run_emission(
-            temp=temp, radius=radius, rtop=rtop, deck_surface=deck,
-            **operands)
+        with tracing.span('pbt.forward.opacity'):
+            operands = fit_operands(parts, **shared)
+        with tracing.span('pbt.forward.rt'):
+            if model.rt_path in pc.TRANSMISSION_RT:
+                return model._run_transit(
+                    radius=radius, rtop=rtop, deck_surface=deck, **operands)
+            return model._run_emission(
+                temp=temp, radius=radius, rtop=rtop, deck_surface=deck,
+                **operands)
 
     spectrum = launch(ops['parts'] + ops['cloud'], ops['deck'])
     if not model.is_patchy:
@@ -287,7 +290,7 @@ def rt_diagnostics(model, ops, ls_tab, temp, radius, rtop):
         rscale = model._radius_scale
         path = geometry.transit_path_matrix(radius / rscale, rtop) * rscale
         ibottom = [nlayers] * nb if deck is None \
-            else (deck[0] + 1).tolist()
+            else tracing.to_host(deck[0] + 1).tolist()
 
         def depths(e, bottoms):
             pairs = [rt.transit_depth(e[b], path[b], model.maxdepth,
@@ -380,13 +383,20 @@ def build_forward_batched(model, obs=None, ret=None):
     lbl_engine = direct_lbl_engine(model)
 
     def forward_b(params_b=None, diagnostics=False):
+        with tracing.span('pbt.forward'):
+            tracing.count('pbt.forward.calls')
+            return forward(params_b, diagnostics)
+
+    def forward(params_b, diagnostics):
         if params_b is not None:
             params_b = torch.as_tensor(params_b, dtype=dt, device=dev)
-        st = state(params_b)
+        with tracing.span('pbt.forward.state'):
+            st = state(params_b)
         temp = st['temp']
-        ops = assemble_opacity(
-            model, temp, st['dens'], st['radius'], st['pars_list'], ls_tab,
-            lbl_engine=lbl_engine)
+        with tracing.span('pbt.forward.opacity'):
+            ops = assemble_opacity(
+                model, temp, st['dens'], st['radius'], st['pars_list'],
+                ls_tab, lbl_engine=lbl_engine)
         spectrum, cloudy, clear = spectra(
             model, ops, temp, st['radius'], st['rtop'], ls_tab,
             st['fpatchy'])
@@ -410,20 +420,23 @@ def build_forward_batched(model, obs=None, ret=None):
                 fpatchy, dtype=dt, device=dev).expand(temp.shape[0])
             if model.is_patchy:
                 out['clear'], out['cloudy'] = clear, cloudy
-        if has_bands:
-            bandflux = obs.band_integrate(spectrum)
-            out['bandflux'] = torch.where(
-                good[:, None], bandflux, torch.full_like(bandflux, np.inf))
-        if hires is not None:
-            velocity = st['rv_shift'] * pc.km if retrieve_rv else None
-            whole = spectrum if mesh is None else mesh.gather(
-                spectrum, 'wave', -1)[:, :model.nwave_unpadded]
-            flux_hires = hires(whole, velocity)
-            out['bandflux_hires'] = torch.where(
-                good[:, None], flux_hires,
-                torch.full_like(flux_hires, np.inf))
+        with tracing.span('pbt.forward.bands'):
+            if has_bands:
+                bandflux = obs.band_integrate(spectrum)
+                out['bandflux'] = torch.where(
+                    good[:, None], bandflux,
+                    torch.full_like(bandflux, np.inf))
+            if hires is not None:
+                velocity = st['rv_shift'] * pc.km if retrieve_rv else None
+                whole = spectrum if mesh is None else mesh.gather(
+                    spectrum, 'wave', -1)[:, :model.nwave_unpadded]
+                flux_hires = hires(whole, velocity)
+                out['bandflux_hires'] = torch.where(
+                    good[:, None], flux_hires,
+                    torch.full_like(flux_hires, np.inf))
         return out
 
+    forward_b = tracing.first_call('pbt.setup.first_forward', forward_b)
     forward_b.state = state
     forward_b.hires = hires
     return forward_b
@@ -498,8 +511,13 @@ def build_log_posterior_batched(model, obs, ret):
     has_prior = torch.as_tensor(ret.priorlow > 0, device=dev)
 
     def log_post_b(params_b):
-        params_b = torch.as_tensor(params_b, dtype=dt, device=dev)
-        result = forward_b(params_b)
+        with tracing.span('pbt.log_post'):
+            params_b = torch.as_tensor(params_b, dtype=dt, device=dev)
+            result = forward_b(params_b)
+            with tracing.span('pbt.log_post.likelihood'):
+                return likelihood(params_b, result)
+
+    def likelihood(params_b, result):
         log_like = torch.zeros(params_b.shape[0], dtype=dt, device=dev)
         if has_lowres:
             data_adj = data[None, :]

@@ -28,6 +28,7 @@ from .forward import build_forward
 from .nested import sample_nested
 from .params import RetrievalParams
 from .samplers import gelman_rubin, sample_demc
+from ..tracing import to_host
 
 __all__ = ['run_retrieval', 'posterior_post_processing', 'post_process',
            'unit_cube_prior']
@@ -153,9 +154,9 @@ def run_retrieval(model, seed=0):
     model.bestp = results['bestp']
     model.best_log_post = float(results['best_log_post'])
     model.acceptance_rate = results['acceptance_rate']
-    model.spec_best = best['spectrum'].cpu().numpy()
+    model.spec_best = to_host(best['spectrum']).numpy()
     # High-res data alone have no bands: an empty best-fit band flux.
-    model.bandflux_best = best['bandflux'].cpu().numpy() if has_lowres \
+    model.bandflux_best = to_host(best['bandflux']).numpy() if has_lowres \
         else np.zeros(0)
     history = results['chain_history'][burnin_gens:]
     if len(history) > 2:
@@ -278,9 +279,9 @@ def post_process(model, obs, ret):
         # median's temperature, as the reference writes it):
         med = np.median(posterior, axis=0)
         temp = forward(med)['temperature']
-        median_vmr = model.eval_vmr(temp=temp).cpu().numpy()
+        median_vmr = to_host(model.eval_vmr(temp=temp)).numpy()
         pio.write_atm(
-            base + '_median.atm', model.press, temp.cpu().numpy(),
+            base + '_median.atm', model.press, to_host(temp).numpy(),
             model.species, median_vmr, punits='bar')
 
         # Band contribution functions (emission) or transmittances

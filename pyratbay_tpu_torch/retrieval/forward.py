@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from .. import constants as pc
+from .. import tracing
 from ..atmosphere import hydro
 from ..device import index_tensor
 
@@ -106,32 +107,37 @@ def build_state(model, ret=None):
             if ret.irv is not None:
                 rv_shift = params[:, ret.irv]
 
-        if tpars is not None and model.temp_model is not None:
-            temp = model.temp_model(tpars)
-        else:
-            temp = model._base_temp.expand(nb, -1)
+        with tracing.span('pbt.state.tp'):
+            if tpars is not None and model.temp_model is not None:
+                temp = model.temp_model(tpars)
+            else:
+                temp = model._base_temp.expand(nb, -1)
         # Equilibrium chemistry is solved again for every chain, at
         # its temperature, as under the JAX package's jit:
-        vmr = model.eval_vmr_batched(vmr_par_list, temp)
-        press = model._press
-        dens = hydro.ideal_gas_density(vmr, press, temp)
-        mm = hydro.mean_weight(vmr, model._mol_mass)
-        if model.rmodelname == 'hydro_m':
-            radius = hydro.hydro_m(press, temp, mm, mplanet, refpress, rplanet)
-        elif model.rmodelname == 'hydro_g':
-            gplanet = pc.G * mplanet / rplanet**2
-            radius = hydro.hydro_g(press, temp, mm, gplanet, refpress, rplanet)
-        elif model._input_radius is not None:
-            radius = model._input_radius.expand(nb, -1)
-        else:
-            raise ValueError('Transit geometry needs a radius profile')
+        with tracing.span('pbt.state.vmr'):
+            vmr = model.eval_vmr_batched(vmr_par_list, temp)
+        with tracing.span('pbt.state.radius'):
+            press = model._press
+            dens = hydro.ideal_gas_density(vmr, press, temp)
+            mm = hydro.mean_weight(vmr, model._mol_mass)
+            if model.rmodelname == 'hydro_m':
+                radius = hydro.hydro_m(press, temp, mm, mplanet, refpress,
+                                       rplanet)
+            elif model.rmodelname == 'hydro_g':
+                gplanet = pc.G * mplanet / rplanet**2
+                radius = hydro.hydro_g(press, temp, mm, gplanet, refpress,
+                                       rplanet)
+            elif model._input_radius is not None:
+                radius = model._input_radius.expand(nb, -1)
+            else:
+                raise ValueError('Transit geometry needs a radius profile')
 
-        rtop = torch.zeros(nb, dtype=torch.int64, device=dev)
-        if np.isfinite(model.rhill):
-            inside = radius < model.rhill
-            rtop = torch.where(
-                torch.any(inside, dim=1),
-                torch.argmax(inside.to(torch.int8), dim=1), rtop)
+            rtop = torch.zeros(nb, dtype=torch.int64, device=dev)
+            if np.isfinite(model.rhill):
+                inside = radius < model.rhill
+                rtop = torch.where(
+                    torch.any(inside, dim=1),
+                    torch.argmax(inside.to(torch.int8), dim=1), rtop)
         return {
             'params': params, 'tpars': tpars, 'vmr_par_list': vmr_par_list,
             'pars_list': pars_list, 'rplanet': rplanet, 'mplanet': mplanet,

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..parallel.sharded import split_chains
+from ..tracing import to_host
 from .posterior import weighted_to_equal
 
 __all__ = ['sample_nested', 'scan_step', 'identify_modes', 'draw_step']
@@ -266,16 +267,16 @@ def sample_nested(
             log_like, live_u, live_logl, pick, normal, batch, scales)
 
     # One copy to the host:
-    dead_u = dead_u.cpu().numpy().reshape(-1, ndim)
-    dead_logl = dead_logl.cpu().numpy().reshape(-1)
-    live_u_np = live_u.cpu().numpy()
-    live_logl_np = live_logl.cpu().numpy()
+    dead_u = to_host(dead_u).numpy().reshape(-1, ndim)
+    dead_logl = to_host(dead_logl).numpy().reshape(-1)
+    live_u_np = to_host(live_u).numpy()
+    live_logl_np = to_host(live_logl).numpy()
     # The walks' acceptance shares in float32, as the JAX package's
     # jnp.mean of booleans gives them under XLA (a sum times the
     # reciprocal of the count): a share a walk step, their mean a scan
     # step.
     f32 = np.float32
-    shares = accepted.cpu().numpy().astype(f32) * f32(1.0 / batch)
+    shares = to_host(accepted).numpy().astype(f32) * f32(1.0 / batch)
     acc = shares.sum(axis=1, dtype=f32) * f32(1.0 / nsteps_walk)
 
     # Evidence (host): ordered worst-first, the k-th point of a batch is
@@ -319,7 +320,7 @@ def sample_nested(
     logz_err_info = float(np.sqrt(max(info, 0.0) / nlive))
 
     with torch.no_grad():
-        samples = prior_transform(tensor(all_u)).cpu().double().numpy()
+        samples = to_host(prior_transform(tensor(all_u))).double().numpy()
     posterior = weighted_to_equal(samples, weights)
 
     modes = identify_modes(samples, weights)

@@ -8,6 +8,8 @@ batched forward at B = number of draws) where the reference vmaps.
 import numpy as np
 import torch
 
+from ..tracing import to_host
+
 __all__ = [
     'weighted_to_equal',
     'marginal_statistics',
@@ -52,7 +54,7 @@ def temperature_posterior(posterior, temp_model):
     """
     posterior = np.asarray(posterior)
     uniq, inverse = np.unique(posterior, axis=0, return_inverse=True)
-    profiles = temp_model(uniq).cpu().double().numpy()
+    profiles = to_host(temp_model(uniq)).double().numpy()
     return _envelopes(profiles[inverse.reshape(-1)])
 
 
@@ -71,4 +73,4 @@ def spectrum_posterior(posterior, forward_b, max_draws=512, rng=None):
         posterior = posterior[rng.choice(n, max_draws, replace=False)]
     with torch.no_grad():
         spectra = forward_b(posterior)
-    return _envelopes(spectra.cpu().double().numpy())
+    return _envelopes(to_host(spectra).double().numpy())

@@ -21,6 +21,9 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
+from ..tracing import to_host
+
 __all__ = ['sample_demc', 'gelman_rubin', 'draw_generation', 'generation']
 
 
@@ -91,22 +94,24 @@ def generation(chains, logp, gamma, eps_scale, free_mask, draws,
 
     Returns (new_chains, new_logp, accept [nchains] bool).
     """
-    prop_de, mh_de = _propose_de(
-        chains, gamma, eps_scale, free_mask,
-        draws['de_r1'], draws['de_r2'], draws['de_normal'],
-    )
-    prop_sn, mh_sn = _propose_snooker(
-        chains, free_mask, draws['sn_z'], draws['sn_r1'], draws['sn_r2'],
-        draws['sn_gamma'],
-    )
-    use_snooker = draws['choice'] < snooker_fraction
-    prop = torch.where(use_snooker, prop_sn, prop_de)
-    log_mh = torch.where(use_snooker[:, 0], mh_sn, mh_de)
+    with tracing.span('pbt.demc.propose'):
+        prop_de, mh_de = _propose_de(
+            chains, gamma, eps_scale, free_mask,
+            draws['de_r1'], draws['de_r2'], draws['de_normal'],
+        )
+        prop_sn, mh_sn = _propose_snooker(
+            chains, free_mask, draws['sn_z'], draws['sn_r1'],
+            draws['sn_r2'], draws['sn_gamma'],
+        )
+        use_snooker = draws['choice'] < snooker_fraction
+        prop = torch.where(use_snooker, prop_sn, prop_de)
+        log_mh = torch.where(use_snooker[:, 0], mh_sn, mh_de)
     logp_prop = log_post_batched(prop)
-    log_alpha = logp_prop - logp + log_mh
-    accept = torch.log(draws['accept']) < log_alpha
-    new_chains = torch.where(accept[:, None], prop, chains)
-    new_logp = torch.where(accept, logp_prop, logp)
+    with tracing.span('pbt.demc.accept'):
+        log_alpha = logp_prop - logp + log_mh
+        accept = torch.log(draws['accept']) < log_alpha
+        new_chains = torch.where(accept[:, None], prop, chains)
+        new_logp = torch.where(accept, logp_prop, logp)
     return new_chains, new_logp, accept
 
 
@@ -149,8 +154,8 @@ def _write_checkpoint(checkpoint_file, chains, igen, gamma, eps_scale,
     hist = [np.concatenate([part[i] for part in hist_parts])
             for i in range(3)]
     np.savez(
-        checkpoint_file, chains=chains.cpu().numpy(), igen=igen,
-        gamma=np.asarray(gamma), eps_scale=eps_scale.cpu().numpy(),
+        checkpoint_file, chains=to_host(chains).numpy(), igen=igen,
+        gamma=np.asarray(gamma), eps_scale=to_host(eps_scale).numpy(),
         hist_chains=hist[0], hist_logp=hist[1], hist_accept=hist[2],
         rng_state=generator.get_state().numpy(),
         rng_device=generator.device.type)
@@ -190,118 +195,137 @@ def sample_demc(
     'acceptance_rate', 'bestp', 'best_log_post', 'gamma_final'
     (posterior arrays as numpy).
     """
-    init = torch.as_tensor(init_params, dtype=dtype, device=device)
-    dtype, device = init.dtype, init.device
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    init = torch.atleast_2d(init)
-    tensor = lambda a: torch.as_tensor(
-        np.asarray(a, float), dtype=dtype, device=device)
-    if init.shape[0] == 1:
-        if nchains is None:
-            raise ValueError('nchains needed with a single init vector')
-        npars = init.shape[1]
-        step = (
-            torch.clamp(tensor(pstep), min=0.0) if pstep is not None
-            else 0.01 * torch.abs(init[0]) + 1e-4
-        )
-        chains = init + step * torch.randn(
-            (nchains, npars), generator=generator, dtype=dtype,
-            device=device)
-    else:
-        chains = init
-        nchains, npars = chains.shape
-    if pmin is not None:
-        chains = torch.minimum(torch.maximum(chains, tensor(pmin)),
-                               tensor(pmax))
+    with tracing.span('pbt.demc.run', gen=-1):
+        init = torch.as_tensor(init_params, dtype=dtype, device=device)
+        dtype, device = init.dtype, init.device
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        init = torch.atleast_2d(init)
 
-    free_mask = (
-        (tensor(pstep) > 0).to(dtype) if pstep is not None
-        else torch.ones(npars, dtype=dtype, device=device)
-    )
-    d_free = float(torch.sum(free_mask))
-    gamma0 = (
-        float(gamma_init) if gamma_init is not None
-        else 2.38 / np.sqrt(2.0 * max(d_free, 1.0))
-    )
-    eps_scale = (
-        1e-4 * torch.clamp(tensor(pstep), min=0.0) if pstep is not None
-        else torch.full((npars,), 1e-6, dtype=dtype, device=device)
-    )
+        def tensor(a):
+            # A copy of host data to the device waits for the stream:
+            tracing.count(tracing.HOST_WAITS)
+            return torch.as_tensor(
+                np.asarray(a, float), dtype=dtype, device=device)
 
-    ngen = int(np.ceil(nsamples / nchains))
-    igen = 0
-    hist_parts = []
-    if resume and checkpoint_file is not None \
-            and os.path.isfile(checkpoint_file):
-        ckpt, igen = _load_checkpoint(checkpoint_file, generator, ngen, log)
-        chains = tensor(ckpt['chains'])
-        hist_parts.append((ckpt['hist_chains'], ckpt['hist_logp'],
-                           ckpt['hist_accept']))
-        if 'gamma' in ckpt:
-            gamma0 = float(ckpt['gamma'])
-        if 'eps_scale' in ckpt:
-            eps_scale = tensor(ckpt['eps_scale']) * torch.ones(
-                npars, dtype=dtype, device=device)
-    if chunk_gens is None:
-        chunk_gens = ngen if checkpoint_file is None \
-            else max(1, min(200, ngen))
-    logp = log_post_batched(chains)
-    t_last = time.time()
-    dt_ckpt = checkpoint_dt if checkpoint_dt is not None else 600.0
-    while igen < ngen:
-        hi = min(igen + chunk_gens, ngen)
-        # Record the last state of each whole stride of the chunk, and
-        # the chunk's final state for a partial stride:
-        rec_chains, rec_logp, rec_accept = [], [], []
-        for jgen in range(igen, hi):
-            gamma = 1.0 if jgen % 10 == 9 else gamma0
-            draws = draw_generation(generator, nchains, npars, dtype, device)
-            chains, logp, accept = generation(
-                chains, logp, gamma, eps_scale, free_mask, draws,
-                log_post_batched, snooker_fraction,
+        if init.shape[0] == 1:
+            if nchains is None:
+                raise ValueError('nchains needed with a single init vector')
+            npars = init.shape[1]
+            step = (
+                torch.clamp(tensor(pstep), min=0.0) if pstep is not None
+                else 0.01 * torch.abs(init[0]) + 1e-4
             )
-            if (jgen - igen + 1) % history_thin == 0 or jgen == hi - 1:
-                rec_chains.append(chains)
-                rec_logp.append(logp)
-                rec_accept.append(accept)
-        part = tuple(torch.stack(rec).cpu().numpy()
-                     for rec in (rec_chains, rec_logp, rec_accept))
-        hist_parts.append(part)
-        partial = (hi - igen) % history_thin if history_thin > 1 else 0
-        igen = hi
-        if adapt_gamma:
-            # pyratbay_tpu adapts on its last history part: the partial
-            # stride's one record when there is one.
-            acc = float(part[2][-1:].mean() if partial else part[2].mean())
-            gamma0 *= float(np.exp(
-                np.clip(acc - target_acceptance, -0.25, 0.25)))
-        if checkpoint_file is not None and (
-                time.time() - t_last > dt_ckpt or igen == ngen):
-            _write_checkpoint(checkpoint_file, chains, igen, gamma0,
-                              eps_scale, hist_parts, generator)
-            t_last = time.time()
-            if log is not None:
-                log.msg(f'Checkpoint at generation {igen}/{ngen} -> '
-                        f'{checkpoint_file}')
+            chains = init + step * torch.randn(
+                (nchains, npars), generator=generator, dtype=dtype,
+                device=device)
+        else:
+            chains = init
+            nchains, npars = chains.shape
+        if pmin is not None:
+            chains = torch.minimum(torch.maximum(chains, tensor(pmin)),
+                                   tensor(pmax))
 
-    history, history_logp, accepts = (
-        np.concatenate([part[i] for part in hist_parts]) for i in range(3))
-    kept = history[burnin::thin]
-    kept_logp = history_logp[burnin::thin]
-    posterior = kept.reshape(-1, npars)
-    flat_logp = kept_logp.reshape(-1)
-    ibest = int(np.argmax(flat_logp))
-    return {
-        'gamma_final': gamma0,
-        'posterior': posterior,
-        'log_post': flat_logp,
-        'chains': chains,
-        'chain_history': history,
-        'acceptance_rate': float(np.mean(accepts)),
-        'bestp': posterior[ibest],
-        'best_log_post': flat_logp[ibest],
-    }
+        free_mask = (
+            (tensor(pstep) > 0).to(dtype) if pstep is not None
+            else torch.ones(npars, dtype=dtype, device=device)
+        )
+        d_free = float(to_host(torch.sum(free_mask)))
+        gamma0 = (
+            float(gamma_init) if gamma_init is not None
+            else 2.38 / np.sqrt(2.0 * max(d_free, 1.0))
+        )
+        eps_scale = (
+            1e-4 * torch.clamp(tensor(pstep), min=0.0) if pstep is not None
+            else torch.full((npars,), 1e-6, dtype=dtype, device=device)
+        )
+
+        ngen = int(np.ceil(nsamples / nchains))
+        igen = 0
+        hist_parts = []
+        if resume and checkpoint_file is not None \
+                and os.path.isfile(checkpoint_file):
+            ckpt, igen = _load_checkpoint(checkpoint_file, generator, ngen,
+                                          log)
+            chains = tensor(ckpt['chains'])
+            hist_parts.append((ckpt['hist_chains'], ckpt['hist_logp'],
+                               ckpt['hist_accept']))
+            if 'gamma' in ckpt:
+                gamma0 = float(ckpt['gamma'])
+            if 'eps_scale' in ckpt:
+                eps_scale = tensor(ckpt['eps_scale']) * torch.ones(
+                    npars, dtype=dtype, device=device)
+        if chunk_gens is None:
+            chunk_gens = ngen if checkpoint_file is None \
+                else max(1, min(200, ngen))
+        logp = log_post_batched(chains)
+        t_last = time.time()
+        dt_ckpt = checkpoint_dt if checkpoint_dt is not None else 600.0
+        while igen < ngen:
+            hi = min(igen + chunk_gens, ngen)
+            with tracing.span('pbt.demc.chunk', gen=igen):
+                tracing.count('pbt.demc.generations', hi - igen)
+                # Record the last state of each whole stride of the chunk,
+                # and the chunk's final state for a partial stride:
+                rec_chains, rec_logp, rec_accept = [], [], []
+                for jgen in range(igen, hi):
+                    gamma = 1.0 if jgen % 10 == 9 else gamma0
+                    with tracing.span('pbt.demc.draws', gen=jgen):
+                        draws = draw_generation(generator, nchains, npars,
+                                                dtype, device)
+                    chains, logp, accept = generation(
+                        chains, logp, gamma, eps_scale, free_mask, draws,
+                        log_post_batched, snooker_fraction,
+                    )
+                    if (jgen - igen + 1) % history_thin == 0 \
+                            or jgen == hi - 1:
+                        rec_chains.append(chains)
+                        rec_logp.append(logp)
+                        rec_accept.append(accept)
+                with tracing.span('pbt.demc.history'):
+                    part = tuple(to_host(torch.stack(rec)).numpy()
+                                 for rec in (rec_chains, rec_logp,
+                                             rec_accept))
+                hist_parts.append(part)
+                partial = (hi - igen) % history_thin \
+                    if history_thin > 1 else 0
+                igen = hi
+                if adapt_gamma:
+                    # pyratbay_tpu adapts on its last history part: the
+                    # partial stride's one record when there is one.
+                    acc = float(part[2][-1:].mean() if partial
+                                else part[2].mean())
+                    gamma0 *= float(np.exp(
+                        np.clip(acc - target_acceptance, -0.25, 0.25)))
+                if checkpoint_file is not None and (
+                        time.time() - t_last > dt_ckpt or igen == ngen):
+                    with tracing.span('pbt.demc.checkpoint'):
+                        _write_checkpoint(checkpoint_file, chains, igen,
+                                          gamma0, eps_scale, hist_parts,
+                                          generator)
+                    t_last = time.time()
+                    if log is not None:
+                        log.msg(f'Checkpoint at generation {igen}/{ngen} '
+                                f'-> {checkpoint_file}')
+
+        history, history_logp, accepts = (
+            np.concatenate([part[i] for part in hist_parts])
+            for i in range(3))
+        kept = history[burnin::thin]
+        kept_logp = history_logp[burnin::thin]
+        posterior = kept.reshape(-1, npars)
+        flat_logp = kept_logp.reshape(-1)
+        ibest = int(np.argmax(flat_logp))
+        return {
+            'gamma_final': gamma0,
+            'posterior': posterior,
+            'log_post': flat_logp,
+            'chains': chains,
+            'chain_history': history,
+            'acceptance_rate': float(np.mean(accepts)),
+            'bestp': posterior[ibest],
+            'best_log_post': flat_logp[ibest],
+        }
 
 
 def gelman_rubin(chain_history):

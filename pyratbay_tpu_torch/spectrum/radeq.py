@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import constants as pc
+from ..tracing import to_host
 from ..atmosphere import hydro
 from .convection import convective_flux
 
@@ -171,7 +172,7 @@ def radiative_equilibrium(
             temp, diff_flux, scale, buf, valid, dpress, tmin, tmax)
         if convection:
             conv = _convective(model, temp, t1)
-            if bool(torch.any(conv != 0.0)):
+            if bool(to_host(torch.any(conv != 0.0))):
                 q_conv = q_net + conv
                 diff_flux = torch.cat([torch.zeros_like(q_conv[:1]),
                                        torch.diff(q_conv)])
@@ -182,7 +183,7 @@ def radiative_equilibrium(
         scale, temp = new_scale, t1
         rows.append(t1)
 
-    temps = torch.cat([history] + [r[None] for r in rows]).cpu().numpy()
+    temps = to_host(torch.cat([history] + [r[None] for r in rows])).numpy()
     model.radeq_temps = temps
-    model._dt_scale = scale.cpu().numpy()
+    model._dt_scale = to_host(scale).numpy()
     return temps

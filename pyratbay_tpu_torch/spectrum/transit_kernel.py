@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import constants as pc
+from .. import tracing
 
 __all__ = [
     'transit_spectrum_ensemble', 'transit_spectrum_fused', 'prep_chains',
@@ -220,7 +221,8 @@ def build_library():
 
 @functools.lru_cache(maxsize=1)
 def _library():
-    lib = ctypes.CDLL(build_library())
+    with tracing.span('pbt.setup.kernel_library', always=True):
+        lib = ctypes.CDLL(build_library())
     ptr, cint = ctypes.c_void_p, ctypes.c_int
     fptr, cfloat = ctypes.POINTER(ctypes.c_float), ctypes.c_float
     assembly = [ptr] * 4 + [cint] + [ptr, cint] + [ptr, ptr, cint] * 2
