@@ -642,9 +642,10 @@ def kernel_bound(label, args, kw):
     data needs at the peak rate of the pipe that runs them (an FMA counts
     two, a transcendental or a division one).  Transit: the triangular
     chord product, the rank-1 terms, the non-zero CIA and line-sample
-    weights, ~10 operations a row of the epilogue, all float32 on the
-    CUDA cores; above 64 layers the tall function runs the chord product
-    on the tensor cores as three TF32 products, counted at their rate.
+    weights, ~10 operations a row of the epilogue; the chord product
+    runs on the tensor cores as three TF32 products (both functions: up
+    to 64 layers and the tall one above), counted at their rate, the rest
+    in float32 on the CUDA cores.
     Emission: the same assembly, the depth step, one Planck and an
     exponential with its FMA for each angle, for the rows from the top to
     each column's ideep only (the walk stops there)."""
@@ -664,10 +665,8 @@ def kernel_bound(label, args, kw):
     assembly_row = 2 * n_r1 + max(len(parts) - 1, 0)
     tf32 = 0
     if label == 'transit':
-        chord = nb * nwave * nlayers * (nlayers + 1)
-        if nlayers > tk.MAX_LAYERS:
-            chord, tf32 = 0, 3 * chord
-        flops = chord + nb * nwave * nlayers * (assembly_row + 10) \
+        tf32 = 3 * nb * nwave * nlayers * (nlayers + 1)
+        flops = nb * nwave * nlayers * (assembly_row + 10) \
             + 2 * terms * nwave
     else:
         scal, dr = args[1], args[2]
@@ -738,8 +737,8 @@ def one_bound(args, kw):
     read once (of the line-sample table only the rows [k, j] whose
     weight is not zero, which is what the function needs and what K2
     reads), the [B, W] result written once, and the operations
-    kernel_bound counts for K1 up to 64 layers (K2's chord product runs
-    on the CUDA cores at any layer count)."""
+    kernel_bound counts for K1, with K2's chord product in float32 on
+    the CUDA cores at any layer count."""
     import torch
     from pyratbay_tpu_torch.spectrum import transit_kernel as tk
     parts, radius = args[0], args[2]
@@ -962,6 +961,7 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
     for counter in (*counters, tk.transit_one_cuda):
         counter.launches = 0
     tk.transit_rt_cuda.tall_launches = 0
+    tk.transit_rt_cuda.mma_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rmodel = run(cfg_file, seed=0)       # the default device: the card
@@ -970,11 +970,13 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
     if keep is not None:
         keep['model'] = rmodel
     tall_launches = tk.transit_rt_cuda.tall_launches
+    mma_launches = tk.transit_rt_cuda.mma_launches
     launches = tall_launches if tall else kernel.launches - tall_launches
     one_launches = tk.transit_one_cuda.launches
     all_launches = {c.__name__: c.launches
                     for c in (*counters, tk.transit_one_cuda)}
     all_launches['transit_rt_tall'] = tall_launches
+    all_launches['transit_rt_mma'] = mma_launches
     if rmodel.device.type != 'cuda':
         fail(f'{label}: the retrieval ran on {rmodel.device}, not on the '
              'card')
@@ -996,8 +998,12 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
     if launches < NGEN + 2:
         fail(f'{label}: {launches} {spec["name"]} launches < {NGEN + 2}')
     if tall and tall_launches != kernel.launches:
-        fail(f'{label}: the register-held transit kernel ran at '
+        fail(f'{label}: the transit kernel for up to 64 layers ran at '
              f'{nlayers} layers')
+    if kind == 'transit' and mma_launches != kernel.launches - tall_launches:
+        fail(f'{label}: {mma_launches} launches of the tensor-core chord '
+             f'product, not the {kernel.launches - tall_launches} of the '
+             'transit kernel for up to 64 layers')
 
     # GPU float32 forward against the CPU float64 plain forward:
     cpu_model = model_mod.Model(
@@ -1020,8 +1026,8 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
     if wide:
         return wide_times(label, spec, kernel, plain, cases, call, one_cases,
                           forward_b, rmodel, pb, dev, args, card, nwave,
-                          launches, one_launches, max_abs, one_abs,
-                          time.perf_counter() - phase_t0, setup_s)
+                          launches, mma_launches, one_launches, max_abs,
+                          one_abs, time.perf_counter() - phase_t0, setup_s)
 
     # Times (CUDA events, medians after warm-up, in turns).  The two
     # line-sample routes: the einsum and the contiguous copy that make the
@@ -1064,7 +1070,7 @@ def run_path(label, rt_path, workdir, dev, args, card, nlayers=NLAYERS,
         # Chains in flight on an SM at this phase's operand counts:
         n_cia = ls_kw['cia_w'].shape[2]
         n_r1 = 0 if ls_kw['r1_cols'] is None else ls_kw['r1_cols'].shape[1]
-        extra['tall_chains_per_sm'] = tk.tall_chains_per_sm(
+        extra['tall_chains_per_sm'] = tk.chains_per_sm(
             nlayers, n_r1, n_cia, ls_kw['ls_w'].shape[1], 0)
     emit('times', path=label, card=card, kernel=spec['name'],
          nlayers=nlayers,
@@ -1154,7 +1160,8 @@ def demc_rate(rmodel, dev, gens=10, runs=3):
 
 def wide_times(label, spec, kernel, plain, cases, call, one_cases,
                forward_b, rmodel, pb, dev, args, card, nwave, launches,
-               one_launches, max_abs, one_abs, checks_s, setup_s):
+               mma_launches, one_launches, max_abs, one_abs, checks_s,
+               setup_s):
     """The constant-R path's timings: K1 at B = 512 by CUDA events in
     turns with its plain version, its device ms (kernel_device_ms, which
     checks the launches the profile recorded), its bound at this width;
@@ -1184,7 +1191,7 @@ def wide_times(label, spec, kernel, plain, cases, call, one_cases,
         kernel_ms=ms['kernel'], plain_ms=ms['plain'], bound_ms=bound_ms,
         bound_by=bound_by, device_ms=alone, device_whole_call_ms=whole,
         device_recorded=recorded, main_path_launches=launches,
-        forward_ms=ms_forward,
+        main_path_mma_launches=mma_launches, forward_ms=ms_forward,
         forward_spectra_per_s=NCHAINS / (ms_forward * 1e-3),
         demc_generations_per_s=gens_per_s,
         max_memory_allocated_bytes=int(peak))

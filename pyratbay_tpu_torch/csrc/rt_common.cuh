@@ -1,6 +1,7 @@
 // What the transit (transit_rt.cu) and emission (emission_rt.cu) kernels
 // share: the block layout, the staging of the chain-invariant tables and
-// the assembly of the extinction.
+// the assembly of the extinction (the Assembler below is the emission
+// kernel's; the transit kernel assembles its own, transit_rt.cu says how).
 //
 // Layout.  A block owns one tile of TW = 64 wave columns and a group of
 // chains.  A team of two warps takes one chain at a time over the whole
@@ -31,16 +32,20 @@
 // Chain-invariant operands, staged once per block:
 //   * the line-sample slab ls_tab[K2, l, tile] in shared memory
 //     (K2 * l * 64 floats: 130,560 bytes at K2 = 10, l = 51);
-//   * the tile's CIA table rows, KP (16 or 32, zero padded), in each
-//     thread's registers.
-// (The transit kernel's tall function, above 64 layers, keeps neither:
-// it streams the live line-sample rows through its ring and holds the
-// CIA table tile in shared memory; transit_rt.cu says why.)
+//   * the tile's CIA table rows: in the emission kernel KP (16 or 32,
+//     zero padded) in each thread's registers, in the transit kernel in
+//     shared memory (n_cia * 64 floats).
+// (The transit kernel's tall function, above 64 layers, keeps no slab:
+// it streams the live line-sample rows through its ring; transit_rt.cu
+// says why.)
 // Per chain, a team copies its weights into its own shared-memory region:
 // CIA [rows, KP], line sample [rows, K2P] and the layer columns (rank-1
 // columns among them), which the wrapper has already padded and laid out
 // this way, so the copy is linear, 16 bytes at a time, all in flight at
 // once (cp.async); the rank-1 rows of a thread's column stay in registers.
+// (The transit kernel up to 64 layers stages, in place of the weights,
+// each layer's first two non-zero CIA and line-sample weights and their
+// offsets in the tables.)
 // Dense [B, l, W] parts stream through a per-team ring of RING rows filled
 // with cp.async, each lane copying and reading back only its own column.
 //

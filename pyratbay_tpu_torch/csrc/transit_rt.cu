@@ -20,56 +20,73 @@
 //             coef = 0.5 (h[i] m[i] + h[i-1] mp[i]),
 //             m = in_range & i < ideep, mp = i >= itop+1 & i <= ideep.
 //
-// Design (the block layout, the teams, the staging and the assembly of
-// the extinction are in rt_common.cuh).  The chord product is the bulk of
-// the arithmetic, and it runs from registers: a thread keeps the depth
-// column of its wave column, d[LP] with LP the layer count padded to a
-// multiple of 4 (a template parameter: 32, 52 or 64), and walks the layers
-// j in ascending order as an outer product.  It assembles ec[j], four
-// layers at a time and never stored, then adds path2[i, j] * ec[j] to the
-// d[i] below.  The chord matrix is zero above its diagonal
-// (transit_path_matrix), so rows i < j would add zeros: a layer adds only
-// to the rows from the first of its chunk of four on, which drops 44% of
-// the FMAs at 51 layers, and a layer j < itop, whose whole column is
-// zero, skips its FMAs too.  The registers want static indices, so every
-// chunk's row range is its own unrolled code, reached through a switch;
-// the loops around it stay loops (with the whole layer loop and the
-// epilogue unrolled, 96 KB of code, the kernel waited for its
-// instructions: 2.7 ms).  Each d[i] receives its non-zero terms in the
-// order j = 0, 1, ... of the earlier row-by-row kernel.  The matrix comes
-// packed from the wrapper (transit_kernel.py chord_layout: layer j's row
-// holds path2[i, j] for the rows from its chunk's first on), so a warp
-// reads it as 16-byte broadcast loads, one for four independent FMAs.
-// The epilogue (ideep, exp, deck splice, masked trapezoid) then runs down
-// d, exact as before: the ideep known so far (first exceed, else
-// ibottom - 1) gives every row the coefficient of the final ideep.  The
-// rows leave the registers through the team's dead chord matrix, so that
-// one loop with a run-time row serves them all.  Every row's integ * coef
-// is added, zero coefficients included, so NaN/inf propagate as in the
-// Pallas kernel; the skipped zero terms would have turned a non-finite
-// ec[j] into NaN in every row, which a sum of ec[j] * 0 added to the
-// result restores.  No index is taken from data: itop, ibottom and the
-// deck row are only compared, so a rejected chain computes garbage but
-// cannot fault.  No fast-math, no TF32: the result needs full float32.
+// Design (the block layout and the teams are in rt_common.cuh).  A team of
+// two warps takes one chain over a 64-column wave tile, one column a lane;
+// a block holds the tile's line-sample slab and CIA table rows in shared
+// memory, staged once for its chains.  Per chain the team stages the chord
+// matrix, packed by the wrapper as the fragments of its product
+// (transit_kernel.py chord_layout), the rank-1 columns, and for each layer
+// (a thread a layer) its first two non-zero CIA and line-sample weights
+// with their offsets in the tables, a bit if it has more, and its
+// epilogue's chain-uniform part: radius, coefficients, threshold.
+//
+// The layers go in steps of eight.  Each lane assembles its column's
+// extinction of the step's layers, in the order of the Pallas kernel:
+// dense parts (a ring of rows), rank-1 terms, the CIA product over its two
+// live weights, the line sample the same way, all without a branch; then,
+// in the rare layers with more live weights (several species or CIA
+// tables), the others, read from device memory.  The chord product runs on
+// the tensor cores, mma.sync m16n8k8: A the extinction of the warp's 32
+// columns (two m-tiles of 16) by the step's 8 layers, through a swizzled
+// buffer of the warp into the fragment layout; B an n-tile of 8 depth rows
+// by those layers, the packed matrix as one 8-byte shared load a lane; C
+// the depths of the warp's columns by an n-tile's rows, 2 x NT x 4
+// registers a lane (NT = 4, 7 or 8 for up to 32, 56 or 64 layers: 7 at
+// 51).  The matrix is zero above its diagonal, so a step adds only to the
+// n-tiles from its own on: nt (nt + 1) / 2 pairs of step and n-tile, 28 at
+// 51 layers, 168 mma a warp and chain.  TF32 alone keeps about three
+// digits, so each product is three TF32 products of the split operands
+// (lo x hi, hi x lo, hi x hi; each split by integer rounding to nearest,
+// ties away, two instructions where cvt.rna.tf32 takes four), summed from
+// zero, and the step's sum joins the depths by a float32 add outside the
+// tensor cores: a depth is a float32 sum over the steps (the tall
+// function's arithmetic).  After step s, n-tile s is done: its rows leave
+// the accumulators through the warp's buffer for the epilogue (ideep, exp,
+// deck splice, masked trapezoid) down each lane's column, and the others
+// move down a position, so that every step's body has static indices and
+// each count of live n-tiles its own unrolled product.  The epilogue is
+// exact as before: the ideep known so far (first exceed, else
+// ibottom - 1) gives every row the coefficient of the final ideep.  Every
+// row's integ * coef is added, zero coefficients included, so NaN/inf
+// propagate as in the Pallas kernel; the extinction of the layers above
+// itop goes into the product as zero and reaches the output only through a
+// sum of ec[j] * 0 added to it (the poison sum), as does a rejected
+// chain's non-finite weight (its layer's extinction is made NaN).  No
+// index is taken from data: itop is clamped before it bounds a loop,
+// ibottom and the deck row are only compared, so a rejected chain computes
+// garbage but cannot fault.  No fast-math: the result keeps float32.
 //
 // Bound on the H100 at the flagship shape (B = 512, l = 51, W = 3209,
-// K = 15, K2 = 10, line sample in the kernel): 4.4 GFLOP for the
-// triangular chord product (l (l + 1) / 2 FMAs a column), 1.0 GFLOP for
-// the rank-1 term and the epilogue, 0.3 GFLOP each for the two live CIA
-// and line-sample terms a layer, all fp32 outside the tensor cores, so
-// ~0.09 ms at the card's 67 TFLOP/s (chip_smoke.py kernel_bound); the
-// bytes are 6.5 MB of table, 5.3 MB of chord matrices, 3 MB of weights
-// and a 6.6 MB result, ~0.01 ms at 3.35 TB/s.  With the line sample as a
-// dense part the 335 MB part is read once, ~0.10 ms.  Measured on an
-// NVIDIA H100 80GB HBM3 at 700 W: 0.84 ms of device time (0.79 ms on a
-// dense part), against 1.99 ms for the kernel this replaces (one thread a
-// column, the extinction column and the chord matrix read from shared
-// memory for every FMA, the whole square matrix).  What is left is
-// latency: a chain takes a warp ~58,000 cycles (a build with clock64()
-// around the phases, not kept: the assembly 36%, the chord product 38%,
-// the epilogue 16%, staging 8%; ~39,000 with the SM to itself), and the
-// 130 KB slab leaves room for eight chains in flight on an SM.
-// PERF.md has the runs and the designs that were tried.
+// K = 15, K2 = 10, line sample in the kernel): the triangular chord product
+// (l (l + 1) / 2 FMAs a column, 4.4 GFLOP) three times at the tensor
+// cores' 495 TFLOP/s, 0.026 ms, beside 1.6 GFLOP of float32 (the rank-1
+// term, the epilogue, the two live CIA and line-sample terms a layer) at
+// 67 TFLOP/s, 0.024 ms (chip_smoke.py kernel_bound); the bytes (table,
+// chord matrices, weights, result) ~0.01 ms at 3.35 TB/s.  Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W: 0.62 ms of device time at 3,209 columns
+// and 8.9 ms at R = 115,000 (50,062 columns), where the FMA design before
+// it (the depth column in registers, an outer product down the layers
+// from 16-byte broadcast loads of the chord rows, the CIA sum over all KP
+// weights from registers) took 0.84 ms and 12.2-12.6 ms.  What is left is
+// latency and instruction count: a chain takes a warp ~39,000 cycles (a
+// build with clock64() around the phases, not kept: staging 5,700,
+// assembly 10,700, chord product 11,000, epilogue 8,800; the FMA design's
+// ~58,200: 4,500, 21,100, 22,000, 9,200).  128 registers a thread and no
+// spill at 16 warps (NT = 4 and 7; the NT = 8 blocks take 12 warps, whose
+// registers hold its 64 accumulators); the 130 KB slab, the 3.8 KB CIA
+// table tile and eight teams' 11.9 KB regions fill the block's shared
+// memory: eight chains in flight on an SM.  PERF.md has the runs and the
+// designs that were tried.
 //
 // Tall atmospheres (more than 64 layers: reference users run 81 and 100)
 // take a second function, transit_rt_tall_kernel, because a depth column
@@ -125,61 +142,125 @@ namespace {
 using namespace pbt;
 
 constexpr int MAX_WARPS = 16;    // warps of a block, at most
+constexpr int E_FLOATS = 256;    // a warp's extinction buffer: 8 x 32
 
-// Offset of chunk q (four layers) in the packed chord matrix, and its
-// whole size (q = NL4), in floats: the layers of chunk q hold the rows
-// from 4 q to the padded last.
-__host__ __device__ constexpr int chunk_base(int NL4, int q) {
-    return 16 * (q * NL4 - q * (q - 1) / 2);
+// Floats of a chain's chord fragments with nt n-tiles of 8 rows: 64 for
+// each pair of a step s of 8 layers and an n-tile n >= s.
+__host__ __device__ constexpr int chord_floats(int nt) {
+    return 32 * nt * (nt + 1);
 }
 
-// Floats of a team's region (all multiples of 4): the packed chord
-// matrix, then the assembly region of rt_common.cuh, with room for the
-// CIA weights whether or not there are any (the epilogue parks rows there).
-__host__ __device__ inline int team_floats(
-        int NL4, int KP, int K2P, int ncols, int n_parts) {
-    return chunk_base(NL4, NL4)
-        + assembly_floats(4 * NL4, KP, 1, K2P, ncols, n_parts);
+// Floats of a team's region (all multiples of 4): the chord fragments,
+// each layer's live weights [rows] (float4), their table offsets [rows]
+// (int4) and its epilogue constants [rows] (float4), the rank-1 columns
+// [n_r1][rows], the two warps' extinction buffers, the parts ring, and
+// the warps' words of layers with more live weights (rows = 8 nt).
+__host__ __device__ inline int team_floats(int nt, int n_r1, int n_parts) {
+    const int rows = 8 * nt;
+    return chord_floats(nt) + 12 * rows + n_r1 * rows + TEAM * E_FLOATS
+        + n_parts * RING * TW + 4;
 }
 
-// d[i] += path2[i, j] * ec[j] for layer j of chunk Q and the rows from
-// 4 Q on:
-template <int NL4, int Q>
-__device__ __forceinline__ void add_layer(
-        float (&d)[4 * NL4], const float* s_pt, int j, float e) {
-    if constexpr (Q < NL4) {
-        const float4* prow = reinterpret_cast<const float4*>(
-            s_pt + chunk_base(NL4, Q) + (j - 4 * Q) * 4 * (NL4 - Q));
+__device__ __forceinline__ unsigned to_tf32(float x) {
+    unsigned r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+    return r;
+}
+
+// d += a b for one warp's m16n8k8 TF32 fragments (PTX ISA layouts: with
+// g = lane / 4 and t = lane % 4, a = A[g][t], A[g+8][t], A[g][t+4],
+// A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1]).
+__device__ __forceinline__ void mma_tf32(
+        float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x as the sum of two TF32 values:
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// x as the sum of two TF32 values, each rounded to nearest with ties away
+// from zero by integer operations (for finite x what cvt.rna.tf32.f32
+// gives, in two instructions where it takes four).
+__device__ __forceinline__ void split_tf32_rna(float x, unsigned& hi,
+                                               unsigned& lo) {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// The first two non-zero weights among the first 32 of a row of n in
+// device memory (n a multiple of 4, 16-byte aligned): w0, w1 (zero where
+// there are fewer) at k0, k1 (0 where absent); true if any other weight
+// is not zero.  Where it took fewer than two, the row has no other
+// non-zero weight among its first 32, so those it took are the first of
+// the row.  A row with a non-finite weight (a rejected chain's) gives
+// w0 = NaN and nothing more: its layer's extinction is then NaN, as is
+// every sum that takes it (the plain version's product too), and the
+// chain's result is NaN through the poison sum.
+__device__ __forceinline__ bool live_pair(
+        const float* __restrict__ row, int n, float& w0, float& w1,
+        int& k0, int& k1) {
+    unsigned live = 0;
+    bool rest = false, finite = true;
+#pragma unroll 4
+    for (int k = 0; k < n; k += 4) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(row + k));
+        const unsigned nz = (unsigned)(v.x != 0.f)
+            | (unsigned)(v.y != 0.f) << 1 | (unsigned)(v.z != 0.f) << 2
+            | (unsigned)(v.w != 0.f) << 3;
+        finite = finite && isfinite(v.x) && isfinite(v.y) && isfinite(v.z)
+            && isfinite(v.w);
+        if (k < 32)
+            live |= nz << k;
+        else
+            rest = rest || nz != 0;
+    }
+    bool one, two;
+    const unsigned more = first_two(live, one, two, k0, k1);
+    w0 = !finite ? NAN : one ? __ldg(row + k0) : 0.f;
+    w1 = finite && two ? __ldg(row + k1) : 0.f;
+    k0 = finite ? k0 : 0;
+    k1 = finite && two ? k1 : 0;
+    return finite && (more != 0 || rest);
+}
+
+// acc + w[k] tab[k stride] over the non-zero weights of a row of n in
+// device memory (n a multiple of 4, 16-byte aligned) after its first
+// `taken`, in ascending k (the layers with more than two live weights).
+__device__ __forceinline__ float rest_sum(
+        const float* __restrict__ row, int n, int taken, const float* tab,
+        int stride, float acc) {
+    int seen = 0;
+#pragma unroll 1
+    for (int k = 0; k < n; k += 4) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(row + k));
+        const float x[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int i4 = Q; i4 < NL4; ++i4) {
-            const float4 p = prow[i4 - Q];
-            d[4 * i4] = fmaf(p.x, e, d[4 * i4]);
-            d[4 * i4 + 1] = fmaf(p.y, e, d[4 * i4 + 1]);
-            d[4 * i4 + 2] = fmaf(p.z, e, d[4 * i4 + 2]);
-            d[4 * i4 + 3] = fmaf(p.w, e, d[4 * i4 + 3]);
-        }
+        for (int i = 0; i < 4; ++i)
+            if (x[i] != 0.f && ++seen > taken)
+                acc = fmaf(x[i], tab[(k + i) * stride], acc);
     }
+    return acc;
 }
 
-// The layer's chunk decides which rows it adds to: every chunk is its own
-// unrolled code, because the registers of d want static indices.
-template <int NL4>
-__device__ __forceinline__ void add_to_rows(
-        float (&d)[4 * NL4], const float* s_pt, int j, int chunk, float e) {
-    switch (chunk) {
-#define PBT_CHUNK(Q) \
-    case Q: add_layer<NL4, Q>(d, s_pt, j, e); break;
-        PBT_CHUNK(0) PBT_CHUNK(1) PBT_CHUNK(2) PBT_CHUNK(3)
-        PBT_CHUNK(4) PBT_CHUNK(5) PBT_CHUNK(6) PBT_CHUNK(7)
-        PBT_CHUNK(8) PBT_CHUNK(9) PBT_CHUNK(10) PBT_CHUNK(11)
-        PBT_CHUNK(12) PBT_CHUNK(13) PBT_CHUNK(14) PBT_CHUNK(15)
-#undef PBT_CHUNK
-    }
+// Row r (0-7) and column c (0-31) of a warp's extinction buffer: rows of
+// 32 floats, the columns XOR-swizzled so that the A fragments are read
+// and the accumulators parked without bank conflicts.
+__device__ __forceinline__ int swz(int r, int c) {
+    return 32 * r + (c ^ (((r + (r >> 2)) & 3) << 3));
 }
 
 // One column's epilogue step at row `row`, rows in ascending order (the
 // ideep known so far, first exceed else ibottom - 1, gives every row the
-// coefficient of the final ideep), for both functions.
+// coefficient of the final ideep), for the tall function.
 struct Epilogue {
     int ideep;
     bool found;
@@ -201,8 +282,69 @@ struct Epilogue {
     }
 };
 
-template <int NL4, int KP>
-__global__ void __launch_bounds__(32 * MAX_WARPS, 1) transit_rt_kernel(
+// The epilogue of Epilogue::step with its chain-uniform part computed once
+// a row (the staging's q = radius, the coefficient while no row above
+// exceeded maxdepth, the coefficient at the first that does, and the
+// row's threshold: maxdepth in [itop, ibottom), else infinite): the same
+// sums in the same order.
+struct RowEpilogue {
+    bool found;
+    float integral, prev;
+
+    __device__ __forceinline__ void step(float di, const float4& q,
+                                         bool deck, float w_surf) {
+        const bool exceed = di > q.w;
+        const float raw = expf(-di) * q.x;
+        const float integ = deck ? prev * (1.f - w_surf) + raw * w_surf : raw;
+        integral += integ * (found ? 0.f : exceed ? q.z : q.y);
+        found = found || exceed;
+        prev = raw;
+    }
+};
+
+// The step's chord product into the first k positions of the
+// accumulators (k = K if it matches, else fewer: one unrolled body for
+// each count, so that the positions' products interleave): position p
+// takes the B fragment pb[32 p].
+template <int K, int NT>
+__device__ __forceinline__ void step_product(
+        int k, float (&acc)[NT][2][4], const float2* pb,
+        const unsigned (&ah)[2][4], const unsigned (&al)[2][4]) {
+    if constexpr (K > 0) {
+        if (k != K) {
+            step_product<K - 1, NT>(k, acc, pb, ah, al);
+            return;
+        }
+#pragma unroll
+        for (int p = 0; p < K; ++p) {
+            const float2 bv = pb[32 * p];
+            unsigned bh[2], bl[2];
+            split_tf32_rna(bv.x, bh[0], bl[0]);
+            split_tf32_rna(bv.y, bh[1], bl[1]);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+                float d[4] = {0.f, 0.f, 0.f, 0.f};
+                mma_tf32(d, al[m], bh);
+                mma_tf32(d, ah[m], bl);
+                mma_tf32(d, ah[m], bh);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) acc[p][m][i] += d[i];
+            }
+        }
+    }
+}
+
+// Warps of a block, at most, for the instantiation of NT n-tiles: with 8
+// the 64 accumulators want more than 128 registers a thread (16 warps
+// leave no more), so its blocks take 12.
+__host__ __device__ constexpr int k1_max_warps(int NT) {
+    return NT == 8 ? 12 : MAX_WARPS;
+}
+
+// NT: the n-tiles of 8 rows the accumulators hold (4, 7 or 8: up to 32,
+// 56 or 64 layers).
+template <int NT>
+__global__ void __launch_bounds__(32 * k1_max_warps(NT), 1) transit_rt_kernel(
         Parts parts, const float* __restrict__ r1_rows, int n_r1,
         const float* __restrict__ cia_w, const float* __restrict__ cia_tab,
         int n_cia,
@@ -211,53 +353,50 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1) transit_rt_kernel(
         const float* __restrict__ packed, const float* __restrict__ cols,
         const float* __restrict__ scal, float* __restrict__ out,
         int nchains, int group, int nlayers, int nwave, float maxdepth) {
-    constexpr int LP = 4 * NL4;
-    constexpr int PK = chunk_base(NL4, NL4);
-    // Rows of d that the epilogue can park in the dead chord matrix and
-    // CIA weights at a time:
-    constexpr int PARK = (PK + LP * KP) / TW < LP ? (PK + LP * KP) / TW : LP;
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
     const int L = nlayers;
+    const int nt = (L + 7) >> 3;        // n-tiles, and steps of 8 layers
+    const int rows = 8 * nt;
+    const int PK = chord_floats(nt);
+    const int KP = n_cia <= 16 ? 16 : 32;   // the wrapper pads cia_w so
     const int K2P = round4(n_ls);
     const int ncols = 3 + n_r1;
     const int lane = threadIdx.x & 31;
+    const int gid = lane >> 2, tig = lane & 3;        // fragment coordinates
     const int team = threadIdx.x / (32 * TEAM);
     const int nteams = blockDim.x / (32 * TEAM);
-    const int tlane = threadIdx.x % (32 * TEAM);   // the column in the tile
+    const int tlane = threadIdx.x % (32 * TEAM);     // the column in the tile
     const int w = blockIdx.x * TW + tlane;
     const bool valid = w < nwave;
 
     float* s_tab = smem;                                   // [n_ls][L][TW]
-    const int region = team_floats(NL4, KP, K2P, ncols, parts.n);
-    float* s_pt = smem + n_ls * L * TW + team * region;    // packed path2T
-    float* s_ciaw = s_pt + PK;                             // [LP][KP]
-    float* s_lsw = s_ciaw + LP * KP;                       // [LP][K2P]
-    unsigned* s_mask = reinterpret_cast<unsigned*>(s_lsw + LP * K2P);
-    float* s_cols = s_lsw + LP * K2P + LP * ((K2P + 31) >> 5);
-    const float* s_rad = s_cols;                           // [LP]
-    const float* s_h = s_cols + LP;                        // [LP]
-    const float* s_hprev = s_cols + 2 * LP;                // [LP]
-    float* ring = s_cols + ncols * LP;                     // parts ring
+    float* s_ctab = s_tab + n_ls * L * TW;                 // [n_cia][TW]
+    const int region = team_floats(nt, n_r1, parts.n);
+    float* s_chord = s_ctab + n_cia * TW + team * region;  // [PK]
+    float4* s_w4 = reinterpret_cast<float4*>(s_chord + PK);       // [rows]
+    int4* s_o4 = reinterpret_cast<int4*>(s_chord + PK + 4 * rows); // [rows]
+    float4* s_ep = reinterpret_cast<float4*>(s_chord + PK + 8 * rows);
+    float* s_r1c = s_chord + PK + 12 * rows;               // [n_r1][rows]
+    float* s_e = s_r1c + n_r1 * rows + (tlane >> 5) * E_FLOATS;
+    float* ring = s_r1c + n_r1 * rows + TEAM * E_FLOATS;
+    unsigned* s_more =
+        reinterpret_cast<unsigned*>(ring + parts.n * RING * TW);  // [2]
+    const float* ctab = s_ctab + tlane;     // the lane's column of the tables
+    const float* ltab = s_tab + tlane;
+    // A layer's CIA (2 j) and line-sample (2 j + 1) live weights and offsets:
+    const float2* s_w2 = reinterpret_cast<const float2*>(s_w4);
+    const int2* s_o2 = reinterpret_cast<const int2*>(s_o4);
 
     load_slab(s_tab, ls_tab, n_ls * L, blockIdx.x * TW, nwave);
-    for (int i = tlane; i < region; i += 32 * TEAM) s_pt[i] = 0.f;
-
-    Assembler<KP> as;
-    as.s_ciaw = s_ciaw;
-    as.s_lsw = s_lsw;
-    as.s_mask = s_mask;
-    as.s_r1c = s_cols + 3 * LP;
-    as.s_tab = s_tab;
-    as.ring = ring;
-    as.n_parts = parts.n;
-    as.n_r1 = n_r1;
-    as.n_cia = n_cia;
-    as.K2P = K2P;
-    as.L = L;
-    as.rows = LP;
-    as.col = tlane;
-    as.load_cia_table(cia_tab, nwave, w, valid);
+    for (int i = threadIdx.x; i < n_cia * TW; i += blockDim.x) {
+        const int wk = blockIdx.x * TW + (i & (TW - 1));
+        if (wk < nwave)
+            cp_async4(s_ctab + i, cia_tab + (size_t)(i / TW) * nwave + wk);
+        else
+            s_ctab[i] = 0.f;
+    }
+    for (int i = tlane; i < region; i += 32 * TEAM) s_chord[i] = 0.f;
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -267,82 +406,209 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1) transit_rt_kernel(
         if (b >= nchains) break;
         team_sync(team);
 
-        // The chain's operands into the team's region, all copies in
+        // The chain's chord fragments and rank-1 columns, all copies in
         // flight together, and the first rows of the dense parts:
-        copy_block(s_pt, packed + (size_t)b * PK, PK, tlane);
-        stage_chain(s_ciaw, s_lsw, s_cols, cia_w, ls_w, cols, b, LP, KP,
-                    n_cia, K2P, ncols, tlane);
+        const float* cols_b = cols + (size_t)b * ncols * rows;
+        copy_block(s_chord, packed + (size_t)b * PK, PK, tlane);
+        copy_block(s_r1c, cols_b + 3 * rows, n_r1 * rows, tlane);
         cp_async_commit();
-        const size_t chain_off = (size_t)b * L * nwave;
         for (int r = 0; r < RING; ++r)
-            ring_fetch(ring, parts, chain_off, r, L, nwave, tlane, w, valid);
-        as.load_r1_rows(r1_rows, b, nwave, w, valid);
+            ring_fetch(ring, parts, (size_t)b * L * nwave, r, L, nwave,
+                       tlane, w, valid);
         const float* sc = scal + (size_t)b * 8;
         const int itop = (int)sc[0];
         const int ibottom = (int)sc[1];
-        const int deck_row = (int)sc[2];
-        const bool apply_deck = sc[3] > 0.5f;
+        // The deck row, or -1 (no row) without a deck splice:
+        const int deck_row = sc[3] > 0.5f ? (int)sc[2] : -1;
         const float w_surf = sc[4];
-        const float inv_rstar2 = sc[5];
-        const float r_itop2 = sc[6];
+        // Each layer's first two live CIA and line-sample weights and
+        // their offsets in the tables, a thread a layer (rows <= 64), a
+        // bit for each layer with more, and the layer's epilogue
+        // constants (RowEpilogue; the coefficients as Epilogue::step makes
+        // them, before and at the first row that exceeds maxdepth):
+        const size_t row_b = (size_t)b * rows;   // the chain's first row
+        bool more = false;
+        if (tlane < rows) {
+            float4 wv = make_float4(0.f, 0.f, 0.f, 0.f);
+            int4 ov = make_int4(0, 0, 0, 0);
+            if (n_cia) {
+                more = live_pair(cia_w + (row_b + tlane) * KP, KP, wv.x,
+                                 wv.y, ov.x, ov.y);
+                ov.x *= TW;
+                ov.y *= TW;
+            }
+            if (n_ls) {
+                more |= live_pair(ls_w + (row_b + tlane) * K2P, K2P, wv.z,
+                                  wv.w, ov.z, ov.w);
+                // (A padded layer's absent weights point into the slab.)
+                const int j = min(tlane, L - 1);
+                ov.z = (ov.z * L + j) * TW;
+                ov.w = (ov.w * L + j) * TW;
+            }
+            s_w4[tlane] = wv;
+            s_o4[tlane] = ov;
+            const int j = tlane;
+            const float h = __ldg(cols_b + rows + j);
+            const float hprev = __ldg(cols_b + 2 * rows + j);
+            const float m = (j >= itop && j < ibottom - 1) ? 1.f : 0.f;
+            const float mp = (j >= itop + 1 && j <= ibottom - 1) ? 1.f : 0.f;
+            s_ep[j] = make_float4(
+                __ldg(cols_b + j), 0.5f * (h * m + hprev * mp),
+                0.5f * (h * 0.f + hprev * mp),
+                j >= itop && j < ibottom ? maxdepth : INFINITY);
+        }
+        const unsigned more_bits = __ballot_sync(0xffffffffu, more);
+        if (lane == 0) s_more[tlane >> 5] = more_bits;
+        float r1r[MAX_R1];
+        load_r1_rows(r1r, r1_rows, n_r1, b, nwave, w, valid);
         cp_async_wait<RING>();
         team_sync(team);
-        build_mask(s_mask, s_lsw, LP, K2P, tlane, team);
+        // itop is clamped before it bounds a loop, so that a rejected
+        // chain's garbage cannot address memory.
+        const int jlo = max(0, min(itop, L));
 
-        // Outer product down the layers, four at a time:
-        float d[LP];
+        // The depths of the warp's columns by the rows of the n-tiles not
+        // yet done: at step s, position p holds n-tile s + p.
+        float acc[NT][2][4];
 #pragma unroll
-        for (int i = 0; i < LP; ++i) d[i] = 0.f;
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) acc[n][m][i] = 0.f;
         float poison = 0.f;
+        RowEpilogue ep = {false, 0.f, 0.f};
 #pragma unroll 1
-        for (int chunk = 0; 4 * chunk < L; ++chunk) {
-            const int j0 = 4 * chunk;
-            // The ring holds the layers j0 .. j0 + 7; the first four must
-            // have landed, and their slots take the next four after use.
-            if (parts.n > 0) cp_async_wait<4>();
-            float e[4];
-            as.rows4(j0, e);
+        for (int s = 0; s < nt; ++s) {
+            const int j0 = 8 * s;
+            // The extinction of the step's eight layers in the lane's
+            // column, in the order of the Pallas kernel: dense parts (the
+            // ring holds the step's rows, fetched during the step before),
+            // rank-1 terms, the CIA product (its two live weights, from the
+            // staged offsets, without a branch), the line sample (the
+            // same); then, in the rare layers with more live weights, the
+            // others, read from device memory.
+            float e[2][4];
+#pragma unroll
+            for (int t = 0; t < 8; ++t) e[t >> 2][t & 3] = 0.f;
             if (parts.n > 0) {
+                cp_async_wait<0>();
 #pragma unroll
-                for (int t = 0; t < 4; ++t)
-                    ring_fetch(ring, parts, chain_off, j0 + RING + t, L,
-                               nwave, tlane, w, valid);
+                for (int t = 0; t < 8; ++t) {
+                    if (j0 + t < L) {
+                        const float* slot = ring + t * TW + tlane;
+                        float v = slot[0];
+#pragma unroll
+                        for (int p = 1; p < MAX_PARTS; ++p)
+                            if (p < parts.n) v += slot[p * RING * TW];
+                        e[t >> 2][t & 3] = v;
+                    }
+                }
+#pragma unroll
+                for (int t = 0; t < 8; ++t)
+                    ring_fetch(ring, parts, (size_t)b * L * nwave,
+                               j0 + RING + t, L, nwave, tlane, w, valid);
+            }
+            add_rank1(e[0], s_r1c, rows, j0, r1r, n_r1);
+            add_rank1(e[1], s_r1c, rows, j0 + 4, r1r, n_r1);
+            if (n_cia) {
+#pragma unroll
+                for (int t = 0; t < 8; ++t) {
+                    const int2 o = s_o2[2 * (j0 + t)];
+                    const float2 wv = s_w2[2 * (j0 + t)];
+                    e[t >> 2][t & 3] += fmaf(wv.y, ctab[o.y], wv.x * ctab[o.x]);
+                }
+            }
+            if (n_ls) {
+#pragma unroll
+                for (int t = 0; t < 8; ++t) {
+                    const int2 o = s_o2[2 * (j0 + t) + 1];
+                    const float2 wv = s_w2[2 * (j0 + t) + 1];
+                    float& et = e[t >> 2][t & 3];
+                    et = fmaf(wv.y, ltab[o.y], fmaf(wv.x, ltab[o.x], et));
+                }
+            }
+            const unsigned more8 = (s_more[j0 >> 5] >> (j0 & 31)) & 0xffu;
+            if (more8) {
+#pragma unroll
+                for (int t = 0; t < 8; ++t) {
+                    if (!(more8 >> t & 1u)) continue;
+                    const int j = j0 + t;
+                    const float4 wv = s_w4[j];
+                    float& et = e[t >> 2][t & 3];
+                    if (n_cia)
+                        et += rest_sum(cia_w + (row_b + j) * KP, KP,
+                                       (wv.x != 0.f) + (wv.y != 0.f), ctab, TW,
+                                       0.f);
+                    if (n_ls)
+                        et = rest_sum(ls_w + (row_b + j) * K2P, K2P,
+                                      (wv.z != 0.f) + (wv.w != 0.f),
+                                      ltab + j * TW, L * TW, et);
+                }
             }
 #pragma unroll
-            for (int t = 0; t < 4; ++t) poison = fmaf(e[t], 0.f, poison);
-#pragma unroll 1
-            for (int t = 0; t < 4; ++t) {
-                const int j = j0 + t;
-                const float ej =
-                    t == 0 ? e[0] : t == 1 ? e[1] : t == 2 ? e[2] : e[3];
-                if (j >= itop && j < L)
-                    add_to_rows<NL4>(d, s_pt, j, chunk, ej);
+            for (int t = 0; t < 8; ++t) {
+                const float et = e[t >> 2][t & 3];
+                poison = fmaf(et, 0.f, poison);
+                // Layers above itop add nothing (their chord column is
+                // zero): zero them here, so that a non-finite one reaches
+                // only the poison sum.
+                s_e[swz(t, lane)] = j0 + t >= jlo ? et : 0.f;
             }
+            __syncwarp();
+            // The step's chord product on the tensor cores, for the
+            // n-tiles from the step's own on (the matrix is zero above its
+            // diagonal): A the extinction of the warp's 32 columns (two
+            // m-tiles of 16) by the step's 8 layers, B an n-tile's chord
+            // rows by those layers.  Three TF32 products of the split
+            // operands from zero, then a float32 add to the depths.
+            if (j0 + 8 > jlo) {
+                unsigned ah[2][4], al[2][4];
+#pragma unroll
+                for (int m = 0; m < 2; ++m) {
+                    const int col = 16 * m + gid;
+                    split_tf32_rna(s_e[swz(tig, col)], ah[m][0], al[m][0]);
+                    split_tf32_rna(s_e[swz(tig, col + 8)], ah[m][1], al[m][1]);
+                    split_tf32_rna(s_e[swz(tig + 4, col)], ah[m][2], al[m][2]);
+                    split_tf32_rna(s_e[swz(tig + 4, col + 8)], ah[m][3],
+                                   al[m][3]);
+                }
+                const float2* pb = reinterpret_cast<const float2*>(
+                    s_chord + 64 * (s * nt - s * (s - 1) / 2)) + lane;
+                step_product<NT, NT>(nt - s, acc, pb, ah, al);
+            }
+            __syncwarp();
+            // n-tile s is done: its rows' epilogue, through the warp's
+            // extinction buffer (the accumulators go in as rows of 32
+            // columns, each lane reads back its own column; rows past the
+            // last, to the padded 8 nt, add nothing: their depths, radii
+            // and coefficients are zero), and the others move down.
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+                const int col = 16 * m + gid;
+                s_e[swz(2 * tig, col)] = acc[0][m][0];
+                s_e[swz(2 * tig + 1, col)] = acc[0][m][1];
+                s_e[swz(2 * tig, col + 8)] = acc[0][m][2];
+                s_e[swz(2 * tig + 1, col + 8)] = acc[0][m][3];
+            }
+#pragma unroll
+            for (int p = 0; p + 1 < NT; ++p)
+#pragma unroll
+                for (int m = 0; m < 2; ++m)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
+                        acc[p][m][i] = acc[p + 1][m][i];
+            __syncwarp();
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+                ep.step(s_e[swz(r, lane)], s_ep[j0 + r], j0 + r == deck_row,
+                        w_surf);
+            __syncwarp();
         }
         cp_async_wait<0>();
-        // The other warp of the team may still read the chord matrix:
-        team_sync(team);
-
-        // Epilogue down the rows, PARK rows at a time through the team's
-        // dead chord matrix and CIA weights (each lane reads back only
-        // what it parked).
-        Epilogue ep = {ibottom - 1, false, 0.f, 0.f};
-#pragma unroll
-        for (int first = 0; first < LP; first += PARK) {
-#pragma unroll
-            for (int i = first; i < first + PARK && i < LP; ++i)
-                s_pt[(i - first) * TW + tlane] = d[i];
-            const int last = min(L, first + PARK);
-#pragma unroll 4
-            for (int i = first; i < last; ++i)
-                ep.step(i, s_pt[(i - first) * TW + tlane],
-                        i >= itop && i < ibottom, itop,
-                        apply_deck && i == deck_row, w_surf, s_rad[i],
-                        s_h[i], s_hprev[i], maxdepth);
-        }
         if (valid)
             out[(size_t)b * nwave + w] =
-                (r_itop2 + 2.f * ep.integral) * inv_rstar2 + poison;
+                (sc[6] + 2.f * ep.integral) * sc[5] + poison;
     }
 }
 
@@ -399,32 +665,6 @@ __host__ __device__ inline long tall_block_floats(
         int nteams) {
     return (long)n_cia * TW
         + (long)nteams * tall_team_floats(L, KP, n_cia, K2P, ncols, n_parts);
-}
-
-__device__ __forceinline__ unsigned to_tf32(float x) {
-    unsigned r;
-    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-    return r;
-}
-
-// d += a b for one warp's m16n8k8 TF32 fragments (PTX ISA layouts: with
-// g = lane / 4 and t = lane % 4, a = A[g][t], A[g+8][t], A[g][t+4],
-// A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1],
-// D[g+8][2t], D[g+8][2t+1]).
-__device__ __forceinline__ void mma_tf32(
-        float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// x as the sum of two TF32 values:
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
 }
 
 __global__ void __launch_bounds__(32 * TALL_WARPS, 3) transit_rt_tall_kernel(
@@ -756,74 +996,68 @@ int tall_smem_bytes(int nlayers, int n_r1, int n_cia, int n_ls, int n_parts,
     return floats * 4 > (1L << 30) ? (1 << 30) : (int)(floats * 4);
 }
 
-// The instantiation for a padded layer count and CIA depth; null above the
-// largest.
-Kernel pick_kernel(int nlayers, int n_cia, int* NL4, int* KP) {
-    *KP = n_cia <= 16 ? 16 : 32;
-    *NL4 = nlayers <= 32 ? 8 : nlayers <= 52 ? 13 : 16;
+// The instantiation for a layer count (the n-tiles its accumulators
+// hold); null outside 2-64 layers or above 32 CIA rows.
+Kernel pick_kernel(int nlayers, int n_cia) {
     if (nlayers < 2 || nlayers > 64 || n_cia > 32) return nullptr;
-    if (*KP == 16) {
-        if (*NL4 == 8) return transit_rt_kernel<8, 16>;
-        if (*NL4 == 13) return transit_rt_kernel<13, 16>;
-        return transit_rt_kernel<16, 16>;
-    }
-    if (*NL4 == 8) return transit_rt_kernel<8, 32>;
-    if (*NL4 == 13) return transit_rt_kernel<13, 32>;
-    return transit_rt_kernel<16, 32>;
+    if (nlayers <= 32) return transit_rt_kernel<4>;
+    if (nlayers <= 56) return transit_rt_kernel<7>;
+    return transit_rt_kernel<8>;
 }
 
-int smem_bytes(int NL4, int KP, int nlayers, int n_r1, int n_ls, int n_parts,
+int smem_bytes(int nlayers, int n_r1, int n_cia, int n_ls, int n_parts,
                int nwarps) {
-    const long floats = (long)n_ls * nlayers * TW + (long)(nwarps / TEAM)
-        * team_floats(NL4, KP, round4(n_ls), 3 + n_r1, n_parts);
+    const long floats = (long)n_ls * nlayers * TW + (long)n_cia * TW
+        + (long)(nwarps / TEAM)
+        * team_floats((nlayers + 7) / 8, n_r1, n_parts);
     return floats * 4 > (1L << 30) ? (1 << 30) : (int)(floats * 4);
 }
 
 }  // namespace
 
-// Warps of a block for these operand sizes: the most, up to 16 and in
-// teams of 2, whose regions fit the shared memory beside the line-sample
-// slab; 0 if the shapes have no instantiation or not even one team fits.
+// Warps of a block for these operand sizes: the most, up to 16 (12 above
+// 56 layers) and in teams of 2, whose regions fit the shared memory
+// beside the line-sample slab and the CIA table tile; 0 if the shapes
+// have no instantiation or not even one team fits.
 extern "C" int pbt_transit_rt_warps(int nlayers, int n_r1, int n_cia,
                                     int n_ls, int n_parts) {
-    int NL4, KP;
-    if (pick_kernel(nlayers, n_cia, &NL4, &KP) == nullptr) return 0;
-    if (n_r1 > pbt::MAX_R1 || n_parts > pbt::MAX_PARTS) return 0;
-    for (int nwarps = MAX_WARPS; nwarps >= TEAM; nwarps -= TEAM)
-        if (smem_bytes(NL4, KP, nlayers, n_r1, n_ls, n_parts, nwarps)
+    if (pick_kernel(nlayers, n_cia) == nullptr || n_cia < 0 || n_r1 < 0
+            || n_r1 > pbt::MAX_R1 || n_ls < 0 || n_parts < 0
+            || n_parts > pbt::MAX_PARTS)
+        return 0;
+    for (int nwarps = k1_max_warps(nlayers <= 56 ? 7 : 8); nwarps >= TEAM;
+            nwarps -= TEAM)
+        if (smem_bytes(nlayers, n_r1, n_cia, n_ls, n_parts, nwarps)
                 <= pbt::SMEM_MAX)
             return nwarps;
     return 0;
 }
 
-// packed [B, packed_floats], cia_w [B, 4 nl4, KP], ls_w [B, 4 nl4, K2P]
-// and cols [B, ncols, 4 nl4] come laid out by the wrapper
-// (transit_kernel.py); nl4, packed_floats and ncols are checked against
-// this file's own layout.
+// packed [B, chord_floats(nt)] (the chord fragments), cia_w [B, 8 nt, KP],
+// ls_w [B, 8 nt, K2P] and cols [B, ncols, 8 nt] come laid out by the
+// wrapper (transit_kernel.py chord_layout, assembly_operands); nt,
+// packed_floats and ncols are checked against this file's own layout.
 extern "C" int pbt_transit_rt(
         const float* part0, const float* part1, const float* part2,
         const float* part3, int n_parts, const float* r1_rows, int n_r1,
         const float* cia_w, const float* cia_tab, int n_cia,
         const float* ls_w, const float* ls_tab, int n_ls,
         const float* packed, const float* cols, const float* scal,
-        float* out, int nchains, int nlayers, int nwave, int nl4,
+        float* out, int nchains, int nlayers, int nwave, int nt,
         int packed_floats, int ncols, float maxdepth, void* stream) {
-    if (n_parts < 0 || n_parts > pbt::MAX_PARTS)
-        return (int)cudaErrorInvalidValue;
     const int nwarps =
         pbt_transit_rt_warps(nlayers, n_r1, n_cia, n_ls, n_parts);
-    if (nwarps < 1) return (int)cudaErrorInvalidValue;
-    int NL4, KP;
-    Kernel kernel = pick_kernel(nlayers, n_cia, &NL4, &KP);
-    if (nl4 != NL4 || packed_floats != chunk_base(NL4, NL4)
-            || ncols != 3 + n_r1)
+    if (nwarps < 1 || nt != (nlayers + 7) / 8
+            || packed_floats != chord_floats(nt) || ncols != 3 + n_r1)
         return (int)cudaErrorInvalidValue;
+    Kernel kernel = pick_kernel(nlayers, n_cia);
     const int smem =
-        smem_bytes(NL4, KP, nlayers, n_r1, n_ls, n_parts, nwarps);
+        smem_bytes(nlayers, n_r1, n_cia, n_ls, n_parts, nwarps);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    // Two chains a team: the slab is staged once for the group.
+    // Two chains a team: the slab and the CIA table tile are staged once
+    // for the group.
     const int group = 2 * (nwarps / pbt::TEAM);
     Parts parts = {part0, part1, part2, part3, n_parts};
     dim3 grid((nwave + pbt::TW - 1) / pbt::TW, (nchains + group - 1) / group);
@@ -851,22 +1085,27 @@ extern "C" int pbt_transit_rt_tall_warps(int nlayers, int n_r1, int n_cia,
 }
 
 // Chains in flight on one SM for these operand sizes (blocks an SM, by
-// the runtime's occupancy rule, times teams a block); 0 if no block fits,
-// a negative CUDA error if the query fails.
-extern "C" int pbt_transit_rt_tall_chains_per_sm(
+// the runtime's occupancy rule, times teams a block) in the function the
+// wrapper takes at this layer count (the tall one above 64); 0 if no
+// block fits, a negative CUDA error if the query fails.
+extern "C" int pbt_transit_rt_chains_per_sm(
         int nlayers, int n_r1, int n_cia, int n_ls, int n_parts) {
-    const int nwarps = pbt_transit_rt_tall_warps(nlayers, n_r1, n_cia, n_ls,
-                                                 n_parts);
+    const bool tall = nlayers > 64;
+    const int nwarps = tall
+        ? pbt_transit_rt_tall_warps(nlayers, n_r1, n_cia, n_ls, n_parts)
+        : pbt_transit_rt_warps(nlayers, n_r1, n_cia, n_ls, n_parts);
     if (nwarps < 1) return 0;
-    const int smem = tall_smem_bytes(nlayers, n_r1, n_cia, n_ls, n_parts,
-                                     nwarps);
+    const int smem = tall
+        ? tall_smem_bytes(nlayers, n_r1, n_cia, n_ls, n_parts, nwarps)
+        : smem_bytes(nlayers, n_r1, n_cia, n_ls, n_parts, nwarps);
+    const void* fn = tall ? (const void*)transit_rt_tall_kernel
+                          : (const void*)pick_kernel(nlayers, n_cia);
     cudaError_t err = cudaFuncSetAttribute(
-        transit_rt_tall_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     int blocks = 0;
     if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, transit_rt_tall_kernel, 32 * nwarps, smem);
+            &blocks, fn, 32 * nwarps, smem);
     return err == cudaSuccess ? blocks * (nwarps / TEAM) : -(int)err;
 }
 

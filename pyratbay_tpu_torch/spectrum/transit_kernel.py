@@ -19,12 +19,14 @@ size rule, per RT path, by which the forwards pick between the two, and
 `fit_operands` the one that keeps the other operands within what the
 kernels take (C5 of ROADMAP.md).
 
-Up to 64 layers the kernel holds a table slab in shared memory.  Above
-64 layers the kernel launched is a second function of the same file
-(transit_rt_tall_kernel: the chord product of a pass of TALL_ROWS rows
-on the tensor cores, three TF32 products a step; the chord rows and the
-live line-sample table rows streamed through a ring in shared memory;
-`tall_layout` packs its chord matrix).
+Both functions of K1 run the chord product on the tensor cores, three
+TF32 products a step summed in float32.  Up to 64 layers the kernel
+holds a table slab in shared memory and every depth of its columns in
+registers (`chord_layout` packs its chord matrix).  Above 64 layers the
+kernel launched is a second function of the same file
+(transit_rt_tall_kernel: the depths of a pass of TALL_ROWS rows; the
+chord rows and the live line-sample table rows streamed through a ring
+in shared memory; `tall_layout` packs its chord matrix).
 
 `transit_spectrum_ensemble` hands one chain's raw operands to K2 (on
 the CPU its plain version, `transit_one_plain`); more chains it prepares
@@ -54,7 +56,7 @@ __all__ = [
     'transit_one_cuda', 'one_max_layers', 'one_staged_max_layers',
     'build_library', 'ls_in_kernel',
     'fit_operands', 'extinction_plain', 'assembly_operands', 'chord_layout',
-    'tall_layout', 'tall_max_layers', 'tall_chains_per_sm', 'MAX_PARTS',
+    'tall_layout', 'tall_max_layers', 'chains_per_sm', 'MAX_PARTS',
     'MAX_R1', 'MAX_CIA', 'MAX_LAYERS',
 ]
 
@@ -63,7 +65,7 @@ _CSRC = os.path.join(_PKG, 'csrc')
 _BUILD = os.path.join(_PKG, '_build')
 # What both RT kernels take (csrc/rt_common.cuh): dense parts, rank-1
 # terms, CIA table rows; and the layer count of the transit kernel's
-# register-held chord product (above it, the tall function).
+# chord product with the depths in registers (above it, the tall function).
 MAX_PARTS = 4
 MAX_R1 = 4
 MAX_CIA = 32
@@ -237,7 +239,7 @@ def _library():
     lib.pbt_transit_rt_tall.restype = cint
     for fn in (lib.pbt_transit_rt_warps, lib.pbt_emission_rt_warps,
                lib.pbt_transit_rt_tall_warps,
-               lib.pbt_transit_rt_tall_chains_per_sm):
+               lib.pbt_transit_rt_chains_per_sm):
         fn.argtypes = [cint] * 5
         fn.restype = cint
     lib.pbt_emission_rt_max_mu.argtypes = []
@@ -446,30 +448,33 @@ def assembly_operands(ec_parts, cia_w, cia_tab, r1_cols, r1_rows, ls_w,
 
 
 def chord_layout(nlayers):
-    """How the transit kernel holds a chain's chord matrix: (NL4, index)
-    with NL4 the layer count in chunks of 4, padded up to the kernel's
-    instantiations (32, 52 or 64 layers), and `index` the gather that
-    packs path2 [l * l] (plus one trailing zero) for it.  The packed row
-    of layer j holds path2[i, j] for the rows i from the first of j's
-    chunk to the padded last (the matrix is zero above its diagonal, so
-    the rows above add nothing)."""
+    """How the transit kernel holds a chain's chord matrix: (nt, index)
+    with nt = ceil(l / 8), the tiles of 8 rows and the steps of 8 layers
+    of its tensor-core chord product, and `index` the gather that packs
+    path2 [l * l] (plus one trailing zero) for it.  Each step s holds,
+    for each n-tile n >= s (the matrix is zero above its diagonal), the
+    64 floats of its mma.sync m16n8k8 B fragment: lane 4 g + t's pair
+    (path2[8 n + g, 8 s + t], path2[8 n + g, 8 s + t + 4]) at 2 (4 g +
+    t), zero past the last row or layer."""
     if not 2 <= nlayers <= MAX_LAYERS:
         raise ValueError(
-            f'The register-held chord product takes 2 to {MAX_LAYERS} '
-            f'layers, not {nlayers}')
-    nl4 = 8 if nlayers <= 32 else 13 if nlayers <= 52 else 16
-    index = []
-    for j in range(4 * nl4):
-        for i in range(4 * (j // 4), 4 * nl4):
-            index.append(i * nlayers + j if i < nlayers and j < nlayers
-                         else nlayers * nlayers)
-    return nl4, np.array(index)
+            f'The tensor-core chord product of the transit kernel takes 2 '
+            f'to {MAX_LAYERS} layers, not {nlayers}')
+    nt = -(-nlayers // 8)
+    g, t = np.arange(32)[:, None] // 4, np.arange(32)[:, None] % 4
+    pieces = []
+    for s in range(nt):
+        for n in range(s, nt):
+            i, j = 8 * n + g, 8 * s + np.hstack([t, t + 4])
+            pieces.append(np.where((i < nlayers) & (j < nlayers),
+                                   i * nlayers + j, nlayers * nlayers).ravel())
+    return nt, np.concatenate(pieces)
 
 
 @functools.lru_cache(maxsize=8)
 def _chord_index(nlayers, device):
-    nl4, index = chord_layout(nlayers)
-    return nl4, torch.as_tensor(index, device=device)
+    nt, index = chord_layout(nlayers)
+    return nt, torch.as_tensor(index, device=device)
 
 
 def transit_rt_cuda(ec_parts, path2, scal, rad, h, hprev,
@@ -477,20 +482,24 @@ def transit_rt_cuda(ec_parts, path2, scal, rad, h, hprev,
                     ls_w=None, ls_tab=None, maxdepth=np.inf):
     """Launch the CUDA kernel on prepared float32 CUDA operands (same
     signature and result as transit_rt_plain).  Each launch adds one
-    to `transit_rt_cuda.launches`, and one of the tall function (more
-    than MAX_LAYERS layers) also to `transit_rt_cuda.tall_launches`.
-    (The wrappers hand one chain to K2, transit_one_cuda.)"""
+    to `transit_rt_cuda.launches`; one of the tensor-core chord product
+    at up to MAX_LAYERS layers also to `transit_rt_cuda.mma_launches`,
+    one of the tall function (more layers) to
+    `transit_rt_cuda.tall_launches`.  (The wrappers hand one chain to
+    K2, transit_one_cuda.)"""
     nb, nlayers = rad.shape
     if nlayers > MAX_LAYERS:
         return _transit_rt_tall(ec_parts, path2, scal, rad, h, hprev, cia_w,
                                 cia_tab, r1_cols, r1_rows, ls_w, ls_tab,
                                 maxdepth)
-    nl4, index = _chord_index(nlayers, rad.device)
+    nt, index = _chord_index(nlayers, rad.device)
+    rows = 8 * nt
     keep, assembly, r1_cols, nwave, sizes = assembly_operands(
         ec_parts, cia_w, cia_tab, r1_cols, r1_rows, ls_w, ls_tab, nb,
-        nlayers, 4 * nl4)
-    # The chord matrix packed column by column, and the layer columns
-    # (radius, h, h_prev, rank-1 columns) as one [B, 3 + n_r1, rows] block:
+        nlayers, rows)
+    # The chord matrix packed as the fragments of its product, and the
+    # layer columns (radius, h, h_prev, rank-1 columns) as one
+    # [B, 3 + n_r1, rows] block:
     path2 = _checked(path2, 'path2', (nb, nlayers, nlayers))
     packed = F.pad(path2.reshape(nb, -1), (0, 1))[:, index]
     scal = _checked(scal, 'scal', (nb, 8))
@@ -498,7 +507,7 @@ def transit_rt_cuda(ec_parts, path2, scal, rad, h, hprev,
         (rad, 'radius'), (h, 'h'), (hprev, 'hprev'))]
     if r1_cols is not None:
         cols.append(r1_cols)
-    cols = _pad_to(torch.cat(cols, dim=1), 4 * nl4)
+    cols = _pad_to(torch.cat(cols, dim=1), rows)
     lib = _library()
     if lib.pbt_transit_rt_warps(nlayers, *sizes) < 1:
         raise ValueError(
@@ -508,13 +517,14 @@ def transit_rt_cuda(ec_parts, path2, scal, rad, h, hprev,
     out = torch.empty((nb, nwave), dtype=torch.float32, device=rad.device)
     err = lib.pbt_transit_rt(
         *assembly, packed.data_ptr(), cols.data_ptr(), scal.data_ptr(),
-        out.data_ptr(), nb, nlayers, nwave, nl4, packed.shape[1],
+        out.data_ptr(), nb, nlayers, nwave, nt, packed.shape[1],
         cols.shape[1], float(maxdepth),
         torch.cuda.current_stream(rad.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f'transit_rt kernel launch failed: CUDA error {err}')
     transit_rt_cuda.launches += 1
+    transit_rt_cuda.mma_launches += 1
     return out
 
 
@@ -555,11 +565,12 @@ def tall_max_layers(n_r1, n_cia, n_ls, n_parts):
     return top
 
 
-def tall_chains_per_sm(nlayers, n_r1, n_cia, n_ls, n_parts):
-    """Chains the tall function keeps in flight on one SM with these
-    operand counts (blocks an SM by the CUDA runtime's occupancy rule,
-    times the teams of two warps a block)."""
-    return _library().pbt_transit_rt_tall_chains_per_sm(
+def chains_per_sm(nlayers, n_r1, n_cia, n_ls, n_parts):
+    """Chains the transit kernel keeps in flight on one SM with these
+    operand counts, in the function it takes at this layer count (the
+    tall one above MAX_LAYERS): blocks an SM by the CUDA runtime's
+    occupancy rule, times the teams of two warps a block."""
+    return _library().pbt_transit_rt_chains_per_sm(
         nlayers, n_r1, n_cia, n_ls, n_parts)
 
 
@@ -613,6 +624,8 @@ def _transit_rt_tall(ec_parts, path2, scal, rad, h, hprev, cia_w, cia_tab,
 
 
 transit_rt_cuda.launches = 0
+# Launches of the tensor-core chord product at up to MAX_LAYERS layers:
+transit_rt_cuda.mma_launches = 0
 # Launches of the tall function (more than MAX_LAYERS layers):
 transit_rt_cuda.tall_launches = 0
 

@@ -194,35 +194,38 @@ def test_line_sample_size_rule():
     assert not tk.ls_in_kernel(10, 128, 'eclipse')
 
 
-@pytest.mark.parametrize('nlayers', [12, 32, 51, 64])
+@pytest.mark.parametrize('nlayers', range(2, 65))
 def test_chord_layout_reproduces_the_chord_product(nlayers):
-    """The packed chord matrix, read the way the kernel reads it (layer j
-    of chunk j // 4 adds packed[...] * ec[j] to the rows from 4 (j // 4)
-    on), gives path2 @ ec for a matrix that is zero above its diagonal;
-    the padded rows and layers hold zeros."""
+    """The packed chord matrix, read the way the kernel reads it (for
+    each step s of 8 layers and each n-tile n >= s of 8 rows, 64 floats:
+    lane 4 g + t's B fragment path2[8 n + g, 8 s + t], path2[8 n + g,
+    8 s + t + 4]), gives path2 @ ec for a matrix that is zero above its
+    diagonal; the padded rows and layers hold zeros."""
     rng = np.random.default_rng(nlayers)
     radius = np.sort(rng.uniform(1.0, 1.1, (1, nlayers)), axis=1)[:, ::-1]
     path = T(np.asarray(transit_path_matrix(radius[0].copy(), 1)))[None]
     path2 = tk.prep_chains(path, T(radius.copy()), 10.0, T(np.array([1])),
                            T(np.array([nlayers])))[0][0].numpy()
     assert np.all(np.triu(path2, 1) == 0)
-    nl4, index = tk.chord_layout(nlayers)
-    assert 4 * nl4 >= nlayers and nl4 in (8, 13, 16)
+    nt, index = tk.chord_layout(nlayers)
+    assert nt == -(-nlayers // 8)
     packed = np.append(path2.ravel(), 0.0)[index]
-    assert len(packed) == 16 * (nl4 * nl4 - nl4 * (nl4 - 1) // 2)
-    ec = rng.lognormal(0.0, 1.0, nlayers)
-    depth = np.zeros(4 * nl4)
-    offset = 0
-    for j in range(4 * nl4):
-        first = 4 * (j // 4)
-        row = packed[offset:offset + 4 * nl4 - first]
-        offset += len(row)
-        if j < nlayers:
-            depth[first:] += row * ec[j]
-        else:
-            assert np.all(row == 0)
-    assert offset == len(packed)
-    np.testing.assert_allclose(depth[:nlayers], path2 @ ec, rtol=1e-13)
+    assert len(packed) == 32 * nt * (nt + 1)
+    # Ones in the padded layers: their chord entries must be zero.
+    ec = np.append(rng.lognormal(0.0, 1.0, nlayers),
+                   np.ones(8 * nt - nlayers))
+    depth = np.zeros(8 * nt)
+    frags = packed.reshape(-1, 8, 4, 2)     # [pair, g, t, (t, t + 4)]
+    pair = 0
+    for s in range(nt):
+        for n in range(s, nt):
+            chord = np.concatenate(
+                [frags[pair, :, :, 0], frags[pair, :, :, 1]], axis=1)
+            depth[8 * n:8 * n + 8] += chord @ ec[8 * s:8 * s + 8]
+            pair += 1
+    assert pair == len(frags) == nt * (nt + 1) // 2
+    np.testing.assert_allclose(depth[:nlayers], path2 @ ec[:nlayers],
+                               rtol=1e-13)
     assert np.all(depth[nlayers:] == 0)
     with pytest.raises(ValueError, match='2 to 64 layers'):
         tk.chord_layout(65)
