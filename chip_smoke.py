@@ -123,8 +123,12 @@ chains, and timings (forward, the high-res stage, K3, DEMC).  Then the
 equilibrium phase (run_equilibrium): the transit flagship with
 thermochemical equilibrium, [M/H] and C/O retrieved, 512 chains x 20
 generations through the driver (K1 on every generation, the network
-solved in float64 for every chain), K1 and K3 against their plain
-versions on its operands, GPU against CPU float64 at B = 512 (VMRs,
+solved in float64 for every chain by one launch of the solve kernel,
+csrc/chem_gibbs.cu, on every forward), K1 and K3 against their plain
+versions on its operands, the solve kernel against the CPU float64
+solve on the B = 512 forward's operands (its `kernels` entry: launches
+by path, the bound of portbench/counts_chem.py, its largest
+difference), GPU against CPU float64 at B = 512 (VMRs,
 spectrum, log-posterior; the eclipse variant's forward through K3),
 Model.run and runmode = atmosphere with the network, and timings (the
 solve, the forward, the device's idle share, DEMC).  Then the radeq
@@ -230,6 +234,13 @@ EARLIER_TALL_MS = 4.057
 # launches), CUDA events around runs of 4 calls of the wrapper and
 # torch.profiler device ms, NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
 # section 6).
+# The thermochemical-equilibrium solve (one launch for every [chain,
+# layer] system; the plain version is equilibrium_vmr's torch steps,
+# float64 on the CPU), its Newton steps (120 damped and 32 averaged):
+CHEM = dict(
+    name='chem_gibbs', tol=1e-10, steps=152,
+    source='pyratbay_tpu_torch/csrc/chem_gibbs.cu',
+    replaces='pyratbay_tpu/atmosphere/chem.py equilibrium_vmr')
 ONE_CHAIN = dict(
     name='transit_one', tol=2e-5,
     source='pyratbay_tpu_torch/csrc/transit_one.cu',
@@ -3203,13 +3214,16 @@ def run_equilibrium(workdir, dev, args, card):
     rejected; GPU float32 against CPU float64 at B = 512 (VMRs,
     spectrum, log-posterior); the eclipse variant's forward at B = 512
     through K3, held the same way; Model.run of each and runmode =
-    atmosphere with the network against the CPU; timings (the solve,
-    the forward, the device's busy and idle time, DEMC).  Returns each
-    kernel's launches on this path (each run counted between zeroed
-    counters) and each kernel's largest difference from its plain
-    version."""
+    atmosphere with the network against the CPU; the solve kernel against
+    the plain float64 solve on the CPU on the B = 512 forward's operands;
+    timings (the solve, the forward, the device's busy and idle time,
+    DEMC).  Returns each kernel's launches on this path (each run counted
+    between zeroed counters), each kernel's largest difference from its
+    plain version, and the solve kernel's times and bound."""
     import torch
+    from portbench import counts_chem
     from pyratbay_tpu_torch import model as model_mod
+    from pyratbay_tpu_torch.atmosphere import chem
     from pyratbay_tpu_torch.benchmark import (
         equilibrium_flagship_cfg, make_flagship)
     from pyratbay_tpu_torch.driver import run
@@ -3233,8 +3247,10 @@ def run_equilibrium(workdir, dev, args, card):
     with open(cfgs['eclipse'], 'w') as f:
         f.write(text.replace('rt_path = transit', 'rt_path = eclipse'))
 
-    counters = (tk.transit_rt_cuda, tk.transit_one_cuda, ek.emission_rt_cuda)
-    launches = {'transit_rt': 0, ONE_CHAIN['name']: 0, 'emission_rt': 0}
+    counters = (tk.transit_rt_cuda, tk.transit_one_cuda, ek.emission_rt_cuda,
+                chem.equilibrium_cuda)
+    launches = {'transit_rt': 0, ONE_CHAIN['name']: 0, 'emission_rt': 0,
+                CHEM['name']: 0}
 
     def counted(fn):
         """fn() between zeroed launch counters; adds its launches to
@@ -3247,7 +3263,8 @@ def run_equilibrium(workdir, dev, args, card):
         torch.cuda.synchronize()
         got = {'transit_rt': tk.transit_rt_cuda.launches,
                ONE_CHAIN['name']: tk.transit_one_cuda.launches,
-               'emission_rt': ek.emission_rt_cuda.launches}
+               'emission_rt': ek.emission_rt_cuda.launches,
+               CHEM['name']: chem.equilibrium_cuda.launches}
         for key, value in got.items():
             launches[key] += value
         return out, got
@@ -3322,6 +3339,10 @@ def run_equilibrium(workdir, dev, args, card):
                 'k1_every_generation':
                     path_launches['transit_rt'] >= NGEN + 2,
                 'k2_at_b1': path_launches[ONE_CHAIN['name']] >= 1,
+                # A solve on every forward, K1's and K2's:
+                'solve_every_forward': path_launches[CHEM['name']]
+                >= path_launches['transit_rt']
+                + path_launches[ONE_CHAIN['name']],
             }
             emit('main_path_equilibrium', rt_path='transit', seconds=main_s,
                  nchains=NCHAINS, generations=NGEN,
@@ -3336,8 +3357,10 @@ def run_equilibrium(workdir, dev, args, card):
             _, path_launches = counted(lambda: forward_b(pb_t))
             emit('main_path_equilibrium', rt_path='eclipse', nchains=NCHAINS,
                  launches=path_launches)
-            if path_launches['emission_rt'] != 1:
-                fail(f'equilibrium eclipse: K3 launches {path_launches}')
+            if path_launches['emission_rt'] != 1 \
+                    or path_launches[CHEM['name']] != 1:
+                fail(f'equilibrium eclipse: K3 or solve launches '
+                     f'{path_launches}')
 
         # GPU float32 against CPU float64 at B = 512: the VMRs, the
         # spectrum and (transit) the log-posterior.
@@ -3421,7 +3444,8 @@ def run_equilibrium(workdir, dev, args, card):
                   'emission_rt': 0} if kind == 'transit' else {
                   'transit_rt': 0, ONE_CHAIN['name']: 0, 'emission_rt': 1}
         checks = {'on_the_card': smodel.device.type == 'cuda',
-                  'launches': run_launches == expect,
+                  'launches': {k: run_launches[k] for k in expect}
+                  == expect,
                   'gpu_vs_cpu': rel < FORWARD_TOL,
                   'finite': bool(np.all(np.isfinite(smodel.spectrum)))}
         emit('main_path_equilibrium_spectrum', rt_path=kind, seconds=run_s,
@@ -3479,8 +3503,47 @@ def run_equilibrium(workdir, dev, args, card):
             with torch.no_grad():
                 times['solve_ms'] = float(np.median(cuda_times(
                     solve, repeats=5)))
-                _, times['solve_device_ms'], times['solve_launches'] = \
-                    device_ms(solve, 'lu', reps=3)
+                times['solve_kernel_ms'], times['solve_device_ms'], \
+                    times['solve_launches'] = device_ms(
+                        solve, 'chem_gibbs_kernel', reps=3)
+            # The solve kernel against the plain float64 solve on the CPU,
+            # on this forward's operands (the chains' temperatures, [M/H]
+            # and C/O), rtol CHEM['tol'] on VMRs above 1e-30:
+            seen = []
+            card_fn = model._equil_fn
+            model._equil_fn = lambda *a: seen.append(
+                (a, card_fn(*a))) or seen[-1][1]
+            try:
+                with torch.no_grad():
+                    solve()
+            finally:
+                model._equil_fn = card_fn
+            (temp_c, metal_c, escale_c, ratios_c), got = seen[0]
+            host = lambda t: None if t is None else t.cpu()
+            want = chem.equilibrium_fn(model.chem_model, torch.device('cpu'))(
+                temp_c.cpu(), host(metal_c), host(escale_c),
+                [(i, j, v.cpu()) for i, j, v in ratios_c]).numpy()
+            got = got.cpu().numpy()
+            live = want > 1e-30
+            solve_rel = float(np.max(np.abs(got[live] - want[live])
+                                     / want[live]))
+            max_abs[CHEM['name']] = float(np.max(np.abs(got - want)))
+            ns, ncols = model.chem_model._stoich_full.shape
+            work = dict(chem_species=ns, chem_cols=ncols,
+                        chem_steps=CHEM['steps'],
+                        chem_table_temps=len(chem._T_GRID))
+            bound_ms, bound_by = counts_chem.bound_ms(
+                *counts_chem.solve_work(work, *temp_c.shape),
+                'fp64_flops_per_s', PEAK_BYTES)
+            solve_entry = dict(
+                ms=times['solve_kernel_ms'], bound_ms=bound_ms,
+                bound_by=bound_by, systems=int(temp_c.numel()),
+                species=ns, columns=ncols, max_rel_err=solve_rel,
+                tol=CHEM['tol'])
+            emit('solve_kernel_equilibrium', **solve_entry)
+            if not solve_rel <= CHEM['tol']:
+                fail(f'equilibrium solve kernel: {solve_rel} against the '
+                     f'CPU (tol {CHEM["tol"]})')
             log_post_b = build_log_posterior_batched(
                 rmodel, rmodel.obs, rmodel.ret)
             gens = 10
@@ -3499,10 +3562,11 @@ def run_equilibrium(workdir, dev, args, card):
                 gens / float(np.median(gen_times))
         emit('times_equilibrium', **times,
              times_note='solve_ms, forward_ms: CUDA events, medians of runs '
-                        'of 4 calls; solve_device_ms, solve_launches, '
+                        'of 4 calls; solve_kernel_ms (the solve kernel), '
+                        'solve_device_ms, solve_launches, '
                         'forward_launches, device_busy_ms: torch.profiler '
                         'of single calls')
-    return launches, max_abs
+    return launches, max_abs, solve_entry
 
 
 # ----------------------------------------------------------------------
@@ -5062,6 +5126,7 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    from pyratbay_tpu_torch.atmosphere import chem
     from pyratbay_tpu_torch.spectrum import transit_kernel as tk
 
     # Build the kernels from the sources in this checkout (one nvcc per
@@ -5178,7 +5243,8 @@ def main():
         path_dir = os.path.join(workdir, 'equilibrium')
         os.makedirs(path_dir)
         t0 = time.perf_counter()
-        eq_launches, eq_abs = run_equilibrium(path_dir, dev, args, card)
+        eq_launches, eq_abs, solve_entry = run_equilibrium(
+            path_dir, dev, args, card)
         emit('phase_seconds', name='equilibrium',
              seconds=time.perf_counter() - t0)
         for entry in kernels:
@@ -5189,11 +5255,21 @@ def main():
             entry['launches'] += more
             entry['max_abs_err'] = max(entry['max_abs_err'],
                                        eq_abs[entry['name']])
-        # Radiative equilibrium of a two-stream model (no kernel):
+        kernels.append(dict(
+            name=CHEM['name'], source=CHEM['source'],
+            replaces=CHEM['replaces'], launches=eq_launches[CHEM['name']],
+            launches_by_path={'equilibrium': eq_launches[CHEM['name']]},
+            max_abs_err=eq_abs[CHEM['name']], **solve_entry))
+        # Radiative equilibrium of a two-stream model (no kernel of its
+        # own; the solve kernel where the model has the network):
         path_dir = os.path.join(workdir, 'radeq')
         os.makedirs(path_dir)
         t0 = time.perf_counter()
+        chem.equilibrium_cuda.launches = 0
         run_radeq(path_dir, dev, args, card)
+        kernels[-1]['launches_by_path']['radeq'] = \
+            chem.equilibrium_cuda.launches
+        kernels[-1]['launches'] += chem.equilibrium_cuda.launches
         emit('phase_seconds', name='radeq', seconds=time.perf_counter() - t0)
         # Nested sampling (K1 at B = 400, at the walks' B = 25 and at
         # B = 1) and a retrieval of a TLI model (K4 and K5 on every

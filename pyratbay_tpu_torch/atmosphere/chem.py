@@ -23,11 +23,20 @@ to [ln_ntot - 70, ln_ntot + 2].
   float64 costs little on the card, and it avoids the float32 rattle
   near convergence that the averaged tail exists to damp (the tail is
   kept, for parity).
-* The linear solve is torch.linalg.solve_ex on the scaled systems: the
-  reference writes its own Gauss-Jordan only because the TPU's LU has no
-  float64.  solve_ex checks nothing on the host, and no step reads a
-  device value on the host, so the 152 steps issue no synchronisation.
+* On the CPU the linear solve is torch.linalg.solve_ex on the scaled
+  systems: the reference writes its own Gauss-Jordan only because the
+  TPU's LU has no float64.
+* On the card the whole solve is one launch of csrc/chem_gibbs.cu
+  (equilibrium_cuda), for equilibrium_vmr on CUDA tensors and for
+  equilibrium_fn on a CUDA device, where the kernel also makes G/RT and
+  the element budget from the temperatures and the chains' parameters.
+  It takes networks of up to CHEM_MAX_SPECIES species and CHEM_MAX_COLS
+  element columns (elements and the charge column) and raises ValueError
+  above them; no CUDA tensor falls back to the torch steps.  Neither path
+  reads a device value on the host.
 """
+import ctypes
+import functools
 import os
 import re
 
@@ -38,6 +47,8 @@ __all__ = [
     'Network', 'chemistry', 'ELEMENT_MASS', 'SOLAR_ABUNDANCES',
     'has_thermo', 'supported_species', 'read_solar_file',
     'equilibrium_fn', 'hybrid_max_vmr', 'equilibrium_vmr',
+    'equilibrium_cuda', 'check_kernel_size', 'CHEM_MAX_SPECIES',
+    'CHEM_MAX_COLS', 'CHEM_MAX_RATIOS',
     'thermo_properties', 'gibbs_over_rt', 'parse_formula',
     'species_mass',
 ]
@@ -654,6 +665,7 @@ def equilibrium_vmr(g0, lnp, b, stoich, n_iter=120):
     [..., ne] element (and charge) moles; stoich [ns, ne]; n_iter
     damped Newton steps before the 32 averaged ones.  All are
     taken to float64 on g0's device.  Returns vmr [..., ns], float64.
+    On a CUDA device the solve is one launch (equilibrium_cuda).
     """
     f64 = torch.float64
     dev = g0.device
@@ -662,6 +674,12 @@ def equilibrium_vmr(g0, lnp, b, stoich, n_iter=120):
     b = torch.as_tensor(b, device=dev).to(f64)
     stoich = torch.as_tensor(stoich, device=dev).to(f64)
     ns, ne = stoich.shape
+    if g0.is_cuda:
+        lead = g0.shape[:-1]
+        vmr = equilibrium_cuda(
+            stoich, lnp.expand(lead).reshape(-1), n_iter=n_iter,
+            g0=g0.reshape(-1, ns), b=b.expand(*lead, ne).reshape(-1, ne))
+        return vmr.reshape(g0.shape)
     btot = torch.sum(torch.abs(b), dim=-1) + 1e-30
     mu0 = g0 + lnp[..., None]
     eye = torch.eye(ne + 1, dtype=f64, device=dev)
@@ -679,6 +697,120 @@ def equilibrium_vmr(g0, lnp, b, stoich, n_iter=120):
         acc = acc + ln_n
     n = torch.exp(acc / _N_AVG)
     return n / torch.sum(n, dim=-1, keepdim=True)
+
+
+# The largest network the solve kernel takes (csrc/chem_gibbs.cu): species,
+# element columns (the elements and the charge column), element ratios.
+CHEM_MAX_SPECIES = 24
+CHEM_MAX_COLS = 15
+CHEM_MAX_RATIOS = 4
+
+
+def check_kernel_size(ns, ncols, nratios=0):
+    """Raise ValueError unless the solve kernel takes a network of `ns`
+    species and `ncols` element columns, and `nratios` element ratios."""
+    if ns > CHEM_MAX_SPECIES or ncols > CHEM_MAX_COLS:
+        raise ValueError(
+            f'The equilibrium kernel takes at most CHEM_MAX_SPECIES = '
+            f'{CHEM_MAX_SPECIES} species and CHEM_MAX_COLS = '
+            f'{CHEM_MAX_COLS} element columns; this network has {ns} and '
+            f'{ncols}')
+    if nratios > CHEM_MAX_RATIOS:
+        raise ValueError(
+            f'The equilibrium kernel takes at most CHEM_MAX_RATIOS = '
+            f'{CHEM_MAX_RATIOS} element ratios, not {nratios}')
+
+
+@functools.lru_cache(maxsize=1)
+def _kernel_library():
+    from ..spectrum.transit_kernel import _library
+    lib = _library()
+    ptr, cint, cdouble = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.pbt_chem_gibbs.argtypes = (
+        [cint] * 6 + [ptr] * 5 + [cint] + [ptr, cint, cdouble, cdouble]
+        + [ptr] * 4 + [cint, ptr, ptr, ptr] + [cint, ptr, ptr])
+    lib.pbt_chem_gibbs.restype = cint
+    return lib
+
+
+def _f64(t, shape, name, device):
+    """t as the kernel reads it: a contiguous float64 tensor of `shape` on
+    `device`."""
+    t = t.to(torch.float64).contiguous()
+    if tuple(t.shape) != tuple(shape) or t.device != device:
+        raise ValueError(f'{name}: {tuple(t.shape)} on {t.device}, '
+                         f'expected {shape} on {device}')
+    return t
+
+
+def equilibrium_cuda(stoich, lnp, n_iter=120, g0=None, b=None, temp=None,
+                     table=None, budget=None):
+    """The equilibrium solve of every system in one launch of the kernel
+    (csrc/chem_gibbs.cu), float64, on stoich's CUDA device; the same
+    arithmetic as equilibrium_vmr's torch steps.  Returns vmr [S, ns].
+
+    Either g0 [S, ns], lnp [S] and b [S, ncols] given per system, or
+    temp [B, l] (float32 or float64) with lnp [l], table = (g_table [nT,
+    ns], t0, dt) (G/RT lerped at the temperature clamped to the grid) and
+    budget = (solar_dex [ne], is_metal [ne], metallicity [B] or None,
+    escale [B, ne] or None, ratios ((i_num, i_den, value [B]), ...)), as
+    equilibrium_fn builds the element moles.  Each launch adds one to
+    `equilibrium_cuda.launches`."""
+    if not stoich.is_cuda:
+        raise TypeError('equilibrium_cuda: expected CUDA tensors')
+    dev = stoich.device
+    stoich = _f64(stoich, stoich.shape, 'stoich', dev)
+    ns, ncols = stoich.shape
+    g_table = solar = metal = metallicity = escale = None
+    ne, nlayers, temp_f32, ntemp, t0, dt, ratios = ncols, 1, 0, 2, 0.0, 1.0, []
+    if temp is None:
+        nsys = g0.shape[0]
+        g0 = _f64(g0, (nsys, ns), 'g0', dev)
+        b = _f64(b, (nsys, ncols), 'b', dev)
+        lnp = _f64(lnp, (nsys,), 'lnp', dev)
+    else:
+        nb, nlayers = temp.shape
+        nsys = nb * nlayers
+        if temp.dtype != torch.float32:
+            temp = _f64(temp, (nb, nlayers), 'temp', dev)
+        temp = temp.contiguous()
+        temp_f32 = int(temp.dtype == torch.float32)
+        g_table, t0, dt = table
+        solar, metal, metallicity, escale, ratios = budget
+        ne = solar.shape[0]
+        g_table = _f64(g_table, (g_table.shape[0], ns), 'g_table', dev)
+        ntemp = g_table.shape[0]
+        solar = _f64(solar, (ne,), 'solar_dex', dev)
+        metal = _f64(metal, (ne,), 'is_metal', dev)
+        lnp = _f64(lnp, (nlayers,), 'lnp', dev)
+        if metallicity is not None:
+            metallicity = _f64(metallicity, (nb,), 'metallicity', dev)
+        if escale is not None:
+            escale = _f64(escale, (nb, ne), 'escale', dev)
+        ratios = [(int(i), int(j), _f64(v, (nb,), 'ratio', dev))
+                  for i, j, v in ratios]
+    check_kernel_size(ns, ncols, len(ratios))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    nums = (ctypes.c_int * CHEM_MAX_RATIOS)(*[r[0] for r in ratios])
+    dens = (ctypes.c_int * CHEM_MAX_RATIOS)(*[r[1] for r in ratios])
+    vals = (ctypes.c_void_p * CHEM_MAX_RATIOS)(
+        *[r[2].data_ptr() for r in ratios])
+    vmr = torch.empty((nsys, ns), dtype=torch.float64, device=dev)
+    err = _kernel_library().pbt_chem_gibbs(
+        int(temp is not None), nsys, nlayers, ns, ncols, ne, ptr(stoich),
+        ptr(g0), ptr(b), ptr(lnp), ptr(temp), temp_f32, ptr(g_table),
+        ntemp, float(t0), float(dt), ptr(solar), ptr(metal),
+        ptr(metallicity), ptr(escale), len(ratios), nums, dens, vals,
+        int(n_iter), vmr.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f'equilibrium kernel launch failed: CUDA error {err}')
+    equilibrium_cuda.launches += 1
+    return vmr
+
+
+equilibrium_cuda.launches = 0
 
 
 class Network:
@@ -859,6 +991,9 @@ def equilibrium_fn(network, device):
     budget of each chain is dex = solar + is_metal * [M/H] + escale,
     b = 10^(dex - 12), with a charge column b = 0 when ions are present;
     G/RT is the lerp of the network's table at the clipped temperature.
+    On a CUDA device fn is one launch of the solve kernel
+    (equilibrium_cuda), which makes G/RT and b itself; a network above
+    the kernel's sizes raises ValueError here.
     """
     f64 = torch.float64
     tensor = lambda a: torch.as_tensor(
@@ -872,6 +1007,17 @@ def equilibrium_fn(network, device):
     t0 = float(_T_GRID[0])
     dt = float(_T_GRID[1] - _T_GRID[0])
     ntg = len(_T_GRID)
+    if stoich.is_cuda:
+        check_kernel_size(*stoich.shape)
+        table = (g_table.contiguous(), t0, dt)
+
+        def fn_cuda(temp, metallicity=None, escale=None, ratios=()):
+            vmr = equilibrium_cuda(
+                stoich, lnp, temp=temp, table=table, budget=(
+                    solar_dex, is_metal, metallicity, escale, ratios))
+            return vmr.reshape(*temp.shape, stoich.shape[0])
+
+        return fn_cuda
 
     def fn(temp, metallicity=None, escale=None, ratios=()):
         temp = temp.to(f64)

@@ -2,9 +2,14 @@
 
 Temperature models are factories: `guillot_tp(press)` returns a
 function params [..., npars] -> T [..., nlayers] over the static
-pressure grid; leading dimensions are retrieval chains.
+pressure grid; leading dimensions are retrieval chains.  On a CUDA
+tensor the Guillot profile is one launch of csrc/guillot_tp.cu
+(guillot_cuda).
 Port of pyratbay_tpu/atmosphere/profiles.py.
 """
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
@@ -13,7 +18,8 @@ from ..ops.special import e2
 
 __all__ = [
     'pressure', 'isothermal_tp', 'guillot_tp', 'madhu_tp',
-    'gaussian_filter1d', 'get_tmodel', 'TMODEL_NPARS', 'TMODEL_PNAMES',
+    'gaussian_filter1d', 'get_tmodel', 'guillot_cuda', 'TMODEL_NPARS',
+    'TMODEL_PNAMES',
 ]
 
 TMODEL_NPARS = {'isothermal': 1, 'guillot': 6, 'madhu': 6}
@@ -76,13 +82,61 @@ def _constant(values):
     return on
 
 
+@functools.lru_cache(maxsize=1)
+def _kernel_library():
+    from ..spectrum.transit_kernel import _library
+    lib = _library()
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    lib.pbt_guillot_tp.argtypes = (
+        [cint] * 3 + [ptr, ctypes.c_longlong, ptr, ptr, ptr])
+    lib.pbt_guillot_tp.restype = cint
+    return lib
+
+
+def guillot_cuda(params, pb):
+    """The Guillot profile of params [..., 6] (or more columns, the first
+    six read) over the scaled pressures pb [l] in one launch of the kernel
+    (csrc/guillot_tp.cu): float64 arithmetic, the result in params' dtype
+    (float32 or float64, pb's too), T [..., l].  Each launch adds one to
+    `guillot_cuda.launches`."""
+    if not params.is_cuda:
+        raise TypeError('guillot_cuda: expected CUDA tensors')
+    if params.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'guillot_cuda: float32 or float64, not '
+                        f'{params.dtype}')
+    if params.shape[-1] < 6:
+        raise ValueError(f'guillot_cuda: 6 parameters a row, not '
+                         f'{params.shape[-1]}')
+    lead = params.shape[:-1]
+    rows = params.reshape(-1, params.shape[-1])
+    if rows.stride(-1) != 1:
+        rows = rows.contiguous()
+    pb = pb.to(device=params.device, dtype=params.dtype).contiguous()
+    nrows, nlayers = rows.shape[0], pb.shape[0]
+    temp = torch.empty((nrows, nlayers), dtype=params.dtype,
+                       device=params.device)
+    err = _kernel_library().pbt_guillot_tp(
+        int(params.dtype == torch.float64), nrows, nlayers, rows.data_ptr(),
+        rows.stride(0) if nrows > 1 else rows.shape[1], pb.data_ptr(),
+        temp.data_ptr(), torch.cuda.current_stream(params.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f'Guillot profile kernel launch failed: CUDA error {err}')
+    guillot_cuda.launches += 1
+    return temp.reshape(*lead, nlayers)
+
+
+guillot_cuda.launches = 0
+
+
 def guillot_tp(press, gravity=None):
     """Guillot (2010) / Line (2013) profile model.
 
     params = [log10(kappa'), log10(gamma1), log10(gamma2), alpha,
               T_irr, T_int];  press in bar (numpy). The optical depth is
     kappa' p / g: gravity (cm s-2), a scalar or one value a layer, is
-    broadcast over the pressure grid; None means ones.
+    broadcast over the pressure grid; None means ones.  On a CUDA tensor
+    the profile is one launch (guillot_cuda).
     """
     press_barye = np.asarray(press) * pc.bar
     if gravity is not None:
@@ -92,6 +146,8 @@ def guillot_tp(press, gravity=None):
 
     def temp_fn(params):
         pb = press_barye(params)
+        if params.is_cuda:
+            return guillot_cuda(params, pb)
         col = lambda i: params[..., i:i + 1]
         kappa = 10.0 ** col(0)
         gamma1 = 10.0 ** col(1)

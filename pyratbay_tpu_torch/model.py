@@ -775,7 +775,8 @@ class Model:
         """The network's equilibrium at temp [B, l] with each chain's
         [M/H], [X/H] and X/Y parameters, then the hybrid log_X values
         capped by their elements' availability; solved in float64
-        (atmosphere/chem.py) and cast to the model's dtype."""
+        (atmosphere/chem.py; on the card one kernel launch, the span
+        pbt.state.chem) and cast to the model's dtype."""
         nb = temp.shape[0]
         metallicity = escale = None
         ratios, hybrids = [], []
@@ -796,7 +797,9 @@ class Model:
                 ratios.append((info[0], info[1], val))
             elif kind == 'hybrid':
                 hybrids.append((*info, val))
-        vmr = self._equil_fn(temp, metallicity, escale, ratios)
+        with tracing.span('pbt.state.chem'):
+            tracing.count('pbt.chem.systems', temp.shape[0] * temp.shape[1])
+            vmr = self._equil_fn(temp, metallicity, escale, ratios)
         for imol, stoich_cols, mol_stoich, val in hybrids:
             cap = chem.hybrid_max_vmr(vmr, stoich_cols, mol_stoich)
             vmr = vmr.clone()

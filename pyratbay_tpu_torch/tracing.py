@@ -48,6 +48,11 @@ Spans (all `pbt.*`; each line: the module, the spans):
   pbt.forward.opacity (the assembly, and fit_operands before each RT
   launch), pbt.forward.rt (the K1 or K3 launch and its preparation) and
   pbt.forward.bands (the band integration and the high-res stage);
+* model.py Model._equilibrium_vmr: pbt.state.chem (inside
+  pbt.state.vmr), the equilibrium solve of a batched forward (on the card
+  one launch of csrc/chem_gibbs.cu), read by portbench's
+  chem_device_ms.eq (its device marks) and chem_launches_per_forward.eq
+  (the device launches inside it, from the profiler's trace);
 * parallel/sharded.py: pbt.mesh.all_sum, each collective of a Mesh;
 * model.py Model.run: pbt.run.atmosphere, pbt.run.extinction and
   pbt.run.spectrum, from whose device marks (host times on the CPU)
@@ -61,6 +66,8 @@ Counters:
   synchronizes (synchronize), and a gloo collective of CUDA tensors;
 * pbt.demc.generations: the generations of a pbt.demc.chunk;
 * pbt.forward.calls: one for each pbt.forward;
+* pbt.chem.systems: the [chain, layer] systems a pbt.state.chem solves
+  (portbench's chem_launches_per_forward.eq counts its spans by it);
 * pbt.mesh.calls and pbt.mesh.host_syncs: Mesh.calls and
   Mesh.host_syncs, counted into the span that makes the collective.
 

@@ -58,6 +58,19 @@ def test_guillot_batched():
     np.testing.assert_array_equal(iso.numpy()[:, 0], [1200.0, 900.0])
 
 
+def test_guillot_on_the_cpu_is_the_plain_profile():
+    """On a CPU tensor the profile is the plain torch version (the kernel,
+    profiles.guillot_cuda, is the card's and refuses a CPU tensor)."""
+    press = np.logspace(-6, 2, 11)
+    fn = profiles.guillot_tp(press)
+    launches = profiles.guillot_cuda.launches
+    pars = T([[-4.67, -0.8, -0.8, 0.5, 1486.0, 100.0]])
+    assert fn(pars).shape == (1, 11)
+    assert profiles.guillot_cuda.launches == launches
+    with pytest.raises(TypeError, match='CUDA'):
+        profiles.guillot_cuda(pars, T(press))
+
+
 def test_free_vmr_with_bulk_balance():
     nlayers = 11
     base = jvmr.uniform_vmr(

@@ -454,3 +454,42 @@ def test_post_processing_with_the_network(tmp_path, eq_flagship,
     np.testing.assert_allclose(temp, median_temp, atol=5e-4)
     want = np.asarray(jmodel.eval_vmr(temp=median_temp))
     assert_vmr_close(vmr, want, rtol=2e-6)
+
+
+# ----------------------------------------------------------------------
+# The solve kernel's size limit and the solve's span, on the CPU
+
+@pytest.mark.parametrize('sizes', [(25, 6, 0), (9, 16, 0), (9, 6, 5)],
+                         ids=['species', 'columns', 'ratios'])
+def test_kernel_size_limit_names_itself(sizes):
+    """Above CHEM_MAX_SPECIES species, CHEM_MAX_COLS element columns or
+    CHEM_MAX_RATIOS ratios the card's solve raises ValueError naming the
+    limit (checked before any launch); at the limits it passes."""
+    with pytest.raises(ValueError, match='CHEM_MAX_'):
+        chem.check_kernel_size(*sizes)
+    chem.check_kernel_size(chem.CHEM_MAX_SPECIES, chem.CHEM_MAX_COLS,
+                           chem.CHEM_MAX_RATIOS)
+    # Every network the tests build fits:
+    assert 20 <= chem.CHEM_MAX_SPECIES and 11 <= chem.CHEM_MAX_COLS
+
+
+def test_the_solve_records_its_span_and_systems(chem_models):
+    """While torch.profiler records, a batched VMR evaluation with the
+    network records pbt.state.chem inside the span open around it, with
+    pbt.chem.systems = chains x layers; off, nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyratbay_tpu_torch import tracing
+    (_, model), _ = chem_models
+    nb = 3
+    temp = torch.full((nb, model.nlayers), 1400.0, dtype=torch.float64)
+    pars = [torch.zeros((nb, 1), dtype=torch.float64)]     # [M/H]
+    rec = tracing.RECORDER
+    n0 = len(rec.spans)
+    model.eval_vmr_batched(pars, temp)
+    assert len(rec.spans) == n0
+    with profile(activities=[ProfilerActivity.CPU]):
+        with tracing.span('pbt.state.vmr'):
+            model.eval_vmr_batched(pars, temp)
+    solve, = [s for s in rec.spans[n0:] if s.name == 'pbt.state.chem']
+    assert solve.parent.name == 'pbt.state.vmr'
+    assert solve.counts == {'pbt.chem.systems': nb * model.nlayers}

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (transit and emission RT, the one-chain
-transit kernel, and the line-by-line wing and core passes) against their
-plain PyTorch versions, on a GPU.
+transit kernel, the line-by-line wing and core passes, the equilibrium
+solve and the Guillot profile) against their plain PyTorch versions, on a
+GPU.
 
 This file imports neither JAX nor pyratbay_tpu, so that it also runs on
 a machine without them, where tests/conftest.py (which imports JAX)
@@ -1330,8 +1331,9 @@ def test_cuda_interp_sed_at_the_grid_ends(cuda):
 
 
 # ----------------------------------------------------------------------
-# Equilibrium chemistry and two-stream emission (no kernel of their own:
-# the float64 solve and the two-stream recurrences on the card)
+# Equilibrium chemistry (the float64 solve, one launch of
+# csrc/chem_gibbs.cu) and two-stream emission (no kernel of its own: the
+# two-stream recurrences on the card)
 
 def _network(nlayers=51):
     from pyratbay_tpu_torch.atmosphere import chem
@@ -1419,6 +1421,152 @@ def test_cuda_equilibrium_solve_syncs_nothing(cuda):
     calls, syncs = synchronising_calls(lambda: fn(*args))
     assert any('LaunchKernel' in name for name in calls), sorted(calls)
     assert syncs == baseline, (syncs, baseline)
+
+
+# tests/test_chem.py's networks (tests/test_torch_chem.py _NETWORKS): the
+# largest (20 species, 10 elements), ions with a charge column, and the
+# rest.
+_CHEM_NETWORKS = {
+    'pcl_metals': (
+        'H2 He H H2O CH4 CO PH3 PO P P2 HCl Cl NaCl KCl Na K Mg MgH Fe FeH',
+        np.full(4, 1.0), np.array([500.0, 500.0, 2500.0, 2500.0]),
+        'asplund_2021'),
+    'cno': ('H2O CH4 CO CO2 NH3 HCN N2 H2 H He', np.logspace(-8, 3, 16),
+            np.linspace(900.0, 2400.0, 16), 'asplund_2009'),
+    'saha_ions': ('H2 He H Na Na+ K K+ e-', np.full(3, 1e-3),
+                  np.array([2000.0, 2500.0, 3000.0]), 'asplund_2009'),
+    'hydrides': ('H2 H He Fe FeH Ca CaH Cr CrH', np.logspace(-4, 1, 12),
+                 np.full(12, 2000.0), 'asplund_2021'),
+    'flagship_species': ('H2 He H H2O CH4 CO CO2 Na K',
+                         np.logspace(-8, 2, 24),
+                         np.linspace(400.0, 3500.0, 24), 'asplund_2021'),
+}
+
+
+def _assert_vmr_close(got, want, rtol=1e-10):
+    live = want > 1e-30
+    np.testing.assert_allclose(got[live], want[live], rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_equilibrium_kernel_flagship_corners(cuda):
+    """The solve kernel (one launch) against the plain float64 solve on
+    the CPU, rtol 1e-10 on VMRs above 1e-30: the flagship network at
+    B = 512 x 51 layers, temperatures drawn over 300-3000 K with eight
+    chains on the ramps 300 -> 3000 K and back, [M/H] and C/O at the four
+    corners of their priors ([-1, 2], [0.1, 1.5]) on those and drawn
+    inside them on the rest; temperatures in float32 (the forward's) and
+    float64."""
+    from pyratbay_tpu_torch.atmosphere import chem
+    chem_, net = _network()
+    rng = np.random.default_rng(11)
+    nb, nlayers = 512, len(net.pressure)
+    temps = rng.uniform(300.0, 3000.0, (nb, nlayers))
+    ramp = np.linspace(300.0, 3000.0, nlayers)
+    metal = rng.uniform(-1.0, 2.0, nb)
+    ratio = rng.uniform(0.1, 1.5, nb)
+    for k, (m, c) in enumerate([(-1.0, 0.1), (-1.0, 1.5), (2.0, 0.1),
+                                (2.0, 1.5)]):
+        temps[2 * k], temps[2 * k + 1] = ramp, ramp[::-1]
+        metal[2 * k:2 * k + 2], ratio[2 * k:2 * k + 2] = m, c
+    ic = list(net.elements).index('C')
+    io = list(net.elements).index('O')
+    for dtype in (torch.float32, torch.float64):
+        t = torch.as_tensor(temps).to(dtype)
+        out = {}
+        for dev in (cuda, torch.device('cpu')):
+            on = lambda a: torch.as_tensor(a, device=dev)
+            out[dev.type] = chem.equilibrium_fn(net, dev)(
+                t.to(dev), on(metal), None,
+                ((ic, io, on(ratio)),)).cpu().numpy()
+        _assert_vmr_close(out['cuda'], out['cpu'])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', list(_CHEM_NETWORKS))
+def test_cuda_equilibrium_kernel_networks(cuda, name):
+    """The kernel on tests/test_chem.py's networks, ions included, both
+    ways in: equilibrium_vmr on CUDA tensors (G/RT, ln p and b given per
+    layer, with the overrides of tests/test_torch_chem.py) and
+    equilibrium_fn on 8 chains with [M/H] and per-element dex offsets;
+    rtol 1e-10 against the CPU."""
+    from pyratbay_tpu_torch.atmosphere import chem
+    species, press, temp, source = _CHEM_NETWORKS[name]
+    net = chem.Network(press, temp, species.split(), e_source=source)
+    b = net._element_b(0.7, {'He': 10.9}, {'H': 0.0}, {'C_O': 0.8})
+    args = (net.gibbs_at(temp), np.log(press),
+            np.broadcast_to(b, (len(press), len(b))).copy(),
+            net._stoich_full)
+    got, want = (chem.equilibrium_vmr(
+        *[torch.as_tensor(a, device=dev) for a in args]).cpu().numpy()
+        for dev in (cuda, torch.device('cpu')))
+    _assert_vmr_close(got, want)
+    rng = np.random.default_rng(3)
+    nb = 8
+    temps = temp[None] + rng.uniform(-300.0, 300.0, (nb, len(temp)))
+    metal = rng.uniform(-1.0, 2.0, nb)
+    escale = rng.uniform(-0.5, 0.5, (nb, len(net.elements)))
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        on = lambda a: torch.as_tensor(a, device=dev)
+        out[dev.type] = chem.equilibrium_fn(net, dev)(
+            on(temps), on(metal), on(escale)).cpu().numpy()
+    _assert_vmr_close(out['cuda'], out['cpu'])
+
+
+@pytest.mark.cuda
+def test_cuda_equilibrium_solve_is_one_launch(cuda):
+    """One solve of 512 chains x 51 layers, as a batched forward calls it
+    (float32 temperatures, float64 [M/H] and C/O), is one launch, the
+    solve kernel, by torch.profiler: one kernel launch and no copy or set
+    among the host's runtime calls, and, where the profile recorded the
+    device's work (late in a long process it may record none), that
+    launch the solve kernel's; the wrapper counts the call once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pyratbay_tpu_torch.atmosphere import chem
+    chem_, net = _network()
+    temps, metal, ratio, ic, io = _chains(net, 512, seed=9)
+    fn = chem.equilibrium_fn(net, cuda)
+    args = (torch.as_tensor(temps, dtype=torch.float32, device=cuda),
+            torch.as_tensor(metal, device=cuda), None,
+            ((ic, io, torch.as_tensor(ratio, device=cuda)),))
+    fn(*args)
+    torch.cuda.synchronize()
+    launches = chem.equilibrium_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    assert chem.equilibrium_cuda.launches == launches + 1
+    events = prof.key_averages()
+    host = {e.key: e.count for e in events if e.device_type == DeviceType.CPU}
+    assert sum(n for k, n in host.items() if 'LaunchKernel' in k) == 1, host
+    assert not any('Memcpy' in k or 'Memset' in k for k in host), host
+    device = [e for e in events if e.device_type != DeviceType.CPU]
+    if device:
+        assert sum(e.count for e in device) == 1, [e.key for e in device]
+        assert 'chem_gibbs_kernel' in device[0].key
+
+
+@pytest.mark.cuda
+def test_cuda_equilibrium_kernel_size_limit(cuda):
+    """A network above the kernel's sizes (every supported species: 72
+    species, 21 element columns) raises ValueError naming the limit on
+    the card; the CPU path takes it."""
+    from pyratbay_tpu_torch.atmosphere import chem
+    net = chem.Network(np.ones(2), np.full(2, 1500.0),
+                       chem.supported_species())
+    with pytest.raises(ValueError, match='CHEM_MAX_SPECIES'):
+        chem.equilibrium_fn(net, cuda)
+    g0 = torch.as_tensor(net.gibbs_at(net.temperature), device=cuda)
+    with pytest.raises(ValueError, match='CHEM_MAX_SPECIES'):
+        chem.equilibrium_vmr(g0, torch.zeros(2, device=cuda),
+                             torch.as_tensor(net._element_b(0, {}, {}, {}),
+                                             device=cuda),
+                             torch.as_tensor(net._stoich_full, device=cuda))
+    assert chem.equilibrium_fn(net, 'cpu')(
+        torch.full((1, 2), 1500.0, dtype=torch.float64)).shape == (1, 2, 72)
 
 
 @pytest.mark.cuda
@@ -1661,3 +1809,97 @@ def test_cuda_two_ranks_share_the_card(cuda):
     line = json.loads(proc.stdout.strip().splitlines()[-1])
     assert line['backend'] == 'gloo' and line['device'].startswith('cuda')
     assert line['mesh'] == [1, 2] and line['sec_per_generation'] > 0
+
+
+# The Guillot temperature profile in one launch (csrc/guillot_tp.cu),
+# float64 arithmetic whatever the dtype: against the plain float64 version
+# on the CPU to 1e-12 in float64, and in float32 within one float32 ulp
+# (its one rounding).
+
+def _guillot_params(n, seed):
+    """n rows inside and at the ends of the flagship's priors and beyond
+    (tau = kappa' pb from ~1e-12 to ~1e5, both E_1 branches; alpha 0 and
+    1; T_int 0), each row's six values followed by two columns that the
+    profile does not read."""
+    rng = np.random.default_rng(seed)
+    params = np.column_stack([
+        rng.uniform(-7.0, 0.0, n), rng.uniform(-3.0, 1.5, n),
+        rng.uniform(-3.0, 1.5, n), rng.uniform(0.0, 1.0, n),
+        rng.uniform(300.0, 3000.0, n), rng.uniform(0.0, 300.0, n),
+        rng.normal(size=(n, 2))])
+    params[:4, 3] = [0.0, 1.0, 0.0, 1.0]
+    params[4:6, 5] = 0.0
+    return params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float64', 'float32'])
+@pytest.mark.parametrize('gravity', ['none', 'layers'])
+def test_cuda_guillot_kernel_matches_plain(cuda, dtype, gravity):
+    """The profile of 512 chains x 51 layers, the parameters a column
+    slice of a wider tensor (as a retrieval's chains hold them), equals
+    the plain float64 profile on the CPU; a single row [6] and leading
+    dimensions [2, 3] take the same path.  The plain version reads the
+    same parameters (float32 ones exactly, in float64)."""
+    from pyratbay_tpu_torch.atmosphere import profiles
+    press = profiles.pressure(1e-6, 100.0, 51)
+    grav = None if gravity == 'none' else np.linspace(700.0, 1400.0, 51)
+    fn = profiles.guillot_tp(press, grav)
+    dt = getattr(torch, dtype)
+    wide = torch.as_tensor(_guillot_params(512, seed=21), dtype=dt)
+    want = fn(wide[:, :6].double()).numpy()
+    wide = wide.to(cuda)
+    launches = profiles.guillot_cuda.launches
+    got = fn(wide[:, :6])
+    assert profiles.guillot_cuda.launches == launches + 1
+    assert got.dtype == dt and got.shape == (512, 51)
+    rtol = 1e-12 if dtype == 'float64' else 2.0**-23
+    np.testing.assert_allclose(got.cpu().double().numpy(), want, rtol=rtol,
+                               atol=0)
+    one = fn(wide[7, :6]).cpu().double().numpy()
+    np.testing.assert_allclose(one, want[7], rtol=rtol, atol=0)
+    lead = fn(wide[:6, :6].reshape(2, 3, 6)).cpu().double().numpy()
+    np.testing.assert_allclose(lead, want[:6].reshape(2, 3, 51), rtol=rtol,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_guillot_profile_is_one_launch(cuda):
+    """A batched forward's profile (512 chains, float32) is one kernel
+    launch and no copy or set by torch.profiler, and, where the profile
+    recorded the device's work, that launch the profile kernel's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pyratbay_tpu_torch.atmosphere import profiles
+    fn = profiles.guillot_tp(profiles.pressure(1e-6, 100.0, 51))
+    params = torch.as_tensor(_guillot_params(512, seed=22)[:, :6],
+                             dtype=torch.float32, device=cuda)
+    fn(params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(params)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host = {e.key: e.count for e in events if e.device_type == DeviceType.CPU}
+    assert sum(n for k, n in host.items() if 'LaunchKernel' in k) == 1, host
+    assert not any('Memcpy' in k or 'Memset' in k for k in host), host
+    device = [e for e in events if e.device_type != DeviceType.CPU]
+    if device:
+        assert sum(e.count for e in device) == 1, [e.key for e in device]
+        assert 'guillot_tp_kernel' in device[0].key
+
+
+@pytest.mark.cuda
+def test_cuda_guillot_kernel_refuses_what_it_cannot_read(cuda):
+    """float16 parameters raise TypeError, fewer than six a row
+    ValueError; a CPU tensor is not the kernel's."""
+    from pyratbay_tpu_torch.atmosphere import profiles
+    pb = torch.ones(5, device=cuda)
+    with pytest.raises(TypeError, match='float32 or float64'):
+        profiles.guillot_cuda(torch.ones((2, 6), dtype=torch.float16,
+                                         device=cuda), pb)
+    with pytest.raises(ValueError, match='6 parameters'):
+        profiles.guillot_cuda(torch.ones((2, 5), device=cuda), pb)
+    with pytest.raises(TypeError, match='CUDA'):
+        profiles.guillot_cuda(torch.ones((2, 6)), pb.cpu())
